@@ -1,0 +1,36 @@
+"""GRU cell in the torch/cuDNN convention.
+
+Two bias vectors, gate order r, z, n along the 3H axis, and the reset gate
+applied to the projected hidden state with ``bh_n`` inside it:
+``n = tanh(gi_n + r * (h @ wh_n + bh_n))``. Weights are stored for
+``x @ W``: ``wi [in, 3H]``, ``wh [H, 3H]``.
+"""
+
+import torch
+
+from .nn import uniform
+
+
+def init_gru_params(gen, in_dim, h_dim, device="cpu"):
+    bound = 1.0 / h_dim ** 0.5
+    return {
+        "wi": uniform(gen, (in_dim, 3 * h_dim), bound, device),
+        "wh": uniform(gen, (h_dim, 3 * h_dim), bound, device),
+        "bi": uniform(gen, (3 * h_dim,), bound, device),
+        "bh": uniform(gen, (3 * h_dim,), bound, device),
+    }
+
+
+def _gates(gi, gh, h):
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
+
+
+def gru_cell_pregated(params, gi, h):
+    """One step with the input projection already applied (gi = x@wi+bi)."""
+    gh = h @ params["wh"] + params["bh"]
+    return _gates(gi, gh, h)

@@ -1,0 +1,430 @@
+"""CLaSS sampling pipeline.
+
+Fit the attribute-conditioned marginal posterior Q_xi^a(z) (GMM by EM on
+the device), fit latent logistic-regression attribute heads, then loop:
+one fused round per launch (latent/fused.py: draw, heads, accept,
+beam-decode on the device), dedup and physchem on the host, until enough
+accepted samples exist. Up to hw.rounds_in_flight rounds are queued ahead
+of the one being consumed; each round's results come back by an
+asynchronous copy.
+
+Each round draws from its own torch.Generator seeded from (cfg.seed,
+round_ix), so the candidate stream does not depend on the schedule.
+"""
+
+import csv
+import datetime
+import inspect
+import json
+import logging
+import os
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from . import config as C
+from .api import (load_trained_model, get_model_and_vocab_path,
+                  get_result_for_model, load_vocab)
+from .evals.peptide_evals import modlamp_from_tokens
+from .latent import density, fused, logreg
+from .utils import runtime
+from .vis import build_index
+
+LOG = logging.getLogger("GenerationAPI")
+
+Q_KWARGS = {"n_components": None, "z_num_samples": 10,
+            "covariance_type": None}
+Q_CLASSES = {"mogQ": density.mogQ, "fullQ": density.fullQ,
+             "gaussianQ": density.gaussianQ}
+
+# beam width of every pipeline decode
+DECODE_BEAM_SIZE = 5
+
+
+def resolve_QClass(name):
+    try:
+        return Q_CLASSES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown QClass {name!r}; one of {sorted(Q_CLASSES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# encodings
+# ---------------------------------------------------------------------------
+
+def load_states(cfg, splits=("train", "test")):
+    """{split: {mu, logvar, label, ...}} from the states dumps."""
+    out = {}
+    for split in splits:
+        fname = build_index.states_path(cfg.savepath, split, cfg.vae.n_iter)
+        if not os.path.exists(fname):
+            raise FileNotFoundError(
+                f"need dumped states at {fname}, run static_eval --long first")
+        out[split] = build_index.read_states(fname)
+    return out
+
+
+def get_encodings_from_states(states, query, attributes):
+    """Rows of one split's states matching {attr_name: label}."""
+    attr_to_colix = {k: i for i, (k, _) in enumerate(attributes)}
+    mu = np.asarray(states["mu"]).astype(np.float64)
+    logvar = np.asarray(states["logvar"]).astype(np.float64)
+    lab = np.asarray(states["label"])
+    sel = np.ones(lab.shape[0], bool)
+    for attr_name, val in query.items():
+        sel &= lab[:, attr_to_colix[attr_name]] == val
+    return mu[sel], logvar[sel]
+
+
+# ---------------------------------------------------------------------------
+# Q fit + latent classifiers
+# ---------------------------------------------------------------------------
+
+def fitQ_and_test(cfg, QClass, QKwargs, states, Q_select=None, device="cpu"):
+    """Fit Q on the train split's selection; NLL on train and test."""
+    Q_select = Q_select or {}
+    attributes = C.dataset_spec(cfg)["attributes"]
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    mu, logvar = get_encodings_from_states(states["train"], Q_select,
+                                           attributes)
+    # keep only the kwargs this Q family's __init__ accepts
+    accepts = set(inspect.signature(QClass.__init__).parameters)
+    qkw = {k: v for k, v in QKwargs.items()
+           if v is not None and k in accepts}
+    if "gen" in accepts:
+        qkw["gen"] = gen
+    Q = QClass(np.asarray(mu, np.float32), np.asarray(logvar, np.float32),
+               device=device, **qkw)
+    if hasattr(Q, "info"):
+        LOG.info("mog-%s. Converged: %s in %s iters, "
+                 "log likelihood lower bound: %.4f",
+                 qkw.get("n_components"), Q.info.converged, Q.info.n_iter,
+                 Q.info.lower_bound)
+    LOG.info("Fitted %s %s on selection %s", QClass.__name__,
+             str({k: v for k, v in qkw.items() if k != "gen"}),
+             str(Q_select))
+    metrics = {}
+    for name, split in (("a,tr", "train"), ("a,hld", "test")):
+        points = get_encodings_from_states(states[split], Q_select,
+                                           attributes)
+        metrics[name] = density.evaluate_nll(Q, points, gen=gen)
+    return Q, metrics
+
+
+def build_clfZ(cfg, attr, states, attributes=None, device="cpu"):
+    """Latent logistic-regression head attr=1 vs attr=0 on encoder means."""
+    attributes = attributes or C.dataset_spec(cfg)["attributes"]
+    zpos_mu, _ = get_encodings_from_states(states["train"], {attr: 1},
+                                           attributes)
+    zneg_mu, _ = get_encodings_from_states(states["train"], {attr: 0},
+                                           attributes)
+    X = torch.as_tensor(np.concatenate([zpos_mu, zneg_mu]),
+                        dtype=torch.float32, device=device)
+    y = torch.cat([torch.ones(len(zpos_mu), device=device),
+                   torch.zeros(len(zneg_mu), device=device)])
+    clf, _ = logreg.fit(X, y)
+    acc = float(logreg.accuracy(clf, X, y))
+    LOG.info("Fitted LogReg classifier in z-space, on attr=%s.", attr)
+    LOG.info("num samples: %d pos, %d neg. train accuracy=%.5f",
+             len(zpos_mu), len(zneg_mu), acc)
+    return clf
+
+
+# ---------------------------------------------------------------------------
+# rounds
+# ---------------------------------------------------------------------------
+
+def round_capacity(cfg, n_samples):
+    """Decode-slot capacity for hw.decode_mode="accepted", or None for the
+    decode-all reference contract."""
+    if cfg.hw.get("decode_mode", "all") != "accepted":
+        return None
+    frac = float(cfg.hw.get("accept_cap_frac", 0.5))
+    return min(max(int(round(n_samples * frac)), 1), n_samples)
+
+
+def round_generator(seed, round_ix, device):
+    """The generator of round ``round_ix``, seeded from (seed, round_ix)."""
+    mixed = np.random.SeedSequence([int(seed), int(round_ix)])
+    gen = torch.Generator(device=device)
+    return gen.manual_seed(int(mixed.generate_state(1, np.uint64)[0]))
+
+
+def launch_round(cfg, model, params, Q, n_samples, gen):
+    """Enqueue one round's device work and an asynchronous copy of its
+    results to the host.
+
+    Returns (host, event): host = (z, scores, accept, tokens, valid) as CPU
+    tensors, readable once ``event`` (None on the CPU) has completed.
+    Under hw.decode_mode="all" valid is None; under "accepted" z, scores
+    and tokens hold the compacted slots and valid marks real ones."""
+    capacity = round_capacity(cfg, n_samples)
+    draws = fused.round_draws(gen, Q._sampler()[1], n_samples)
+    out = fused.fused_round(
+        model, params, draws, Q, beam_size=DECODE_BEAM_SIZE,
+        decode_dtype=cfg.hw.get("gen_dtype", "float32"), capacity=capacity)
+    z, scores, accept, tokens = out[:4]
+    valid = out[5] if capacity is not None else None
+    # z is kept only as a float16 artifact column, token ids fit a byte
+    z = z.to(torch.float16)
+    if model.n_vocab < 256:
+        tokens = tokens.to(torch.uint8)
+    dev = z.device
+    cpu = lambda t: None if t is None else t.to("cpu", non_blocking=True)
+    host = (cpu(z), {k: cpu(v) for k, v in scores.items()}, cpu(accept),
+            cpu(tokens), cpu(valid))
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+    return host, event
+
+
+def canonical_keys(tokens):
+    """Dedup keys for decoded token rows: each row's residue tokens
+    (> EOS_IDX) left-packed over a zero tail, exactly the content the
+    decoded string shows. Returns an iterator of bytes."""
+    residue = tokens > 3  # specials pinned at 0..3 (vocab contract)
+    order = np.argsort(~residue, axis=1, kind="stable")
+    keys = np.take_along_axis(np.where(residue, tokens, 0), order, axis=1)
+    return map(bytes, keys)
+
+
+class BeamCanaryError(RuntimeError):
+    """A round's unique-sequence ratio collapsed in the CUDA beam kernel."""
+
+
+def beam_canary_check(cfg, device, n_rows, n_unique, context=""):
+    """CUDA beam kernel canary: a tape-corruption fault collapses
+    within-round uniqueness. Below hw.beam_canary_floor on a CUDA device
+    it raises (the JAX package flips to its XLA arm instead; here a quiet
+    switch would hide the kernel). On the CPU the plain version decodes
+    and low uniqueness is the model's own. Returns False when the check
+    passes or does not apply."""
+    floor = float(cfg.hw.get("beam_canary_floor", 0.02))
+    min_rows = int(cfg.hw.get("beam_canary_min_rows", 256))
+    if floor <= 0 or n_rows < min_rows or torch.device(device).type != "cuda":
+        return False
+    if n_unique / max(n_rows, 1) >= floor:
+        return False
+    raise BeamCanaryError(
+        f"beam canary tripped{f' ({context})' if context else ''}: "
+        f"{n_unique}/{n_rows} unique decoded sequences "
+        f"(< hw.beam_canary_floor={floor:.3f}) from the CUDA beam kernel; "
+        f"hold the kernel against its plain version with chip_smoke.py, or "
+        f"rerun with --device cpu")
+
+
+def _log_round_rates(n_accept_z, n_accept, n_total, dropped):
+    if dropped > 0:
+        LOG.info("Dropped %d duplicate samples", dropped)
+    LOG.info("Q_xi(z|a) rejection sampling acceptance rate: "
+             "%d/%d = %.4f", n_accept_z, n_total,
+             100.0 * n_accept_z / max(n_total, 1))
+    LOG.info("     - full filter pipeline accepted: %d/%d = %.4f",
+             n_accept, n_total, 100.0 * n_accept / max(n_total, 1))
+
+
+def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
+                         device):
+    """Rounds until n_samples_acc unique accepted samples exist.
+
+    Returns (samples, stats): samples is a dict of columns, in file order
+    (peptide, z, accept_z, scores..., H, uH, charge, accept)."""
+    depth = max(int(cfg.hw.get("rounds_in_flight", 2)), 1)
+    seen = set()
+    store = {"peptide": [], "z": [], "accept_z": [], "H": [], "uH": [],
+             "charge": []}
+    score_store = {}
+    n_total = n_accept = n_cand_seen = n_accept_z_seen = 0
+    round_ix = 0
+    inflight = deque()
+
+    def launch_one():
+        nonlocal round_ix
+        round_ix += 1
+        LOG.info("Round #%d (x%d candidates per launch)", round_ix,
+                 round_size)
+        inflight.append(launch_round(
+            cfg, model, params, Q, round_size,
+            round_generator(cfg.seed, round_ix, device)))
+
+    rounds_consumed = 0
+    while True:
+        while len(inflight) < depth:
+            launch_one()
+        (z, scores, accept_full, tokens, valid), event = inflight.popleft()
+        if event is not None:
+            event.synchronize()
+        rounds_consumed += 1
+        z, tokens = z.numpy(), tokens.numpy()
+        accept_full = accept_full.numpy()
+        scores = {k: v.numpy() for k, v in scores.items()}
+        n_candidates = accept_full.shape[0]
+        if valid is not None:
+            # accepted-only decode: keep the valid compacted slots; every
+            # kept row is accepted by construction
+            v = valid.numpy()
+            over_cap = int(accept_full.sum()) - int(v.sum())
+            if over_cap > 0:
+                LOG.info("Accepted candidates beyond decode capacity "
+                         "dropped: %d", over_cap)
+            z, tokens = z[v], tokens[v]
+            scores = {k: s[v] for k, s in scores.items()}
+            accept_z = np.ones(tokens.shape[0], bool)
+        else:
+            accept_z = accept_full
+
+        keys = list(canonical_keys(tokens))
+        beam_canary_check(cfg, device, len(keys), len(set(keys)),
+                          context=f"campaign round {rounds_consumed}")
+        keep = np.empty(tokens.shape[0], bool)
+        for i, rb in enumerate(keys):
+            keep[i] = rb not in seen
+            seen.add(rb)
+        kept_tokens = tokens[keep].astype(np.int64)
+        store["peptide"].extend(vocab.to_sentences_batch(
+            kept_tokens, print_special_tokens=False))
+        H, uH, charge = modlamp_from_tokens(kept_tokens, vocab.itos)
+        store["z"].append(z[keep])
+        store["accept_z"].append(accept_z[keep])
+        store["H"].append(H)
+        store["uH"].append(uH)
+        store["charge"].append(charge)
+        for k, s in scores.items():
+            score_store.setdefault(k, []).append(s[keep])
+        n_total += int(keep.sum())
+        n_accept += int(accept_z[keep].sum())
+        n_cand_seen += n_candidates
+        n_accept_z_seen += int(accept_full.sum())
+        _log_round_rates(n_accept_z_seen, n_accept, n_cand_seen,
+                         keep.size - int(keep.sum()))
+        if n_total >= args.n_samples_acc and n_accept >= args.n_samples_acc:
+            break
+    # rounds still in flight are dropped unread (their draws are i.i.d.)
+
+    samples = {
+        "peptide": store["peptide"],
+        **{k: np.concatenate(store[k]) for k in ("z", "accept_z")},
+        **{k: np.concatenate(v) for k, v in score_store.items()},
+        **{k: np.concatenate(store[k]) for k in ("H", "uH", "charge")},
+    }
+    samples["accept"] = samples["accept_z"].copy()
+    stats = {"rounds": rounds_consumed, "rounds_launched": round_ix,
+             "candidates": n_cand_seen, "accepted_z": n_accept_z_seen,
+             "unique": n_total, "unique_accepted": n_accept}
+    return samples, stats
+
+
+# ---------------------------------------------------------------------------
+# output
+# ---------------------------------------------------------------------------
+
+def _save_csv_pkl(samples, fn, idx):
+    """Rows ``idx`` of ``samples`` as ``fn``.csv (no z column, an ``idx``
+    label, written with the csv module) and ``fn``.pkl (a pandas DataFrame
+    with every column; pandas is imported only here)."""
+    cols = {k: np.asarray(v)[idx] for k, v in samples.items()}
+    names = [k for k in cols if k != "z"]
+    with open(fn + ".csv", "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["idx"] + names)
+        w.writerows(zip(idx.tolist(), *(cols[k].tolist() for k in names)))
+    import pandas as pd
+    cols["z"] = list(cols["z"])
+    pd.DataFrame(cols, index=idx).to_pickle(fn + ".pkl")
+
+
+def save_samples(samples, basedir, fn_prefix):
+    """<prefix>_<date>.plain.txt / .csv / .pkl, and the accepted subset as
+    <prefix>_<date>.accepted.<n>.csv / .pkl. Returns the path stem."""
+    outfn = os.path.join(basedir, fn_prefix)
+    outfn += "_{}".format(datetime.datetime.now().isoformat().split("T")[0])
+    with open(outfn + ".plain.txt", "w") as fh:
+        fh.write("\n".join(samples["peptide"]))
+    _save_csv_pkl(samples, outfn, np.arange(len(samples["peptide"])))
+    LOG.info("Full sample list written to %s.pkl/csv", outfn)
+    accepted = np.nonzero(samples["accept"])[0]
+    accepted_fn = f"{outfn}.accepted.{len(accepted)}"
+    _save_csv_pkl(samples, accepted_fn, accepted)
+    LOG.info("Accepted sample list written to %s.pkl/csv", accepted_fn)
+    return outfn
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def _check_slice(cfg, args):
+    if args.Q_from_full_dataloader:
+        raise NotImplementedError(
+            "--Q_from_full_dataloader needs the encoder, not ported yet "
+            "(ROADMAP.md A2)")
+    if not cfg.hw.get("fused_rounds", True):
+        raise NotImplementedError(
+            "hw.fused_rounds=0 (the serial loop) is not ported yet "
+            "(ROADMAP.md A6)")
+    if int(cfg.hw.get("dp", 1)) != 1:
+        raise NotImplementedError(
+            "hw.dp != 1 is not ported yet (ROADMAP.md A12)")
+
+
+def run(cfg, args, device="cuda"):
+    """Full pipeline main: read the run dir, then run_from_states. Runs
+    on CUDA unless ``device`` is the CPU; without CUDA it raises."""
+    _check_slice(cfg, args)
+    device = runtime.setup(device)
+    model_path, vocab_path, _ = get_model_and_vocab_path(cfg)
+    LOG.info("Load model, vocab.")
+    vocab = load_vocab(vocab_path)
+    model, params = load_trained_model(model_path, vocab.size(), cfg,
+                                       device=device)
+    LOG.info("Loaded model succesfully.")
+    try:
+        metrics = get_result_for_model(model_path)
+        LOG.info("Model metrics: %s", json.dumps(metrics)[:500])
+    except FileNotFoundError:
+        LOG.info("No result.json next to model; continuing.")
+    states = load_states(cfg)
+    return run_from_states(cfg, args, model, params, vocab, states,
+                           device)[0]
+
+
+def run_from_states(cfg, args, model, params, vocab, states, device="cuda"):
+    """Everything run does after its file reads: fit Q and the heads on
+    ``states`` ({'train': ..., 'test': ...} with mu, logvar, label),
+    sample, write the sample files. Returns (path stem, samples, stats).
+    ``model``/``params`` must already be on ``device``."""
+    _check_slice(cfg, args)
+    device = runtime.setup(device)
+    attributes = C.dataset_spec(cfg)["attributes"]
+    LOG.info("Fit attribute-conditioned marginal posterior Q_xi^a(z)")
+    qkwargs = dict(Q_KWARGS)
+    for k in qkwargs:
+        if hasattr(args, "Q_" + k):
+            qkwargs[k] = getattr(args, "Q_" + k)
+    QClass = resolve_QClass(getattr(args, "QClass", "mogQ"))
+    q_select = {"amp": 1} if args.Q_select_amppos else {}
+    Q, q_metrics = fitQ_and_test(cfg, QClass, qkwargs, states, q_select,
+                                 device=device)
+    LOG.info("Q Fit metrics: %s", json.dumps(q_metrics, indent=4))
+    z_clfs = {attr: build_clfZ(cfg, attr, states, attributes, device)
+              for attr in ["amp", "tox"]}
+    Q.init_attr_classifiers(z_clfs, clf_targets={"amp": 1, "tox": 0})
+
+    rpd = max(int(cfg.hw.get("rounds_per_dispatch", 1)), 1)
+    round_size = args.n_samples_per_round * rpd
+    t_sampling = time.perf_counter()
+    samples, stats = _fused_sampling_loop(cfg, args, model, params, vocab,
+                                          Q, round_size, device)
+    dt = time.perf_counter() - t_sampling
+    n_acc = int(np.sum(samples["accept"]))
+    stats["seconds"] = dt
+    LOG.info("CLaSS throughput: %.1f accepted samples/sec "
+             "(%d accepted, %d candidates, %.2fs)", n_acc / max(dt, 1e-9),
+             n_acc, len(samples["peptide"]), dt)
+    outfn = save_samples(samples, cfg.savepath, args.samples_outfn_prefix)
+    return outfn, samples, stats
