@@ -299,8 +299,8 @@ def default_config():
         pp=1,
         mesh_axis="data",
         zero=False,
-        donate_state=True,
-        unroll=50,
+        donate_state=True,    # parse only: JAX dispatch devices with no
+        unroll=50,            # effect in the port (it runs eagerly)
         fused_rounds=True,    # CLaSS: one round = draw, heads, accept, decode
                               # (port: the serial loop is not ported yet)
         rounds_per_dispatch=1,  # CLaSS rounds drawn per launch
@@ -311,8 +311,12 @@ def default_config():
         accept_cap_frac=0.5,  # decode_mode=accepted: slot capacity as a
                               # fraction of the round size
         gen_dtype="float32",  # CLaSS decode compute dtype
-        pallas_train="auto",
-        flat_optimizer="auto",
+        pallas_train="auto",  # "auto" and "on": the device decides, the
+                              # CUDA GRU recurrence kernels
+                              # (ops/gru_kernel.py) on CUDA tensors, their
+                              # plain versions on CPU tensors; "off" raises
+        flat_optimizer="auto",  # "on" raises: the flat-vector Adam is not
+                                # ported
         pallas_beam="auto",   # kept so JAX command lines parse; "auto" and
                               # "on" both mean the device decides: the CUDA
                               # beam kernel (ops/beam_kernel.py) on CUDA
@@ -450,6 +454,17 @@ def check_beam_flag(cfg):
             "torch version")
 
 
+def check_train_flag(cfg):
+    """hw.pallas_train may be auto or on; the device picks the route of the
+    training recurrences. "off" asked the JAX package for its XLA scan;
+    on CUDA tensors the port runs the kernels or raises."""
+    if _parse_tristate("hw.pallas_train", cfg.hw.pallas_train) is False:
+        raise ValueError(
+            "hw.pallas_train off is not supported: on CUDA tensors the GRU "
+            "recurrences run in their CUDA kernels; pass --device cpu for "
+            "the plain torch versions")
+
+
 def finalize(cfg, overrides=None):
     """Derive paths and schedules (the JAX package's finalize without its
     jax-side switches); validates the tristate hardware flags."""
@@ -516,8 +531,23 @@ def finalize(cfg, overrides=None):
     # the port reads these where they are used (no module globals); parse
     # them here so a bad spelling fails before any work starts
     check_beam_flag(cfg)
-    _parse_tristate("hw.pallas_train", cfg.hw.pallas_train)
+    check_train_flag(cfg)
     _parse_tristate("hw.flat_optimizer", cfg.hw.flat_optimizer)
+
+    for cfgv, names in ((cfg.vae, (
+            ("gen_samples_path", "vae_gen.txt"),
+            ("eval_path", "vae_eval.txt"),
+            ("fasta_gen_samples_path", "vae_gen.fasta"))), (cfg.full, (
+            ("gen_samples_path", "full_gen.txt"),
+            ("samez_samples_path", "full_samez.txt"),
+            ("posz_samples_path", "full_posz.txt"),
+            ("interp_samples_path", "full_interp.txt"),
+            ("eval_path", "full_eval.txt"),
+            ("pos_eval_path", "full.pos_eval.txt"),
+            ("fasta_gen_samples_path", "full_gen.fasta"),
+            ("fasta_pos_samples_path", "pos_gen.fasta")))):
+        for field, fn in names:
+            cfgv[field] = os.path.join(cfg.savepath, fn)
     return cfg
 
 

@@ -2,12 +2,14 @@
 
 The port's copy of what it needs of the JAX package's ``data/vocab.py``
 (the port imports nothing of that package). The four reserved indices are
-load-bearing: generation masks with PAD/EOS and beam search blocks START.
+load-bearing: the recon loss ignores PAD, generation masks with PAD/EOS and
+beam search blocks START.
 File format on disk is 'word ix' text lines.
 """
 
 import codecs
 import os
+from collections import Counter
 
 import numpy as np
 
@@ -42,6 +44,15 @@ class Vocab:
         return len(self.itos)
 
     @classmethod
+    def build(cls, token_iter):
+        """Frequency-sorted vocab (ties alphabetical), specials first."""
+        counts = Counter()
+        for toks in token_iter:
+            counts.update(toks)
+        words = sorted(counts, key=lambda w: (-counts[w], w))
+        return cls(SPECIALS + [w for w in words if w not in SPECIALS])
+
+    @classmethod
     def load(cls, path):
         pairs = []
         with codecs.open(path, "r", "utf-8") as f:
@@ -63,6 +74,27 @@ class Vocab:
         with open(path, "w", encoding="utf-8") as f:
             for word, ix in self.stoi.items():
                 f.write(f"{word} {ix}\n")
+
+    def to_ix(self, seq, fix_length=None):
+        """Tokenized sequence -> [START] + tokens + [EOS] (+ PAD to width).
+        ``fix_length`` is the total output width; tokens are cut to
+        fix_length - 2."""
+        if isinstance(seq, str):
+            seq = seq.split()
+        toks = [t for t in seq if t not in (START_TOK, EOS_TOK)]
+        if fix_length is not None:
+            toks = toks[:fix_length - 2]
+        ixs = ([START_IDX] + [self.stoi.get(t, UNK_IDX) for t in toks]
+               + [EOS_IDX])
+        if fix_length is not None:
+            ixs = ixs + [PAD_IDX] * (fix_length - len(ixs))
+        return ixs
+
+    def to_sentence(self, ixs, print_special_tokens=True):
+        ixs = [int(i) for i in ixs]
+        if not print_special_tokens:
+            ixs = [i for i in ixs if i not in self.special_ix]
+        return " ".join(self.itos[i] for i in ixs)
 
     def to_sentences_batch(self, tokens, print_special_tokens=True):
         """2-D token matrix -> list of sentences (one numpy gather for the

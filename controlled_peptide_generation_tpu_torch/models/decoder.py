@@ -1,16 +1,23 @@
-"""GRU decoder: the free-running step used by the beam search.
+"""GRU decoder: the teacher-forced pass of training and the free-running
+step of sampling and the beam search.
 
 The hidden state is concat(z, c) (h_dim = z_dim + c_dim) and the input at
 every step is [emb(token), z, c]. Its GRU input projection factors into a
 token part, a [V, 3H] table, and a (z, c) part, one [B, 3H] row per
 sequence; both are loop-invariant inside a decode, so only the recurrent
 [B, H] x [H, 3H] product remains per step.
+
+In the teacher-forced pass, word dropout turns inputs into UNK before the
+embedding, the whole sequence runs through ``gru_scan`` from h0 = zc, and
+the head applies output dropout. The dropout masks come from a
+``torch.Generator`` or are passed in.
 """
 
 import torch
 
+from ..data.vocab import UNK_IDX
 from ..ops import nn
-from ..ops.gru import init_gru_params, gru_cell_pregated
+from ..ops.gru import init_gru_params, gru_cell_pregated, gru_scan
 
 
 def init(gen, emb_dim, output_dim, h_dim, device="cpu"):
@@ -23,6 +30,27 @@ def init(gen, emb_dim, output_dim, h_dim, device="cpu"):
 
 def init_hidden(z, c):
     return torch.cat([z, c], dim=1)
+
+
+def _head(params, rnn_out, p_out_dropout, train, gen=None, keep=None):
+    rnn_out = nn.dropout(rnn_out, p_out_dropout, train, gen, keep)
+    return nn.linear(params["out"], rnn_out)
+
+
+def apply_teacher_forced(params, emb_params, tokens, z, c, train,
+                         p_word_dropout=0.3, p_out_dropout=0.3, gen=None,
+                         word_drop=None, out_keep=None):
+    """tokens: [B, T] int -> logits [B, T, V]. ``word_drop`` [B, T] and
+    ``out_keep`` [B, T, H] (bool) are the dropout masks; those not given
+    are drawn from ``gen``."""
+    x = nn.word_dropout(tokens, p_word_dropout, UNK_IDX, train, gen,
+                        word_drop)
+    emb = nn.embed(emb_params, x)                          # [B, T, E]
+    zc = init_hidden(z, c)                                 # [B, H]
+    zc_t = zc[:, None, :].expand(zc.shape[0], tokens.shape[1], zc.shape[1])
+    inputs = torch.cat([emb, zc_t], dim=2)
+    rnn_out, _ = gru_scan(params["gru"], inputs, zc)
+    return _head(params, rnn_out, p_out_dropout, train, gen, out_keep)
 
 
 def step_tables(params, emb_params, z, c):

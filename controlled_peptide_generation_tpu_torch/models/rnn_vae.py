@@ -1,11 +1,16 @@
-"""The GRU-decoder part of the composite sequence autoencoder.
+"""The GRU family of the composite sequence autoencoder.
 
-The port carries what the CLaSS round needs: the shared word embedding,
-the GRU decoder step, the c prior and the (identity) flow. Parameters are
-a nested dict of tensors named as in the JAX package, so checkpoints cross
-over unchanged. The encoder, the CNN classifier, the deconv and
-transformer families, skip connections and flows are not ported yet
-(ROADMAP.md) and raise NotImplementedError.
+The port carries the shared word embedding, the biGRU encoder, the GRU
+decoder (teacher-forced pass and free-running step), the z and c priors
+and the (identity) flow: what phase-1 training and the CLaSS round run.
+Parameters are a nested dict of tensors named as in the JAX package, so
+checkpoints cross over unchanged. The CNN classifier (no gradient reaches
+it in phase 1), the deconv and transformer families, skip connections and
+flows are not ported yet (ROADMAP.md) and raise NotImplementedError.
+
+Every random draw of a forward pass (the reparameterization noise, the c
+prior, the dropout masks) comes from a ``torch.Generator`` or is passed
+in a ``draws`` dict, so tests can feed the JAX package's draws.
 """
 
 from dataclasses import dataclass, field
@@ -14,6 +19,7 @@ import torch
 
 from ..ops import nn
 from . import decoder as dec
+from . import encoder as enc
 
 
 @dataclass(frozen=True, eq=False)
@@ -28,6 +34,10 @@ class RNNVAE:
     G_args: dict = field(default_factory=dict)
 
     def __post_init__(self):
+        if self.E_class != "gru":
+            raise NotImplementedError(
+                f"the {self.E_class} encoder family is not ported yet "
+                f"(ROADMAP.md A11)")
         if self.G_class != "gru":
             raise NotImplementedError(
                 f"the {self.G_class} decoder family is not ported yet "
@@ -44,6 +54,10 @@ class RNNVAE:
         return self.z_dim + self.c_dim
 
     @property
+    def E_class(self):
+        return self.E_args.get("E_class", "gru")
+
+    @property
     def G_class(self):
         return self.G_args.get("G_class", "gru")
 
@@ -52,16 +66,40 @@ class RNNVAE:
         return dict(self.G_args.get("GRU_args", {}))
 
     def init_params(self, gen, device="cpu"):
-        """Seeded embedding + GRU decoder parameters (the parts the port
-        runs; a checkpoint written from them loads in the JAX package,
-        whose loader keeps fresh values for the missing encoder and
-        classifier)."""
+        """Seeded embedding, encoder and decoder parameters (the parts the
+        port runs; a checkpoint written from them loads in the JAX
+        package, whose non-strict loader keeps fresh values for the
+        missing classifier)."""
         return {
             "emb": nn.init_embedding(gen, self.n_vocab, self.emb_dim, device),
+            "enc": enc.init(gen, emb_dim=self.emb_dim, z_dim=self.z_dim,
+                            device=device,
+                            **{k: v for k, v in self.E_args.items()
+                               if k not in ("E_class", "T_args")}),
             "dec": dec.init(gen, emb_dim=self.emb_dim + self.h_dec,
                             output_dim=self.n_vocab, h_dim=self.h_dec,
                             device=device),
         }
+
+    # ---- encoder / latent ----------------------------------------------
+
+    def encode(self, params, inputs):
+        """inputs: [B, T] int tokens -> (mu [B, Z], logvar [B, Z])."""
+        emb = nn.embed(params["emb"], inputs)
+        return enc.apply(params["enc"], emb,
+                         h_dim=self.E_args.get("h_dim", 80),
+                         biGRU=self.E_args.get("biGRU", True))
+
+    def sample_z(self, mu, logvar, gen=None, eps=None):
+        """mu + exp(logvar / 2) * eps, eps ~ N(0, I) from ``gen`` unless
+        given."""
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=gen, device=mu.device,
+                              dtype=mu.dtype)
+        return mu + torch.exp(logvar / 2.0) * eps
+
+    def sample_z_prior(self, gen, n, device="cpu"):
+        return torch.randn((n, self.z_dim), generator=gen, device=device)
 
     def sample_c_prior(self, gen, n, device="cpu"):
         """c ~ Cat([0.5, 0.5]) as one-hot rows."""
@@ -75,12 +113,58 @@ class RNNVAE:
         """z -> (z_K, sum log|det J|); the identity for flow == 0."""
         return z, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
 
+    # ---- decoder ----------------------------------------------------------
+
+    def decode_train(self, params, tokens, z, c, train=True, gen=None,
+                     word_drop=None, out_keep=None):
+        """Teacher-forced logits [B, T, V]."""
+        g_args = self.gru_args
+        return dec.apply_teacher_forced(
+            params["dec"], params["emb"], tokens, z, c, train,
+            p_word_dropout=g_args.get("p_word_dropout", 0.3),
+            p_out_dropout=g_args.get("p_out_dropout", 0.3), gen=gen,
+            word_drop=word_drop, out_keep=out_keep)
+
     def decode_step(self, params, token_hard, token_soft, z, c, h):
         return dec.apply_step(params["dec"], params["emb"], token_hard,
                               token_soft, z, c, h)
 
     def init_decoder_hidden(self, params, z, c):
         return dec.init_hidden(z, c)
+
+    # ---- full teacher-forced forward ----------------------------------------
+
+    def forward(self, params, sequences, q_c="prior", sample_z=1,
+                labels=None, train=True, gen=None, draws=None):
+        """Returns ((mu, logvar), (z, c), dec_logits).
+
+        ``draws`` may hold "eps" [B, Z] (reparameterization noise),
+        "c_bits" [B] (bool, the c prior), "word_drop" [B, T] and
+        "out_keep" [B, T, H] (bool, the dropout masks); the others are
+        drawn from ``gen`` in that order."""
+        draws = draws or {}
+        mu, logvar = self.encode(params, sequences)
+        if sample_z == "max":
+            z = mu
+        elif sample_z == 1:
+            z = self.sample_z(mu, logvar, gen, draws.get("eps"))
+        else:
+            raise ValueError(f"sample_z must be 1 or 'max': {sample_z!r}")
+        if labels is not None:
+            c = nn.onehot(labels.long(), self.c_dim)
+        elif q_c == "prior":
+            bits = draws.get("c_bits")
+            c = (self.sample_c_prior(gen, sequences.shape[0],
+                                     device=sequences.device)
+                 if bits is None else self.c_from_bits(bits))
+        else:
+            raise NotImplementedError(
+                f"q_c={q_c!r} needs the CNN classifier, not ported yet "
+                f"(ROADMAP.md A9)")
+        dec_logits = self.decode_train(
+            params, sequences, z, c, train=train, gen=gen,
+            word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"))
+        return (mu, logvar), (z, c), dec_logits
 
 
 def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:

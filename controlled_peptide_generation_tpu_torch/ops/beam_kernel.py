@@ -13,27 +13,19 @@ raises. ``beam_scan_gru.launches`` counts kernel launches.
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 
 import torch
 
 from ..data.vocab import PAD_IDX, START_IDX, EOS_IDX
 from . import nn
+from .cuda_build import compile_library
 from .gru import _gates
 
 NEG = -1e20
 _MAX_V = 128          # kernel scope, as the JAX kernel's `applicable`
 _MAX_H = 127
 _MAX_TK = 256
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "beam_gru.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -53,14 +45,6 @@ def applicable(model, beam_size, dtype):
             and dtype in (torch.float32, torch.bfloat16))
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found at {path}; set CUDA_HOME")
-    return path
-
-
 def build():
     """Compile csrc/beam_gru.cu (once per source content) and load it.
     Returns the ctypes library; the nvcc output is kept in `build_log`."""
@@ -68,22 +52,7 @@ def build():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as fh:
-            digest = hashlib.sha256(fh.read()
-                                    + " ".join(NVCC_FLAGS).encode())
-        so = os.path.join(_BUILD_DIR,
-                          f"beam_gru_{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                                  capture_output=True, text=True,
-                                  timeout=600)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib, build_log = compile_library("beam_gru.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.beam_gru_f32.argtypes = [p] * 13 + [i] * 7 + [p]
         lib.beam_gru_f32.restype = i

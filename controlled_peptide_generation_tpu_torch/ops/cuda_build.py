@@ -1,0 +1,49 @@
+"""nvcc builds of the port's CUDA sources, bound with ctypes.
+
+Each source in ``csrc/`` exposes a plain C interface. ``compile_library``
+runs nvcc for sm_90a once per source content into ``build/torch_kernels/``
+(at the repository root, listed in .gitignore) and loads the shared
+library. Nothing is built when a module is imported: the wrappers call it
+at their first launch on a CUDA tensor.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found at {path}; set CUDA_HOME")
+    return path
+
+
+def compile_library(source):
+    """Compile csrc/<source> (skipped when a library of the same source
+    content and flags exists) and load it. Returns (ctypes.CDLL, the nvcc
+    output, empty when nothing was compiled)."""
+    src = os.path.join(CSRC, source)
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    so = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+    log = ""
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True, timeout=600)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so), log

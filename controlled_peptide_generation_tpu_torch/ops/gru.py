@@ -4,6 +4,11 @@ Two bias vectors, gate order r, z, n along the 3H axis, and the reset gate
 applied to the projected hidden state with ``bh_n`` inside it:
 ``n = tanh(gi_n + r * (h @ wh_n + bh_n))``. Weights are stored for
 ``x @ W``: ``wi [in, 3H]``, ``wh [H, 3H]``.
+
+``gru_scan`` runs a whole sequence: the input projection of every step is
+one product hoisted out of the recurrence, and the recurrence itself is
+``gru_kernel.gru_seq`` (the CUDA kernels on CUDA tensors, their plain
+versions on CPU tensors or inside ``gru_kernel.plain()``).
 """
 
 import torch
@@ -34,3 +39,20 @@ def gru_cell_pregated(params, gi, h):
     """One step with the input projection already applied (gi = x@wi+bi)."""
     gh = h @ params["wh"] + params["bh"]
     return _gates(gi, gh, h)
+
+
+def gru_scan(params, xs, h0, reverse=False):
+    """Full-sequence GRU: xs [B, T, in], h0 [B, H] -> (hs [B, T, H],
+    h_last [B, H]). With reverse=True the scan runs T-1..0 and hs[:, t]
+    is the state after consuming xs[:, t..T-1] (torch bidirectional
+    semantics); h_last is then the state after xs[:, 0]."""
+    from . import gru_kernel
+    gi_tm = (xs @ params["wi"] + params["bi"]).transpose(0, 1)  # [T, B, 3H]
+    if reverse:
+        gi_tm = gi_tm.flip(0)
+    hs_tm = gru_kernel.gru_seq(params["wh"], params["bh"],
+                               gi_tm.contiguous(), h0)
+    h_last = hs_tm[-1]
+    if reverse:
+        hs_tm = hs_tm.flip(0)
+    return hs_tm.transpose(0, 1), h_last

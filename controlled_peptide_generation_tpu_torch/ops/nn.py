@@ -7,6 +7,10 @@ the torch defaults the JAX package reproduces:
 * linear: weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in));
 * embedding: N(0, 1) with the PAD row zeroed;
 * GRU: all weights and biases ~ U(-1/sqrt(h_dim), 1/sqrt(h_dim)).
+
+The random layers (``dropout``, ``word_dropout``) draw their masks from a
+``torch.Generator`` or take them as arguments, so tests can feed the JAX
+package's draws.
 """
 
 import torch
@@ -61,3 +65,26 @@ def canonical_zeros(x):
 def table_lookup(table, ix):
     """table[ix] for a tiny [V, D] table: a plain gather."""
     return canonical_zeros(table)[ix.long()]
+
+
+def dropout(x, rate, train, gen=None, keep=None):
+    """Inverted dropout: x / (1 - rate) where kept, 0 elsewhere. ``keep``
+    (bool, x's shape) is the mask; without it one is drawn from ``gen``."""
+    if not train or rate <= 0.0:
+        return x
+    p_keep = 1.0 - rate
+    if keep is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < p_keep
+    return torch.where(keep, x / p_keep, torch.zeros_like(x))
+
+
+def word_dropout(tokens, rate, unk_idx, train, gen=None, drop=None):
+    """Replace tokens with UNK with probability ``rate`` (decoder input
+    corruption). ``drop`` (bool, tokens' shape) is the mask; without it
+    one is drawn from ``gen``."""
+    if not train or rate <= 0.0:
+        return tokens
+    if drop is None:
+        drop = torch.rand(tokens.shape, generator=gen,
+                          device=tokens.device) < rate
+    return torch.where(drop, torch.full_like(tokens, unk_idx), tokens)

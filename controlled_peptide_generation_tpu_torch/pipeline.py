@@ -148,9 +148,7 @@ def round_capacity(cfg, n_samples):
 
 def round_generator(seed, round_ix, device):
     """The generator of round ``round_ix``, seeded from (seed, round_ix)."""
-    mixed = np.random.SeedSequence([int(seed), int(round_ix)])
-    gen = torch.Generator(device=device)
-    return gen.manual_seed(int(mixed.generate_state(1, np.uint64)[0]))
+    return runtime.generator(device, seed, round_ix)
 
 
 def launch_round(cfg, model, params, Q, n_samples, gen):

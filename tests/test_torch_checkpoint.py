@@ -40,7 +40,9 @@ def test_jax_save_loads_bit_identical(tmp_path):
     cfg.model.z_dim, cfg.model.emb_dim, cfg.model.E_args.h_dim = 12, 10, 8
     cfg.max_seq_len = 10
     _, tp = load_trained_model(path, 13, cfg, device="cpu")
-    assert set(tp) == {"emb", "dec"}
+    assert set(tp) == {"emb", "enc", "dec"}
+    np.testing.assert_array_equal(tp["enc"]["gru_bwd"]["wh"].numpy(),
+                                  np.asarray(params["enc"]["gru_bwd"]["wh"]))
     np.testing.assert_array_equal(tp["dec"]["gru"]["wh"].numpy(),
                                   np.asarray(params["dec"]["gru"]["wh"]))
 
