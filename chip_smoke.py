@@ -6,11 +6,11 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. device: CUDA is required; prints the card's name and power limit;
-2. build: compiles the GRU beam kernel (csrc/beam_gru.cu) and the GRU
-   training recurrence kernels (csrc/gru_seq.cu) with nvcc, one process
-   per source, started together before torch is imported, so the imports
-   and the device's start-up run meanwhile; prints ptxas' registers and
-   spills;
+2. build: compiles the GRU beam kernel (csrc/beam_gru.cu), the GRU
+   training recurrence kernels (csrc/gru_seq.cu) and the transformer beam
+   kernel (csrc/tfm_beam.cu) with nvcc, one process per source, started
+   together before torch is imported, so the imports and the device's
+   start-up run meanwhile; prints ptxas' registers and spills;
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -18,6 +18,11 @@ Phases, each raising on failure (the script then exits non-zero):
    final scores within 1e-3 of each other; exact batch invariance (the
    first 2500 rows at B = 12288 equal B = 2500 bitwise); the same
    agreement at the edges of the kernel's scope (SCOPE_CASES);
+3t. the transformer beam kernel (B3) vs its plain version at the shipped
+   transformer width (d_model 128, 2 layers, d_ff 256, 4 heads, emb 150,
+   z 100, V 24, T 25, K 5, n_best 1, fp32, seeded weights) for B in
+   B3_BATCHES, with the same gates and batch invariance (B 12288 against
+   B 2500), and at the scope edges (B3_SCOPE_CASES);
 4. the GRU recurrence kernels (forward, backward, weight gradient) vs
    their plain versions at the encoder and decoder widths (in 150, H 80;
    in 252, H 102), T 25, B in B2_BATCHES, and at the scope edges
@@ -32,6 +37,10 @@ Phases, each raising on failure (the script then exits non-zero):
    until 100 unique accepted, in decode modes "all" and "accepted"; the
    beam kernel's launch count must rise; one round with the kernel and one
    with the plain version (plain=True) on the same draws must agree;
+5t. the transformer family's CLaSS main path, the same way: a seeded
+   full-width transformer checkpoint written by the port's saver, both
+   decode modes, the B3 kernel's launch count must rise, one round through
+   the kernel and one with plain=True on the same draws must agree;
 6. the training main path: ``main.main --phase 1 --dataset amp`` at the
    shipped width and batch 32 for 301 steps: the GRU kernels launched 3
    times per step each (plus the heldout forwards), finite losses, recon
@@ -40,7 +49,8 @@ Phases, each raising on failure (the script then exits non-zero):
    and draws through the kernels and inside gru_kernel.plain() must agree;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds, cuDNN's GRU, the cuBLAS product that the
-   weight-gradient kernel computes, train steps/s, seconds per phase), a
+   weight-gradient kernel computes, train steps/s, the transformer beam
+   and round times, seconds per phase), a
    `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
 """
@@ -75,12 +85,30 @@ MAX_HS_DELTA = 1e-4      # sequential FMAs against cuBLAS sums
 MAX_GRAD_REL = 1e-3      # of each gradient tensor's largest entry
 TRAIN_ITERS = 300
 ROUND_REPS = 21          # host-clock round timings: the host's CPU is shared
+# B3: the transformer beam at the shipped transformer width
+TFM_FLAGS = ["--model.E_args.E_class", "transformer",
+             "--model.G_args.G_class", "transformer"]
+B3_BATCHES = (1, 17, 37, 2500, 5000, 12288)
+# (what, T, K, min_length, n_best, model overrides) at the scope's edges
+B3_SCOPE_CASES = (
+    ("min_length 4, n_best 3", 25, 5, 4, 3, {}),
+    ("K 3", 25, 3, 1, 1, {}),
+    ("T*K 256", 16, 16, 1, 2, {}),
+    ("S 32", 31, 8, 1, 1, {"max_seq_len": 31}),
+    ("d_ff 512 (two ff chunks), 8 heads, V 127", 25, 5, 1, 1,
+     {"d_ff": 512, "n_heads": 8, "n_vocab": 127}))
 FP32_PEAK = 67e12        # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
 HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s, NVIDIA data sheet
 
 
+LOG_FILE = []          # the full log, also under chiprun_out/ (gitignored)
+
+
 def log(msg):
     print(msg, flush=True)
+    for fh in LOG_FILE:
+        fh.write(msg + "\n")
+        fh.flush()
 
 
 def cuda_ms(fn, reps):
@@ -114,6 +142,23 @@ def bound_ms(B):
     flops = B * K * T * 2 * (H * 3 * H + H * V)
     n_in = V * 3 * H + B * 3 * H + H * 3 * H + 3 * H + H * V + V + B * H
     n_out = 3 * B * T * K + B * K + 2 * B
+    t_ops, t_bytes = flops / FP32_PEAK, 4 * (n_in + n_out) / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def b3_bound_ms(B, T_=T, K_=K, L=2, D=128, F=256, V_=V, S=26):
+    """Least time of the transformer beam scan at batch B: per beam-token
+    the products' FLOP, 2 L (3D^2 + D^2 + 2 D F) + 2 D V, plus attention's
+    4 D (t+2) per layer at step t, over the fp32 peak; against the inputs
+    (weights, tables, the prefix rows) read once and the tapes written once
+    over the HBM rate."""
+    per_tok = 2 * L * (3 * D * D + D * D + 2 * D * F) + 2 * D * V_
+    flops = B * K_ * sum(per_tok + L * 4 * D * (t + 2) for t in range(T_))
+    weights = L * (3 * D * D + 3 * D + D * D + 5 * D + 2 * D * F + F) + (
+        2 * D + D * V_ + V_)
+    n_in = weights + V_ * D + S * D + 2 * L * B * D
+    n_out = 3 * B * T_ * K_ + B * K_ + 2 * B
     t_ops, t_bytes = flops / FP32_PEAK, 4 * (n_in + n_out) / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -164,7 +209,7 @@ def main():
         log_ = cuda_build.compile_library(source)[1]
         return time.perf_counter() - t_build, log_
 
-    sources = ("beam_gru.cu", "gru_seq.cu")
+    sources = ("beam_gru.cu", "gru_seq.cu", "tfm_beam.cu")
     pool = ThreadPoolExecutor(len(sources))
     builds = [pool.submit(timed_build, src) for src in sources]
     pool.shutdown(wait=False)
@@ -189,6 +234,7 @@ def main():
     from controlled_peptide_generation_tpu_torch.ops import gru as gru_ops
     from controlled_peptide_generation_tpu_torch.ops import gru_kernel
     from controlled_peptide_generation_tpu_torch.ops import losses
+    from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
     from controlled_peptide_generation_tpu_torch.train import checkpoints
     from controlled_peptide_generation_tpu_torch.train import opt as train_opt
     from controlled_peptide_generation_tpu_torch.train import train_vae
@@ -196,6 +242,9 @@ def main():
 
     # ---- 1. device ------------------------------------------------------
     dev = runtime.setup("cuda")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    LOG_FILE.append(open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"),
+                         "w"))
     card = runtime.card_line()
     log(f"[1] device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {card}; torch "
@@ -204,9 +253,9 @@ def main():
     mark("1b imports and device, the builds running")
 
     built = [b.result() for b in builds]
-    for kernel in (beam_kernel, gru_kernel):
+    for kernel in (beam_kernel, gru_kernel, tfm_beam_kernel):
         kernel.build()
-    log("[2] built " + " and ".join(
+    log("[2] built " + ", ".join(
         f"csrc/{src} in {sec:.2f}s" for src, (sec, _) in zip(sources, built))
         + ", from the start of the build")
     mark("2a waiting for the builds")
@@ -231,7 +280,22 @@ def main():
     if (model.n_vocab, model.h_dec, model.max_seq_len) != (V, H, T):
         raise AssertionError("the smoke run expects the shipped width")
 
-    mark("2b run dir and checkpoint")
+    # the transformer family's run dir: its own seeded full-width checkpoint
+    tflags_t = ["--savepath_toplevel", run_top, "--runname", "smoke_tfm",
+                "--vae.n_iter", "1", "--seed", "1238"] + TFM_FLAGS
+    cfg_t, _, _ = C.parse_and_finalize(tflags_t)
+    vocab.save(os.path.join(cfg_t.savepath, "vocab.dict"))
+    ckpt_t = os.path.join(cfg_t.savepath, "model_1.npz")
+    checkpoints.save(ckpt_t, build_model(
+        cfg_t.model, vocab.size(), cfg_t.max_seq_len).init_params(
+            torch.Generator().manual_seed(cfg_t.seed)))
+    model_t3, params_t3 = load_trained_model(ckpt_t, vocab.size(), cfg_t,
+                                             device=dev)
+    if not (model_t3.G_class == "transformer" and tfm_beam_kernel.applicable(
+            model_t3, K, torch.float32)):
+        raise AssertionError("the transformer smoke model is outside B3")
+
+    mark("2b run dirs and checkpoints")
 
     # ---- 3. kernel vs plain --------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -247,16 +311,19 @@ def main():
         return (tok_table, zc_gi, dec["gru"]["wh"], dec["gru"]["bh"],
                 dec["out"]["w"], dec["out"]["b"], zc0)
 
-    def compare(ins, kw, what):
+    def compare(ins, kw, what, scan=beam_kernel.beam_scan_gru,
+                ref_scan=beam_kernel.beam_scan_gru_reference,
+                plan=lambda B, kw: beam_kernel.launch_plan(
+                    B, kw["K"], kw["V"], kw["H"])):
         """Kernel vs plain version on the same inputs: every tape. A row
         agrees when its token and pointer tapes are identical; on those
         rows adv and fin_cnt must be equal and the per-step sc tape and
         the final scores within MAX_SCORE_DELTA. Returns the kernel's
         tapes and the max delta on the agreeing rows."""
-        B = ins[1].shape[0]
-        got = beam_kernel.beam_scan_gru(*ins, **kw)
-        ref = beam_kernel.beam_scan_gru_reference(*ins, **kw)
+        got = scan(*ins, **kw)
+        ref = ref_scan(*ins, **kw)
         torch.cuda.synchronize()
+        B = got[3].shape[0]
         same = ((got[0] == ref[0]).all(dim=(1, 2))
                 & (got[1] == ref[1]).all(dim=(1, 2)))
         share_same = same.float().mean().item()
@@ -291,8 +358,7 @@ def main():
             f"held: {done_delta:.3e}), adv equal {adv_eq}, fin_cnt equal "
             f"{fin_eq}; "
             f"uniq ratio kernel {uniq[0]:.4f} plain {uniq[1]:.4f}; plan "
-            f"(sentences/block, threads, weights in smem, smem bytes) "
-            f"{beam_kernel.launch_plan(B, kw['K'], kw['V'], kw['H'])}")
+            f"{plan(B, kw)}")
         if (share_same < MIN_SAME_ROWS or delta > MAX_SCORE_DELTA
                 or sc_delta > MAX_SCORE_DELTA or not blocked_eq
                 or not adv_eq or not fin_eq):
@@ -345,6 +411,58 @@ def main():
             bound_ms(B))
     del outs
     mark("3c beam timings")
+
+    # ---- 3t. B3: the transformer beam kernel vs its plain version -------
+    b3_scan = dict(scan=tfm_beam_kernel.beam_scan_tfm,
+                   ref_scan=tfm_beam_kernel.beam_scan_tfm_reference,
+                   plan=lambda B, kw: tfm_beam_kernel.launch_plan(
+                       B, kw["K"], kw["V"], kw["S"], kw["F"]))
+    n3 = max(B3_BATCHES)
+    z3 = torch.randn((n3, model_t3.z_dim), generator=g, device=dev)
+    c3 = model_t3.sample_c_prior(g, n3, device=dev)
+
+    def b3_inputs(m, p, B, **kw):
+        ins, dims = beam.tfm_scan_inputs(m, p, z3[:B], c3[:B])
+        return ins, dict(kw, **dims)
+
+    kw3 = dict(T=T, K=K, V=V, min_length=1, n_best=1)
+    b3_err = 0.0
+    outs3 = {}
+    for B in B3_BATCHES:
+        ins, kwb = b3_inputs(model_t3, params_t3, B, **kw3)
+        outs3[B], delta = compare(ins, kwb, f"B3 B={B}", **b3_scan)
+        b3_err = max(b3_err, delta)
+    for a, b in zip(outs3[12288], outs3[2500]):
+        if not torch.equal(a[:2500], b):
+            raise AssertionError("B3 is not batch invariant: rows of "
+                                 "B=12288 differ from B=2500")
+    log("[3] B3 batch invariance: first 2500 rows of B=12288 == B=2500 "
+        "bitwise")
+    del outs3
+    mark("3t-a B3 batches")
+    for what, t_, k_, ml, nb, over in B3_SCOPE_CASES:
+        cfg_s = C.parse_and_finalize(tflags_t)[0]
+        for key in ("d_ff", "n_heads"):
+            if key in over:
+                cfg_s.model.G_args.T_args[key] = over[key]
+        m_s = build_model(cfg_s.model, over.get("n_vocab", V),
+                          over.get("max_seq_len", T))
+        p_s = m_s.init_params(torch.Generator(device=dev).manual_seed(5), dev)
+        ins, kwb = b3_inputs(m_s, p_s, 512, T=t_, K=k_, V=m_s.n_vocab,
+                             min_length=ml, n_best=nb)
+        compare(ins, kwb, f"B3 scope {what}: T={t_} K={k_} V={m_s.n_vocab} "
+                f"S={kwb['S']} H={kwb['H']} F={kwb['F']} min_length={ml} "
+                f"n_best={nb} B=512", **b3_scan)
+    mark("3t-b B3 scope cases")
+    b3_times = {}
+    for B in (2500, 5000):
+        ins, kwb = b3_inputs(model_t3, params_t3, B, **kw3)
+        b3_times[B] = (
+            cuda_ms(lambda: tfm_beam_kernel.beam_scan_tfm(*ins, **kwb), 10),
+            cuda_ms(lambda: tfm_beam_kernel.beam_scan_tfm_reference(
+                *ins, **kwb), 3),
+            b3_bound_ms(B))
+    mark("3t-c B3 timings")
 
     # ---- 4. B2: the GRU recurrence kernels vs their plain versions -------
     gb = torch.Generator(device=dev).manual_seed(2)
@@ -532,85 +650,109 @@ def main():
                          "logvar": np.full((n, model.z_dim), -1.5,
                                            np.float16),
                          "label": label}
-    launches = {}
-    loop = {}
-    for mode in ("all", "accepted"):
-        cfg, args, _ = C.parse_and_finalize(
-            flags + ["--hw.decode_mode", mode, "--Q_n_components", "100",
-                     "--Q_covariance_type", "diag",
-                     "--n_samples_per_round", "5000", "--n_samples_acc",
-                     "100", "--samples_outfn_prefix", f"smoke_{mode}"],
-            extra_args=sample_pipeline.EXTRA_ARGS)
-        beam_kernel.beam_scan_gru.launches = 0
-        stem, samples, stats = pipeline.run_from_states(
-            cfg, args, model, params, vocab, states, device=dev)
-        n_launches = beam_kernel.beam_scan_gru.launches
-        if n_launches < 1:
-            raise AssertionError(f"{mode} run: the main path never "
-                                 f"launched the beam kernel")
-        peps = samples["peptide"]
-        acc = np.asarray(samples["accept"], bool)
-        n_acc_unique = len({p for p, a in zip(peps, acc) if a})
-        if n_acc_unique < 100 or len(set(peps)) != len(peps):
-            raise AssertionError(f"{mode} run: {n_acc_unique} "
-                                 f"unique accepted samples (need 100)")
-        for ext in (".plain.txt", ".csv", ".pkl"):
-            if not os.path.exists(stem + ext):
-                raise AssertionError(f"missing {stem + ext}")
-        cols = [np.asarray(samples[k], np.float64) for k in samples
-                if k not in ("peptide", "accept_z", "accept")]
-        if (samples["z"].shape != (len(peps), model.z_dim)
-                or not all(np.isfinite(c).all() for c in cols)
-                or not set("".join(peps).replace(" ", "")) <= set(
-                    vocab.itos[4:])):
-            raise AssertionError(f"{mode} run: malformed sample columns")
-        log(f"[5] decode_mode={mode}: {stats['rounds']} "
-            f"round(s) consumed, "
-            f"{stats['rounds_launched']} launched, {stats['candidates']} "
-            f"candidates, {stats['accepted_z']} accepted by the test, "
-            f"{n_acc_unique} unique accepted kept, kernel launches "
-            f"{n_launches}, beam canary passed, loop "
-            f"{stats['seconds']:.4f}s, files {stem}.*")
-        launches[mode], loop[mode] = n_launches, stats
-        mark(f"5 {mode} run")
 
-    # one round, kernel vs its plain version (plain=True), same draws
-    Q = pipeline.fitQ_and_test(cfg, pipeline.resolve_QClass("mogQ"),
-                               {"n_components": 100, "z_num_samples": 10,
-                                "covariance_type": "diag"}, states,
-                               device=dev)[0]
-    Q.init_attr_classifiers(
-        {a: pipeline.build_clfZ(cfg, a, states, device=dev)
-         for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
-    draws = fused.round_draws(pipeline.round_generator(cfg.seed, 1, dev),
-                              Q._sampler()[1], 5000)
-    r_kernel = fused.fused_round(model, params, draws, Q)
-    r_plain = fused.fused_round(model, params, draws, Q, plain=True)
-    if not torch.equal(r_kernel[2], r_plain[2]):
-        raise AssertionError("accept masks differ between the routes")
-    rows_same = (r_kernel[3] == r_plain[3]).all(dim=1).float().mean().item()
-    log(f"[5] same draws, kernel vs plain version: accept masks identical, "
-        f"token rows identical {rows_same:.6f}")
-    if rows_same < MIN_SAME_ROWS:
-        raise AssertionError(f"only {rows_same:.4f} token rows identical")
-    mark("5 kernel vs plain round")
+    def class_runs(tag, run_flags, model_, params_, counter):
+        """pipeline.run_from_states in both decode modes; each run drives
+        the main path with the kernel's count set to 0 just before it and
+        read just after. Returns (launches, loop stats, the last cfg)."""
+        launches_, loop_ = {}, {}
+        for mode in ("all", "accepted"):
+            cfg_, args_, _ = C.parse_and_finalize(
+                run_flags + ["--hw.decode_mode", mode, "--Q_n_components",
+                             "100", "--Q_covariance_type", "diag",
+                             "--n_samples_per_round", "5000",
+                             "--n_samples_acc", "100",
+                             "--samples_outfn_prefix", f"smoke_{mode}"],
+                extra_args=sample_pipeline.EXTRA_ARGS)
+            counter.launches = 0
+            stem, samples, stats = pipeline.run_from_states(
+                cfg_, args_, model_, params_, vocab, states, device=dev)
+            n_launches = counter.launches
+            if n_launches < 1:
+                raise AssertionError(f"{tag} {mode} run: the main path "
+                                     f"never launched the beam kernel")
+            peps = samples["peptide"]
+            acc = np.asarray(samples["accept"], bool)
+            n_acc_unique = len({p for p, a in zip(peps, acc) if a})
+            if n_acc_unique < 100 or len(set(peps)) != len(peps):
+                raise AssertionError(f"{tag} {mode} run: {n_acc_unique} "
+                                     f"unique accepted samples (need 100)")
+            for ext in (".plain.txt", ".csv", ".pkl"):
+                if not os.path.exists(stem + ext):
+                    raise AssertionError(f"missing {stem + ext}")
+            cols = [np.asarray(samples[k], np.float64) for k in samples
+                    if k not in ("peptide", "accept_z", "accept")]
+            if (samples["z"].shape != (len(peps), model_.z_dim)
+                    or not all(np.isfinite(c).all() for c in cols)
+                    or not set("".join(peps).replace(" ", "")) <= set(
+                        vocab.itos[4:])):
+                raise AssertionError(f"{tag} {mode} run: malformed sample "
+                                     f"columns")
+            log(f"[5] {tag} decode_mode={mode}: {stats['rounds']} "
+                f"round(s) consumed, "
+                f"{stats['rounds_launched']} launched, {stats['candidates']} "
+                f"candidates, {stats['accepted_z']} accepted by the test, "
+                f"{n_acc_unique} unique accepted kept, kernel launches "
+                f"{n_launches}, beam canary passed, loop "
+                f"{stats['seconds']:.4f}s, files {stem}.*")
+            launches_[mode], loop_[mode] = n_launches, stats
+            mark(f"5 {tag} {mode} run")
+        return launches_, loop_, cfg_
 
-    round_ms = {}
-    for mode, cap in (("all", None), ("accepted", 2500)):
-        def one_round():
-            d = fused.round_draws(pipeline.round_generator(cfg.seed, 2, dev),
+    def round_checks(tag, cfg_, model_, params_):
+        """One round through the kernel and one with plain=True on the same
+        draws (identical accept masks, >= 99% identical token rows), then
+        host-clock round times per decode mode (quartiles of ROUND_REPS)."""
+        Q = pipeline.fitQ_and_test(
+            cfg_, pipeline.resolve_QClass("mogQ"),
+            {"n_components": 100, "z_num_samples": 10,
+             "covariance_type": "diag"}, states, device=dev)[0]
+        Q.init_attr_classifiers(
+            {a: pipeline.build_clfZ(cfg_, a, states, device=dev)
+             for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
+        draws = fused.round_draws(pipeline.round_generator(cfg_.seed, 1, dev),
                                   Q._sampler()[1], 5000)
-            out = fused.fused_round(model, params, d, Q, capacity=cap)
-            torch.cuda.synchronize()
-            return out
-        one_round()
-        ts = []
-        for _ in range(ROUND_REPS):
-            t0 = time.perf_counter()
+        r_kernel = fused.fused_round(model_, params_, draws, Q)
+        r_plain = fused.fused_round(model_, params_, draws, Q, plain=True)
+        if not torch.equal(r_kernel[2], r_plain[2]):
+            raise AssertionError(f"{tag}: accept masks differ between the "
+                                 f"routes")
+        rows_same = (r_kernel[3] == r_plain[3]).all(dim=1).float().mean(
+            ).item()
+        log(f"[5] {tag} same draws, kernel vs plain version: accept masks "
+            f"identical, token rows identical {rows_same:.6f}")
+        if rows_same < MIN_SAME_ROWS:
+            raise AssertionError(f"{tag}: only {rows_same:.4f} token rows "
+                                 f"identical")
+        mark(f"5 {tag} kernel vs plain round")
+        round_ms_ = {}
+        for mode, cap in (("all", None), ("accepted", 2500)):
+            def one_round():
+                d = fused.round_draws(
+                    pipeline.round_generator(cfg_.seed, 2, dev),
+                    Q._sampler()[1], 5000)
+                out = fused.fused_round(model_, params_, d, Q, capacity=cap)
+                torch.cuda.synchronize()
+                return out
             one_round()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        round_ms[mode] = statistics.quantiles(ts, n=4)   # q1, median, q3
-    mark("5 round timings")
+            ts = []
+            for _ in range(ROUND_REPS):
+                t0 = time.perf_counter()
+                one_round()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            round_ms_[mode] = statistics.quantiles(ts, n=4)   # q1, med, q3
+        mark(f"5 {tag} round timings")
+        return round_ms_
+
+    launches, loop, cfg = class_runs("GRU", flags, model, params,
+                                     beam_kernel.beam_scan_gru)
+    round_ms = round_checks("GRU", cfg, model, params)
+
+    # ---- 5t. main path: the transformer family's CLaSS round -------------
+    launches_t, loop_t, cfg_t5 = class_runs(
+        "transformer", tflags_t, model_t3, params_t3,
+        tfm_beam_kernel.beam_scan_tfm)
+    round_ms_t = round_checks("transformer", cfg_t5, model_t3, params_t3)
 
     # ---- 6. main path: phase-1 training ------------------------------------
     train_top = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -717,15 +859,20 @@ def main():
     for B, (k_ms, p_ms, (b_ms, _)) in times.items():
         log(f"[7] beam scan B={B}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({card})")
-    for mode in ("all", "accepted"):
-        st = loop[mode]
-        q1, med, q3 = round_ms[mode]
-        log(f"[7] round of 5000 candidates, decode_mode={mode}: {med:.3f} "
-            f"ms (median of {ROUND_REPS}, quartiles {q1:.3f}-{q3:.3f}, host "
-            f"clock) ({card}); loop {st['seconds']:.4f} s over "
-            f"{st['rounds']} consumed round(s), {st['rounds_launched']} "
-            f"launched: too short a window for an accepted-samples/s "
-            f"metric")
+    for B, (k_ms, p_ms, (b_ms, b_by)) in b3_times.items():
+        log(f"[7] B3 transformer beam scan B={B}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+    for tag, loop_, round_ms_ in (("GRU", loop, round_ms),
+                                  ("transformer", loop_t, round_ms_t)):
+        for mode in ("all", "accepted"):
+            st = loop_[mode]
+            q1, med, q3 = round_ms_[mode]
+            log(f"[7] {tag} round of 5000 candidates, decode_mode={mode}: "
+                f"{med:.3f} ms (median of {ROUND_REPS}, quartiles "
+                f"{q1:.3f}-{q3:.3f}, host clock) ({card}); loop "
+                f"{st['seconds']:.4f} s over {st['rounds']} consumed "
+                f"round(s), {st['rounds_launched']} launched: too short a "
+                f"window for an accepted-samples/s metric")
     for B, t in b2_times.items():
         for k in ("fwd", "bwd", "wgrad"):
             k_ms, p_ms, (b_ms, b_by) = t[k]
@@ -776,6 +923,17 @@ def main():
             "launches": train_launches[k], "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
+    k_ms, p_ms, (b_ms, b_by) = b3_times[5000]
+    entries.append({
+        "name": "beam_scan_tfm",
+        "route": "cuda",
+        "source": "controlled_peptide_generation_tpu_torch/csrc/tfm_beam.cu",
+        "replaces":
+            "controlled_peptide_generation_tpu/ops/pallas_tfm_beam.py:395",
+        "launches": launches_t["all"] + launches_t["accepted"],
+        "max_abs_err": b3_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
     mark("7 report")
     log("[7] seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())

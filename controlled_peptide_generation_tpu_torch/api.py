@@ -17,15 +17,16 @@ LOG = logging.getLogger("GenerationAPI")
 def load_trained_model(model_path, n_vocab, cfg, device="cuda"):
     """Returns (model, params) on ``device`` (CUDA unless the caller asks
     for the CPU; without CUDA it raises). Non-strict load: the parts the
-    port runs (embedding, decoder) take the checkpoint's values where it
-    has them and keep a seeded init otherwise."""
+    port runs (embedding, encoder, decoder, of either family) take the
+    checkpoint's values where it has them, path by path (the transformer's
+    ``['blocks'][i]`` too), and keep a seeded init otherwise."""
     device = runtime.setup(device)
     model = build_model(cfg.model, n_vocab=n_vocab,
                         max_seq_len=cfg.max_seq_len)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     init = checkpoints.flatten(model.init_params(gen, device))
     stored = checkpoints.flatten(checkpoints.load(model_path, device))
-    params = {}
+    flat = {}
     for path, leaf in init.items():
         if path in stored:
             if stored[path].shape != leaf.shape:
@@ -34,10 +35,8 @@ def load_trained_model(model_path, n_vocab, cfg, device="cuda"):
                     f"{tuple(stored[path].shape)}, the model wants "
                     f"{tuple(leaf.shape)}")
             leaf = stored[path]
-        node = params
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = leaf
+        flat[path] = leaf
+    params = checkpoints.unflatten(flat)
     return model, params
 
 

@@ -318,16 +318,19 @@ def default_config():
         flat_optimizer="auto",  # "on" raises: the flat-vector Adam is not
                                 # ported
         pallas_beam="auto",   # kept so JAX command lines parse; "auto" and
-                              # "on" both mean the device decides: the CUDA
-                              # beam kernel (ops/beam_kernel.py) on CUDA
-                              # tensors, raising outside its scope, and its
-                              # plain version on CPU tensors; "off" raises
+                              # "on" both mean the device decides: the
+                              # family's CUDA beam kernel (ops/beam_kernel.py,
+                              # ops/tfm_beam_kernel.py) on CUDA tensors,
+                              # raising outside its scope, and its plain
+                              # version on CPU tensors; "off" raises
         beam_canary_floor=0.02,  # CUDA canary: raise when a round's
                                  # unique-sequence ratio drops below this
                                  # floor (0 disables)
         beam_canary_min_rows=256,  # rounds smaller than this are too
                                    # noisy for the uniq-ratio floor
-        tfm_lane_budget_gb=4.0,
+        tfm_lane_budget_gb=4.0,  # transformer rounds: KV-cache budget that
+                                 # clamps rounds_per_dispatch
+                                 # (pipeline.transformer_dispatch_budget)
         log_hbm_analysis=False,
         profile_dir="",
         heldout_eval=True,

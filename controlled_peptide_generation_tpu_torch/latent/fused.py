@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import nn
 from ..ops.beam import beam_search
 from . import gmm as gmm_mod
 
@@ -68,7 +69,7 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
         z, probs, accum = z[idx], probs[idx], accum[idx]
         z_dec, c = z_dec[idx], c[idx]
     dt = getattr(torch, decode_dtype)
-    dec_params = params if dt == torch.float32 else _cast(params, dt)
+    dec_params = params if dt == torch.float32 else nn.cast_tree(params, dt)
     z_d, c_d = z_dec.to(dt), c.to(dt)
     beam_chunk = _BEAM_CHUNK if beam_chunk is None else int(beam_chunk)
     parts = [beam_search(model, dec_params, z_d[s:s + beam_chunk],
@@ -79,12 +80,6 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
     if capacity is None:
         return z, c, probs, accum, accept, tokens
     return z, c, probs, accum, accept, tokens, idx, valid
-
-
-def _cast(tree, dt):
-    if isinstance(tree, dict):
-        return {k: _cast(v, dt) for k, v in tree.items()}
-    return tree.to(dt) if tree.dtype == torch.float32 else tree
 
 
 def clf_args(Q):

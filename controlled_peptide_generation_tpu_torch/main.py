@@ -5,7 +5,8 @@ WAE/VAE training, prior samples, result.json export.
         --runname myrun [--dataset synthetic] [--tiny 1] [--device cpu]
 
 Runs on CUDA unless ``--device cpu`` is given. Phase 2 (``--phase 2`` and
-``--phase -1``, both phases) is not ported yet and raises.
+``--phase -1``, both phases) and the transformer family's training are not
+ported yet and raise.
 """
 
 import logging
@@ -42,6 +43,10 @@ def main(argv=None):
         raise NotImplementedError(
             f"--phase {cfg.phase}: phase-2 training is not ported yet "
             f"(ROADMAP.md A9); run --phase 1")
+    if "transformer" in (cfg.model.E_args.E_class, cfg.model.G_args.G_class):
+        raise NotImplementedError(
+            "training the transformer family is not ported yet (ROADMAP.md "
+            "A11); its CLaSS round runs in sample_pipeline")
     C.save_config(overrides, cfg, cfg.savepath)
     C.pretty_print(cfg)
     log.info("device: %s; random seed: %s", device, cfg.seed)

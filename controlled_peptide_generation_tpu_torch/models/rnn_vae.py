@@ -1,12 +1,14 @@
-"""The GRU family of the composite sequence autoencoder.
+"""The composite sequence autoencoder: the GRU and transformer families.
 
 The port carries the shared word embedding, the biGRU encoder, the GRU
-decoder (teacher-forced pass and free-running step), the z and c priors
-and the (identity) flow: what phase-1 training and the CLaSS round run.
-Parameters are a nested dict of tensors named as in the JAX package, so
-checkpoints cross over unchanged. The CNN classifier (no gradient reaches
-it in phase 1), the deconv and transformer families, skip connections and
-flows are not ported yet (ROADMAP.md) and raise NotImplementedError.
+decoder (teacher-forced pass and free-running step), the transformer
+encoder and decoder (``models/transformer.py``), the z and c priors and
+the (identity) flow: what phase-1 training and the CLaSS round run.
+Parameters are nested dicts (the transformer's blocks a list) of tensors
+named as in the JAX package, so checkpoints cross over unchanged. The CNN
+classifier (no gradient reaches it in phase 1), the deconv family, skip
+connections and flows are not ported yet (ROADMAP.md) and raise
+NotImplementedError.
 
 Every random draw of a forward pass (the reparameterization noise, the c
 prior, the dropout masks) comes from a ``torch.Generator`` or is passed
@@ -17,9 +19,13 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..data.vocab import PAD_IDX
 from ..ops import nn
 from . import decoder as dec
 from . import encoder as enc
+from . import transformer as tfm
+
+_TFM_KEYS = ("d_model", "n_layers", "d_ff", "n_heads", "p_dropout")
 
 
 @dataclass(frozen=True, eq=False)
@@ -34,14 +40,14 @@ class RNNVAE:
     G_args: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.E_class != "gru":
+        if self.E_class not in ("gru", "transformer"):
             raise NotImplementedError(
                 f"the {self.E_class} encoder family is not ported yet "
-                f"(ROADMAP.md A11)")
-        if self.G_class != "gru":
+                f"(ROADMAP.md A9)")
+        if self.G_class not in ("gru", "transformer"):
             raise NotImplementedError(
                 f"the {self.G_class} decoder family is not ported yet "
-                f"(ROADMAP.md A9/A11)")
+                f"(ROADMAP.md A9)")
         if self.gru_args.get("skip_connections", False):
             raise NotImplementedError(
                 "GRU skip connections are not ported yet (ROADMAP.md A9)")
@@ -65,27 +71,57 @@ class RNNVAE:
     def gru_args(self):
         return dict(self.G_args.get("GRU_args", {}))
 
+    @property
+    def enc_tfm_args(self):
+        return dict(self.E_args.get("T_args", {}))
+
+    @property
+    def dec_tfm_args(self):
+        return dict(self.G_args.get("T_args", {}))
+
     def init_params(self, gen, device="cpu"):
         """Seeded embedding, encoder and decoder parameters (the parts the
         port runs; a checkpoint written from them loads in the JAX
         package, whose non-strict loader keeps fresh values for the
         missing classifier)."""
-        return {
-            "emb": nn.init_embedding(gen, self.n_vocab, self.emb_dim, device),
-            "enc": enc.init(gen, emb_dim=self.emb_dim, z_dim=self.z_dim,
-                            device=device,
-                            **{k: v for k, v in self.E_args.items()
-                               if k not in ("E_class", "T_args")}),
-            "dec": dec.init(gen, emb_dim=self.emb_dim + self.h_dec,
-                            output_dim=self.n_vocab, h_dim=self.h_dec,
-                            device=device),
-        }
+        emb_p = nn.init_embedding(gen, self.n_vocab, self.emb_dim, device)
+        if self.E_class == "transformer":
+            enc_p = tfm.init_encoder(
+                gen, emb_dim=self.emb_dim, z_dim=self.z_dim,
+                max_seq_len=self.max_seq_len, device=device,
+                **{k: v for k, v in self.enc_tfm_args.items()
+                   if k in _TFM_KEYS})
+        else:
+            enc_p = enc.init(gen, emb_dim=self.emb_dim, z_dim=self.z_dim,
+                             device=device,
+                             **{k: v for k, v in self.E_args.items()
+                                if k not in ("E_class", "T_args")})
+        if self.G_class == "transformer":
+            dec_p = tfm.init_decoder(
+                gen, emb_dim=self.emb_dim, z_dim=self.z_dim,
+                c_dim=self.c_dim, output_dim=self.n_vocab,
+                max_seq_len=self.max_seq_len, device=device,
+                **{k: v for k, v in self.dec_tfm_args.items()
+                   if k in _TFM_KEYS})
+        else:
+            dec_p = dec.init(gen, emb_dim=self.emb_dim + self.h_dec,
+                             output_dim=self.n_vocab, h_dim=self.h_dec,
+                             device=device)
+        return {"emb": emb_p, "enc": enc_p, "dec": dec_p}
 
     # ---- encoder / latent ----------------------------------------------
 
-    def encode(self, params, inputs):
-        """inputs: [B, T] int tokens -> (mu [B, Z], logvar [B, Z])."""
+    def encode(self, params, inputs, train=False, gen=None):
+        """inputs: [B, T] int tokens -> (mu [B, Z], logvar [B, Z]).
+        train/gen only matter for the transformer encoder's dropout."""
         emb = nn.embed(params["emb"], inputs)
+        if self.E_class == "transformer":
+            t_args = self.enc_tfm_args
+            return tfm.apply_encoder(
+                params["enc"], emb, inputs != PAD_IDX,
+                n_heads=t_args.get("n_heads", 4),
+                p_dropout=t_args.get("p_dropout", 0.0), train=train,
+                bf16=t_args.get("bf16", False), gen=gen)
         return enc.apply(params["enc"], emb,
                          h_dim=self.E_args.get("h_dim", 80),
                          biGRU=self.E_args.get("biGRU", True))
@@ -117,7 +153,18 @@ class RNNVAE:
 
     def decode_train(self, params, tokens, z, c, train=True, gen=None,
                      word_drop=None, out_keep=None):
-        """Teacher-forced logits [B, T, V]."""
+        """Teacher-forced logits [B, T, V]. ``word_drop`` [B, T] is the
+        word-dropout mask; ``out_keep`` [B, T, H] the GRU head's dropout
+        mask (the transformer blocks draw theirs from ``gen``)."""
+        if self.G_class == "transformer":
+            t_args = self.dec_tfm_args
+            return tfm.apply_teacher_forced(
+                params["dec"], params["emb"], tokens, z, c, train,
+                n_heads=t_args.get("n_heads", 4),
+                p_word_dropout=t_args.get("p_word_dropout", 0.3),
+                p_dropout=t_args.get("p_dropout", 0.0),
+                bf16=t_args.get("bf16", False), gen=gen,
+                word_drop=word_drop)
         g_args = self.gru_args
         return dec.apply_teacher_forced(
             params["dec"], params["emb"], tokens, z, c, train,
@@ -126,10 +173,23 @@ class RNNVAE:
             word_drop=word_drop, out_keep=out_keep)
 
     def decode_step(self, params, token_hard, token_soft, z, c, h):
+        if self.G_class == "transformer":
+            t_args = self.dec_tfm_args
+            return tfm.apply_step(params["dec"], params["emb"], token_hard,
+                                  token_soft, h,
+                                  n_heads=t_args.get("n_heads", 4),
+                                  bf16=t_args.get("bf16", False))
         return dec.apply_step(params["dec"], params["emb"], token_hard,
                               token_soft, z, c, h)
 
     def init_decoder_hidden(self, params, z, c):
+        """The decoder state of the step engines: [B, H] for the GRU, the
+        KV-cache dict (latent prefix at position 0) for the transformer."""
+        if self.G_class == "transformer":
+            t_args = self.dec_tfm_args
+            return tfm.init_cache(params["dec"], z, c, self.max_seq_len,
+                                  n_heads=t_args.get("n_heads", 4),
+                                  bf16=t_args.get("bf16", False))
         return dec.init_hidden(z, c)
 
     # ---- full teacher-forced forward ----------------------------------------

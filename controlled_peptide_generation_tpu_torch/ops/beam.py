@@ -1,8 +1,16 @@
-"""Batched beam search over the GRU decoder.
+"""Batched beam search over the GRU and transformer decoders.
 
-All (batch, beam) lanes advance together (ops/beam_kernel.py runs the
-steps, as one CUDA kernel or as plain torch); finished hypotheses are then
+All (batch, beam) lanes advance together: one whole-scan kernel per
+family runs the steps (ops/beam_kernel.py for the GRU, ops/
+tfm_beam_kernel.py for the transformer), as a CUDA kernel on CUDA tensors
+or as its plain torch version on CPU tensors; finished hypotheses are then
 rebuilt from the per-step tapes and walked back to token rows here.
+
+The route follows the device alone. In the JAX package the transformer's
+whole-scan kernel runs only under ``--hw.pallas_beam on``
+(``ops/beam.py:212-221`` there); in the port a CUDA tensor always takes
+the kernel (and raises outside its scope or in bf16), a CPU tensor the
+plain version.
 
 Semantics, as in the JAX package's ops/beam.py:
 
@@ -22,7 +30,8 @@ import torch
 
 from ..data.vocab import PAD_IDX, START_IDX, EOS_IDX
 from ..models import decoder
-from . import beam_kernel
+from ..models import transformer as tfm
+from . import beam_kernel, nn, tfm_beam_kernel
 
 
 def _backtrace(t, k, ys, ptrs, T):
@@ -72,18 +81,28 @@ def beam_search(model, params, z, c, beam_size=5, n_best=3, min_length=1,
     """z [B, z_dim], c [B, c_dim] -> (hyps [B, n_best, T+1] int64,
     scores [B, n_best] f32). hyps[:, :, 0] is the BOS row token.
 
-    The steps run in beam_kernel.beam_scan_gru: the CUDA kernel on CUDA
-    tensors (raising where its scope does not cover the model), its plain
-    version on CPU tensors. plain=True runs the plain version on any
-    device; it exists only to hold the kernel against it."""
+    The steps run in the family's whole-scan kernel (beam_scan_gru or
+    beam_scan_tfm): the CUDA kernel on CUDA tensors (raising where its
+    scope does not cover the model), its plain version on CPU tensors.
+    plain=True runs the plain version on any device; it exists only to
+    hold the kernel against it."""
     if beam_size < n_best:
         raise ValueError("can't return more hypotheses than the beam holds")
-    B, K = z.shape[0], beam_size
-    V = model.n_vocab
+    K = beam_size
     T = max_len if max_len is not None else model.max_seq_len
     if T > model.max_seq_len:
         raise ValueError(f"max_len {T} exceeds model.max_seq_len "
                          f"{model.max_seq_len}")
+    if model.G_class == "transformer":
+        tapes = _scan_tfm(model, params, z, c, K, T, n_best, min_length,
+                          plain)
+    else:
+        tapes = _scan_gru(model, params, z, c, K, T, n_best, min_length,
+                          plain)
+    return hyps_from_tapes(tapes, n_best)
+
+
+def _scan_gru(model, params, z, c, K, T, n_best, min_length, plain):
     if plain:
         scan = beam_kernel.beam_scan_gru_reference
     else:
@@ -93,14 +112,58 @@ def beam_search(model, params, z, c, beam_size=5, n_best=3, min_length=1,
             raise ValueError("the CUDA beam kernel's scope does not cover "
                              "this model/beam/dtype (ops/beam_kernel.py "
                              "applicable)")
-
     dec = params["dec"]
     tok_table, zc_gi = decoder.step_tables(dec, params["emb"], z, c)
     zc0 = model.init_decoder_hidden(params, z, c)
-    tapes = scan(tok_table, zc_gi, dec["gru"]["wh"], dec["gru"]["bh"],
-                 dec["out"]["w"], dec["out"]["b"], zc0, T=T, K=K, V=V,
-                 H=model.h_dec, min_length=min_length, n_best=n_best)
-    return hyps_from_tapes(tapes, n_best)
+    return scan(tok_table, zc_gi, dec["gru"]["wh"], dec["gru"]["bh"],
+                dec["out"]["w"], dec["out"]["b"], zc0, T=T, K=K,
+                V=model.n_vocab, H=model.h_dec, min_length=min_length,
+                n_best=n_best)
+
+
+def _scan_tfm(model, params, z, c, K, T, n_best, min_length, plain):
+    t_args = model.dec_tfm_args
+    dt = tfm.compute_dtype(params["dec"], t_args.get("bf16", False))
+    if plain:
+        scan = tfm_beam_kernel.beam_scan_tfm_reference
+    else:
+        scan = tfm_beam_kernel.beam_scan_tfm
+        if z.device.type == "cuda":
+            if dt != torch.float32:
+                raise NotImplementedError(
+                    f"the CUDA transformer beam kernel runs float32 only; "
+                    f"this model computes in {dt} (bf16 is queued in "
+                    f"ROADMAP.md; --device cpu runs it)")
+            if not tfm_beam_kernel.applicable(model, K, dt):
+                raise ValueError(
+                    "the CUDA transformer beam kernel's scope does not "
+                    "cover this model/beam (ops/tfm_beam_kernel.py "
+                    "applicable)")
+    inputs, dims = tfm_scan_inputs(model, params, z, c)
+    return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
+                n_best=n_best, **dims)
+
+
+def tfm_scan_inputs(model, params, z, c):
+    """The transformer decoder folded for beam_scan_tfm, as the JAX
+    package's ``_beam_search_pallas_tfm`` builds its kernel's inputs: the
+    token table emb (PAD row zeroed) @ in.w + in.b, the position table, the
+    blocks in the compute type, the final LN and head, and the position-0
+    rows of init_cache. Returns (inputs, {"S", "H", "F"})."""
+    t_args = model.dec_tfm_args
+    dec = params["dec"]
+    dt = tfm.compute_dtype(dec, t_args.get("bf16", False))
+    S = model.max_seq_len + 1
+    tok_table = nn.canonical_zeros(nn.linear(
+        dec["in"], nn.embedding_table(params["emb"])).to(dt))
+    cache0 = model.init_decoder_hidden(params, z, c)
+    inputs = (tok_table, dec["pos"][:S].to(dt),
+              nn.cast_tree(dec["blocks"], dt), dec["ln_f"]["g"],
+              dec["ln_f"]["b"], dec["out"]["w"], dec["out"]["b"],
+              [kl[:, 0, :] for kl in cache0["k"]],
+              [vl[:, 0, :] for vl in cache0["v"]])
+    return inputs, {"S": S, "H": t_args.get("n_heads", 4),
+                    "F": t_args.get("d_ff", 4 * t_args.get("d_model", 128))}
 
 
 def hyps_from_tapes(tapes, n_best):

@@ -172,42 +172,67 @@ def advance(logp, scores, prev, adv, *, K, V, min_length):
     return best, ids % V, ids // V
 
 
-def beam_scan_gru_reference(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *,
-                            T, K, V, H, min_length, n_best):
-    """Plain torch version of beam_scan_gru: the same signature, outputs
-    and per-step arithmetic, in any dtype and on any device."""
-    B = zc_gi.shape[0]
-    dev = zc_gi.device
-    dt = tok_table.dtype
-    tok_table = nn.canonical_zeros(tok_table)
-    gru = {"wh": wh, "bh": bh}
-    h = zc0.to(dt)[:, None, :].expand(B, K, H)
+def scan_init(B, K, dev):
+    """The beam's bookkeeping state at step 0: scores [B, K] f32, prev
+    [B, K] (START in beam 0, PAD elsewhere), adv [B], eos_top [B],
+    fin [B]."""
     scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
     prev = torch.full((B, K), PAD_IDX, dtype=torch.long, device=dev)
     prev[:, 0] = START_IDX
     adv = torch.zeros((B,), dtype=torch.int32, device=dev)
     eos_top = torch.zeros((B,), dtype=torch.bool, device=dev)
     fin = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ys_t, ptr_t, sc_t = [], [], []
+    return scores, prev, adv, eos_top, fin
+
+
+def scan_step(logp, state, *, K, V, min_length, n_best):
+    """One step of the beam's bookkeeping from logp [B, K, V] f32: the
+    advance, then the done gating. Returns (new state, the step's tape
+    entries (ys, ptr, sc) [B, K], prev_k [B, K]: the backpointers by which
+    the decoder state is reordered, done sentences included)."""
+    scores, prev, adv, eos_top, fin = state
+    done = eos_top & (fin >= n_best)
+    best, next_y, prev_k = advance(logp, scores, prev, adv, K=K, V=V,
+                                   min_length=min_length)
+    d1 = done[:, None]
+    fin = fin + ((next_y == EOS_IDX) & ~d1).sum(1, dtype=torch.int32)
+    eos_top = eos_top | ((next_y[:, 0] == EOS_IDX) & ~done)
+    state = (torch.where(d1, scores, best), torch.where(d1, prev, next_y),
+             torch.where(done, adv, adv + 1), eos_top, fin)
+    tape = (torch.where(d1, PAD_IDX, next_y), torch.where(d1, 0, prev_k),
+            best)
+    return state, tape, prev_k
+
+
+def scan_tapes(state, tapes):
+    """The per-step tape entries and the final state -> (ys, ptr, sc
+    [B, T, K], scores [B, K], adv [B], fin [B]), the kernels' outputs."""
+    ys, ptr, sc = zip(*tapes)
+    scores, _, adv, _, fin = state
+    return (torch.stack(ys, 1).int(), torch.stack(ptr, 1).int(),
+            torch.stack(sc, 1), scores, adv, fin)
+
+
+def beam_scan_gru_reference(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *,
+                            T, K, V, H, min_length, n_best):
+    """Plain torch version of beam_scan_gru: the same signature, outputs
+    and per-step arithmetic, in any dtype and on any device."""
+    B = zc_gi.shape[0]
+    dt = tok_table.dtype
+    tok_table = nn.canonical_zeros(tok_table)
+    gru = {"wh": wh, "bh": bh}
+    h = zc0.to(dt)[:, None, :].expand(B, K, H)
+    state = scan_init(B, K, zc_gi.device)
+    tapes = []
     for _ in range(T):
-        gi = tok_table[prev] + zc_gi[:, None, :]              # [B, K, 3H]
+        gi = tok_table[state[1]] + zc_gi[:, None, :]          # [B, K, 3H]
         h_new = _gates(gi, h @ gru["wh"] + gru["bh"], h)      # [B, K, H]
         logits = h_new @ w_out + b_out                        # [B, K, V]
         logp = torch.log_softmax(logits.float(), dim=-1)
-        done = eos_top & (fin >= n_best)
-        best, next_y, prev_k = advance(logp, scores, prev, adv, K=K, V=V,
-                                       min_length=min_length)
+        state, tape, prev_k = scan_step(logp, state, K=K, V=V,
+                                        min_length=min_length, n_best=n_best)
+        tapes.append(tape)
         # done sentences' hidden state advances too; nothing observable
-        # depends on it (their emissions are gated below)
+        # depends on it (their emissions are gated)
         h = torch.gather(h_new, 1, prev_k[:, :, None].expand(B, K, H))
-        d1 = done[:, None]
-        fin = fin + ((next_y == EOS_IDX) & ~d1).sum(1, dtype=torch.int32)
-        eos_top = eos_top | ((next_y[:, 0] == EOS_IDX) & ~done)
-        scores = torch.where(d1, scores, best)
-        prev = torch.where(d1, prev, next_y)
-        adv = torch.where(done, adv, adv + 1)
-        ys_t.append(torch.where(d1, PAD_IDX, next_y))
-        ptr_t.append(torch.where(d1, 0, prev_k))
-        sc_t.append(best)
-    return (torch.stack(ys_t, 1).int(), torch.stack(ptr_t, 1).int(),
-            torch.stack(sc_t, 1), scores, adv, fin)
+    return scan_tapes(state, tapes)

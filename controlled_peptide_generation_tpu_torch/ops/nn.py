@@ -11,6 +11,12 @@ the torch defaults the JAX package reproduces:
 The random layers (``dropout``, ``word_dropout``) draw their masks from a
 ``torch.Generator`` or take them as arguments, so tests can feed the JAX
 package's draws.
+
+The transformer family's helpers keep the JAX package's numerics, not
+torch's defaults: ``layer_norm`` takes its eps (1e-6) inside the rsqrt,
+where ``torch.nn.functional.layer_norm`` defaults to 1e-5, and ``gelu`` is
+the tanh approximation (``jax.nn.gelu``'s default), not torch's erf form;
+either default moves logits by about 1e-3.
 """
 
 import torch
@@ -30,7 +36,13 @@ def init_linear(gen, in_dim, out_dim, device="cpu"):
 
 
 def linear(p, x):
-    return x @ p["w"] + p["b"]
+    """x @ w + b. Mixed float types compute in the wider one, as jnp's
+    promotion does (torch's matmul refuses mixed types)."""
+    w = p["w"]
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w + p["b"]
 
 
 def init_embedding(gen, n_vocab, emb_dim, device="cpu"):
@@ -50,6 +62,11 @@ def embedding_table(p):
 def embed(p, ix):
     """Hard token lookup with the PAD row zeroed."""
     return table_lookup(embedding_table(p), ix)
+
+
+def soft_embed(p, soft_ix):
+    """[..., V] probabilities -> [..., emb_dim] (the PAD row zeroed)."""
+    return soft_ix @ embedding_table(p).to(soft_ix.dtype)
 
 
 def onehot(ix, n, dtype=torch.float32):
@@ -88,3 +105,32 @@ def word_dropout(tokens, rate, unk_idx, train, gen=None, drop=None):
         drop = torch.rand(tokens.shape, generator=gen,
                           device=tokens.device) < rate
     return torch.where(drop, torch.full_like(tokens, unk_idx), tokens)
+
+
+def init_layer_norm(d, device="cpu"):
+    return {"g": torch.ones((d,), device=device),
+            "b": torch.zeros((d,), device=device)}
+
+
+def layer_norm(p, x, eps=1e-6):
+    """LayerNorm over the last axis in f32, cast back to x's type:
+    population variance, ``(x - mean) * rsqrt(var + eps) * g + b``."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)
+
+
+def gelu(x):
+    """The tanh approximation of GELU in f32, cast back to x's type."""
+    return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def cast_tree(tree, dtype):
+    """Cast the float32 leaves of nested dicts and lists to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree

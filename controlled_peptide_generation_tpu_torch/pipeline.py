@@ -146,6 +146,37 @@ def round_capacity(cfg, n_samples):
     return min(max(int(round(n_samples * frac)), 1), n_samples)
 
 
+def transformer_dispatch_budget(cfg, model):
+    """Max candidates per launch for the transformer decoder family, or
+    None (other families): hw.tfm_lane_budget_gb over 6x the raw KV-cache
+    bytes per candidate, the JAX package's rule (its factor is its
+    measured program overhead on the TPU; the port keeps it so that one
+    setting means the same on both). run_from_states clamps
+    rounds_per_dispatch to it."""
+    per_cand = transformer_cache_bytes_per_candidate(cfg, model)
+    if per_cand is None:
+        return None
+    budget = int(float(cfg.hw.get("tfm_lane_budget_gb", 4.0)) * 2**30)
+    return max(int(budget / max(6 * per_cand, 1)), 1)
+
+
+def transformer_cache_bytes_per_candidate(cfg, model):
+    """Raw KV-cache bytes one candidate's beam lanes carry through a round
+    (L * (T+1) * d_model * k/v * the decode type's bytes * beam, times the
+    slot fraction under decode_mode "accepted"), or None for other
+    families."""
+    if model.G_class != "transformer":
+        return None
+    t_args = model.dec_tfm_args
+    dt = getattr(torch, cfg.hw.get("gen_dtype", "float32"))
+    cache_bytes = (t_args.get("n_layers", 2) * (model.max_seq_len + 1)
+                   * t_args.get("d_model", 128) * 2
+                   * torch.empty((), dtype=dt).element_size())
+    cap = float(cfg.hw.get("accept_cap_frac", 0.5))
+    return cache_bytes * DECODE_BEAM_SIZE * (
+        cap if cfg.hw.get("decode_mode", "all") == "accepted" else 1.0)
+
+
 def round_generator(seed, round_ix, device):
     """The generator of round ``round_ix``, seeded from (seed, round_ix)."""
     return runtime.generator(device, seed, round_ix)
@@ -242,13 +273,28 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
     inflight = deque()
 
     def launch_one():
-        nonlocal round_ix
+        nonlocal round_ix, round_size
         round_ix += 1
         LOG.info("Round #%d (x%d candidates per launch)", round_ix,
                  round_size)
-        inflight.append(launch_round(
-            cfg, model, params, Q, round_size,
-            round_generator(cfg.seed, round_ix, device)))
+        # a round too large for the card's memory halves and retries (the
+        # next rounds keep the smaller size), down to one candidate; any
+        # other error propagates
+        while True:
+            try:
+                out = launch_round(cfg, model, params, Q, round_size,
+                                   round_generator(cfg.seed, round_ix,
+                                                   device))
+                break
+            except torch.cuda.OutOfMemoryError:
+                shrink = round_size // 2
+                if shrink < 1:
+                    raise
+                LOG.warning("round out of device memory at %d candidates; "
+                            "retrying at %d (tune hw.tfm_lane_budget_gb)",
+                            round_size, shrink)
+                round_size = shrink
+        inflight.append(out)
 
     rounds_consumed = 0
     while True:
@@ -414,6 +460,14 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda"):
     Q.init_attr_classifiers(z_clfs, clf_targets={"amp": 1, "tox": 0})
 
     rpd = max(int(cfg.hw.get("rounds_per_dispatch", 1)), 1)
+    budget = transformer_dispatch_budget(cfg, model)
+    if budget is not None:
+        max_rpd = max(budget // args.n_samples_per_round, 1)
+        if rpd > max_rpd:
+            LOG.info("transformer decoder: clamping rounds_per_dispatch "
+                     "%d -> %d (KV-cache lane budget %.1f GB)", rpd, max_rpd,
+                     float(cfg.hw.get("tfm_lane_budget_gb", 4.0)))
+            rpd = max_rpd
     round_size = args.n_samples_per_round * rpd
     t_sampling = time.perf_counter()
     samples, stats = _fused_sampling_loop(cfg, args, model, params, vocab,

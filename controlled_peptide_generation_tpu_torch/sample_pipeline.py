@@ -7,6 +7,12 @@ until --n_samples_acc accepted peptides exist. Runs on CUDA unless
     python -m controlled_peptide_generation_tpu_torch.sample_pipeline \
         --runname myrun --Q_select_amppos 0 \
         --n_samples_per_round 5000 --n_samples_acc 100
+
+The transformer family takes the JAX package's flags,
+``--model.E_args.E_class transformer --model.G_args.G_class transformer``
+(``T_args`` under each for the widths); its beam runs in the CUDA kernel
+of ``ops/tfm_beam_kernel.py`` on the card, whatever ``--hw.pallas_beam``
+says, and in the plain version under ``--device cpu``.
 """
 
 import logging

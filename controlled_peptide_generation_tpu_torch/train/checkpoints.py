@@ -4,8 +4,11 @@ A checkpoint is one ``model_<iter>.npz`` whose keys are jax keystr paths
 of the train-state pytree ``{'params', 'opt', 'step'}``:
 
 * parameters: ``"['params']['dec']['gru']['wi']"``; the port keeps them as
-  nested dicts of tensors with the same names, so a leaf's path is the
-  chain of its dict keys;
+  nested dicts (and lists) of tensors with the same names, so a leaf's path
+  is the chain of its dict keys and list indices. A list index is an int
+  in the port's path and ``[i]`` in the file: the transformer's blocks are
+  ``"['params']['dec']['blocks'][0]['qkv']['w']"``, path
+  ``('params', 'dec', 'blocks', 0, 'qkv', 'w')``;
 * the Adam state of ``optax.chain(clip_by_global_norm, adam)``:
   ``"['opt'][1][0].count"``, ``"['opt'][1][0].mu['emb']['w']"``,
   ``"['opt'][1][0].nu[...]"``; in the port ``{'count', 'mu', 'nu'}``
@@ -23,23 +26,29 @@ import re
 import numpy as np
 import torch
 
-_KEY_PART = re.compile(r"\['([^']*)'\]")
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 _OPTAX_ADAM = "['opt'][1][0]"
 _OPTAX_LEAF = re.compile(r"^\['opt'\]\[1\]\[0\]\.(count|mu|nu)(.*)$")
 _FLAT_ADAM = re.compile(r"^\['opt'\].*\.(m|v)$")
 
 
 def keystr(path):
-    """('params', 'dec', 'gru', 'wi') -> "['params']['dec']['gru']['wi']"."""
-    return "".join(f"['{p}']" for p in path)
+    """('params', 'dec', 'blocks', 0, 'w') ->
+    "['params']['dec']['blocks'][0]['w']": a str is a dict key, an int a
+    list index."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                   for p in path)
 
 
 def parse_keystr(key):
-    """Inverse of keystr for dict-only paths; raises on other path kinds."""
-    parts = _KEY_PART.findall(key)
+    """Inverse of keystr for paths of dict keys and list indices; raises
+    on other path kinds."""
+    parts = tuple(int(i) if k == "" and i else k
+                  for k, i in _KEY_PART.findall(key))
     if keystr(parts) != key:
-        raise ValueError(f"not a dict-only key path: {key!r}")
-    return tuple(parts)
+        raise ValueError(f"not a path of dict keys and list indices: "
+                         f"{key!r}")
+    return parts
 
 
 def state_keystr(path):
@@ -62,10 +71,12 @@ def parse_state_keystr(key):
 
 
 def flatten(tree, prefix=()):
-    """Nested dict -> {path tuple: leaf}."""
+    """Nested dicts and lists -> {path tuple: leaf} (a list index is an
+    int in the path)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(flatten(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v
@@ -73,14 +84,26 @@ def flatten(tree, prefix=()):
 
 
 def unflatten(flat):
-    """{path tuple: leaf} -> nested dict."""
+    """{path tuple: leaf} -> nested dicts, and lists where a node's keys
+    are the ints 0..n-1."""
     tree = {}
     for path, leaf in flat.items():
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = leaf
-    return tree
+    return _lists(tree)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        if sorted(out) != list(range(len(out))):
+            raise ValueError(f"list indices {sorted(out)} are not 0..n-1")
+        return [out[i] for i in range(len(out))]
+    return out
 
 
 def state_from_jax(flat, device="cpu"):

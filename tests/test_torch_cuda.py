@@ -47,3 +47,38 @@ def test_kernels_match_plain_versions_on_the_card():
         for a, b in zip(runs[0][1], runs[1][1]):
             assert (a - b).abs().max() <= 1e-3 * b.abs().max()
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[2][1]))
+
+
+@pytest.mark.cuda
+def test_transformer_beam_kernel_matches_plain_version_on_the_card():
+    """On the card: B3 against its plain version at the shipped
+    transformer width, >= 99% of rows with identical token and pointer
+    tapes, final scores on those rows within 1e-3, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch import config as C
+    from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
+        build_model)
+    from controlled_peptide_generation_tpu_torch.ops import beam
+    from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, _ = C.parse_and_finalize(["--model.E_args.E_class", "transformer",
+                                      "--model.G_args.G_class",
+                                      "transformer"])
+    model = build_model(cfg.model, 24, 25)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(g, dev)
+    z = torch.randn((300, model.z_dim), generator=g, device=dev)
+    c = model.sample_c_prior(g, 300, device=dev)
+    ins, dims = beam.tfm_scan_inputs(model, params, z, c)
+    kw = dict(T=25, K=5, V=24, min_length=1, n_best=1, **dims)
+    before = tfm_beam_kernel.beam_scan_tfm.launches
+    got = tfm_beam_kernel.beam_scan_tfm(*ins, **kw)
+    ref = tfm_beam_kernel.beam_scan_tfm_reference(*ins, **kw)
+    torch.cuda.synchronize()
+    assert tfm_beam_kernel.beam_scan_tfm.launches == before + 1
+    same = ((got[0] == ref[0]).all(dim=(1, 2))
+            & (got[1] == ref[1]).all(dim=(1, 2)))
+    assert same.float().mean().item() >= 0.99
+    assert (got[3] - ref[3]).abs()[same].max().item() <= 1e-3

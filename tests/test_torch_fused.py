@@ -97,3 +97,47 @@ def test_round_draws_from_generator(setup):
     for a, b in zip(d1, d2):
         assert torch.equal(a, b)
     assert d1.eps.shape == (N, 12) and d1.comp.max() < 4
+
+
+@pytest.fixture(scope="module")
+def tfm_setup(setup):
+    """The transformer family at the small size, parameters from JAX."""
+    def small(C):
+        cfg = _small(C)
+        cfg.model.E_args.E_class = "transformer"
+        cfg.model.G_args.G_class = "transformer"
+        return cfg
+    jm = j_build(small(JC).model, n_vocab=13, max_seq_len=10)
+    jp = jm.init_params(jax.random.PRNGKey(2))
+    flat = {k: np.asarray(v) for k, v in j_ck._flatten({"params": jp}).items()}
+    tm = t_build(small(TC).model, n_vocab=13, max_seq_len=10)
+    return jm, jp, tm, t_ck.params_from_jax(flat), setup[4], setup[5]
+
+
+@pytest.mark.parametrize("capacity", [None, 20])
+def test_transformer_round_matches_jax(tfm_setup, capacity):
+    """The fused round of the transformer family under the JAX round's
+    draws: the same accept set and the same tokens, in both decode modes
+    (the JAX round decodes with its XLA arm, the port with the plain
+    version of its kernel)."""
+    jm, jp, tm, tp, q, heads = tfm_setup
+    key = jax.random.PRNGKey(23)
+    jq = j_gmm.GMMParams(*map(jnp.asarray, q))
+    want = j_fused._fused_round(
+        jm, jp, key, "gmm_diag", jq, *map(jnp.asarray, heads), N,
+        beam_size=5, decode_dtype="float32", capacity=capacity,
+        beam_chunk=None)
+    want = [np.asarray(a) for a in want]
+    tq = t_gmm.GMMParams(*map(torch.from_numpy, q))
+    got = t_fused._round_body(
+        tm, tp, _jax_draws(key, q, N), "gmm_diag", tq,
+        *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
+        capacity=capacity)
+    got = [a.numpy() for a in got]
+    np.testing.assert_array_equal(got[4], want[4])        # accept
+    np.testing.assert_array_equal(got[5], want[5])        # tokens
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-6)
+    assert 0 < want[4].sum() < N
+    if capacity is not None:
+        np.testing.assert_array_equal(got[6], want[6])
+        np.testing.assert_array_equal(got[7], want[7])

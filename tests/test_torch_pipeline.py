@@ -11,6 +11,7 @@ import h5py
 import jax
 import numpy as np
 import pytest
+import torch
 
 from controlled_peptide_generation_tpu import config as JC
 from controlled_peptide_generation_tpu import pipeline as j_pipeline
@@ -20,6 +21,8 @@ from controlled_peptide_generation_tpu.train import checkpoints as j_ck
 from controlled_peptide_generation_tpu_torch import config as TC
 from controlled_peptide_generation_tpu_torch import pipeline
 from controlled_peptide_generation_tpu_torch import sample_pipeline
+from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
+    build_model as t_build)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ITER = 7
@@ -124,3 +127,96 @@ def test_beam_canary_raises_on_the_kernel_route():
     assert pipeline.beam_canary_check(cfg, "cpu", 5000, 10) is False
     off, _, _ = TC.parse_and_finalize(["--hw.beam_canary_floor", "0"])
     assert pipeline.beam_canary_check(off, "cuda", 5000, 10) is False
+
+
+TFM = ["--model.E_args.E_class", "transformer",
+       "--model.G_args.G_class", "transformer"]
+
+
+@pytest.fixture(scope="module")
+def tfm_run_dir(tmp_path_factory):
+    """A tiny transformer run dir: a JAX-saved checkpoint (list-index keys),
+    the amp vocab and states dumps."""
+    top = str(tmp_path_factory.mktemp("torch_pipeline_tfm"))
+    save = os.path.join(top, "tiny")
+    os.makedirs(save)
+    shutil.copy(os.path.join(REPO, "data", "amp", "vocab.dict"),
+                os.path.join(save, "vocab.dict"))
+    cfg = JC.default_config()
+    cfg.model.z_dim, cfg.model.emb_dim = 12, 10
+    cfg.model.E_args.E_class = "transformer"
+    cfg.model.G_args.G_class = "transformer"
+    model = j_build(cfg.model, n_vocab=24, max_seq_len=10)
+    j_ck.save(os.path.join(save, f"model_{N_ITER}.npz"),
+              {"params": model.init_params(jax.random.PRNGKey(4))})
+    rng = np.random.default_rng(1)
+    for split, n in (("train", 400), ("test", 100)):
+        _write_states(os.path.join(save, f"states_{split}_{N_ITER}.h5"),
+                      rng, n, 12)
+    return top
+
+
+@pytest.mark.parametrize("mode", ["all", "accepted"])
+def test_transformer_pipeline_end_to_end(tfm_run_dir, mode):
+    """The transformer family's CLaSS round through the CLI on the CPU
+    (run -> run_from_states), in both decode modes."""
+    stem = sample_pipeline.main(
+        FLAGS + TFM + ["--savepath_toplevel", tfm_run_dir, "--device", "cpu",
+                       "--hw.decode_mode", mode,
+                       "--samples_outfn_prefix", f"tfm_{mode}"])
+    with open(stem + ".csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    peps = [r["peptide"] for r in rows]
+    assert len(peps) == len(set(peps))
+    assert sum(r["accept"] == "True" for r in rows) >= 20
+    assert len(glob.glob(stem + ".accepted.*.pkl")) == 1
+
+
+def test_transformer_dispatch_budget_matches_jax():
+    """The KV-cache lane budget and bytes per candidate agree with the JAX
+    package's for both families and decode modes."""
+    for fam, extra in (("gru", []), ("transformer", TFM)):
+        for mode in ("all", "accepted"):
+            argv = extra + ["--hw.decode_mode", mode,
+                            "--hw.tfm_lane_budget_gb", "0.5"]
+            tcfg, _, _ = TC.parse_and_finalize(argv)
+            jcfg, _, _ = JC.parse_and_finalize(argv)
+            jm = j_build(jcfg.model, n_vocab=24, max_seq_len=25)
+            tm = t_build(tcfg.model, n_vocab=24, max_seq_len=25)
+            assert (pipeline.transformer_dispatch_budget(tcfg, tm)
+                    == j_pipeline.transformer_dispatch_budget(jcfg, jm)), (
+                fam, mode)
+            assert (pipeline.transformer_cache_bytes_per_candidate(tcfg, tm)
+                    == j_pipeline.transformer_cache_bytes_per_candidate(
+                        jcfg, jm)), (fam, mode)
+
+
+def test_round_halves_on_device_oom(tfm_run_dir, monkeypatch):
+    """A round that runs out of device memory halves and retries (the next
+    rounds keep the smaller size); rounds_per_dispatch is clamped to the
+    transformer lane budget; other errors propagate."""
+    sizes = []
+    real = pipeline.launch_round
+
+    def launch(cfg, model, params, Q, n, gen):
+        sizes.append(n)
+        if n > 150:
+            raise torch.cuda.OutOfMemoryError("test: out of memory")
+        return real(cfg, model, params, Q, n, gen)
+
+    monkeypatch.setattr(pipeline, "launch_round", launch)
+    argv = FLAGS + TFM + ["--savepath_toplevel", tfm_run_dir,
+                          "--device", "cpu", "--hw.rounds_per_dispatch", "4",
+                          "--hw.tfm_lane_budget_gb", "0.001",
+                          "--samples_outfn_prefix", "tfm_oom"]
+    sample_pipeline.main(argv)
+    # budget 0.001 GB / (6 x 112,640 B) = 1 candidate -> rpd 4 -> 1;
+    # then 300 -> 150 on the out-of-memory error
+    assert sizes[:2] == [300, 150] and set(sizes[2:]) <= {150}
+
+    def broken(*a, **k):
+        raise RuntimeError("not a memory error")
+
+    monkeypatch.setattr(pipeline, "launch_round", broken)
+    with pytest.raises(RuntimeError, match="not a memory error"):
+        sample_pipeline.main(argv)

@@ -1,0 +1,133 @@
+"""The port's transformer beam (``beam_search`` on CPU tensors, which runs
+the plain version of the B3 kernel, ``ops/tfm_beam_kernel.py``) against
+the JAX package's on the same parameters and z/c:
+
+(a) the JAX XLA arm (``set_pallas_beam(False)``);
+(b) the JAX Pallas kernel in interpret mode (``set_pallas_beam(True)``),
+    run as ``tests/test_pallas_tfm_beam.py`` runs it.
+
+Hypotheses token-equal; scores within rtol/atol 1e-5 (the emb -> in-proj
+fold regroups float sums, as the JAX package's own kernel test states).
+B 19 crosses the JAX kernel's fp32 tile of 16 sentences."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from controlled_peptide_generation_tpu import config as JC
+from controlled_peptide_generation_tpu.models import build_model as j_build
+from controlled_peptide_generation_tpu.ops import beam as j_beam
+from controlled_peptide_generation_tpu.train import checkpoints as j_ck
+
+from controlled_peptide_generation_tpu_torch import config as TC
+from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
+    build_model as t_build)
+from controlled_peptide_generation_tpu_torch.ops import beam as t_beam
+from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
+
+B = 19
+CASES = [(0, 5, 3), (1, 4, 1), (2, 3, 3)]
+
+
+def _small(C):
+    cfg = C.default_config()
+    cfg.model.E_args.E_class = "transformer"
+    cfg.model.G_args.G_class = "transformer"
+    cfg.model.z_dim, cfg.model.emb_dim = 12, 10
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = j_build(_small(JC).model, n_vocab=13, max_seq_len=10)
+    jp = jm.init_params(jax.random.PRNGKey(42))
+    flat = {k: np.asarray(v) for k, v in j_ck._flatten({"params": jp}).items()}
+    tm = t_build(_small(TC).model, n_vocab=13, max_seq_len=10)
+    return jm, jp, tm, t_ck.params_from_jax(flat)
+
+
+def _zc(seed):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((B, 12)).astype(np.float32)
+    c = np.eye(2, dtype=np.float32)[rng.integers(0, 2, B)]
+    return z, c
+
+
+def _jax_beam(jm, jp, z, c, K, n_best, min_length, pallas):
+    jax.clear_caches()
+    j_beam.set_pallas_beam(pallas)
+    try:
+        h, s = j_beam.beam_search(jm, jp, jnp.asarray(z), jnp.asarray(c),
+                                  beam_size=K, n_best=n_best,
+                                  min_length=min_length)
+        return np.asarray(h), np.asarray(s)
+    finally:
+        j_beam.set_pallas_beam(None)
+        jax.clear_caches()
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("seed,K,n_best", CASES)
+@pytest.mark.parametrize("min_length", [1, 4])
+def test_beam_matches_jax(models, seed, K, n_best, min_length, pallas):
+    jm, jp, tm, tp = models
+    z, c = _zc(seed)
+    h_ref, s_ref = _jax_beam(jm, jp, z, c, K, n_best, min_length, pallas)
+    h, s = t_beam.beam_search(tm, tp, torch.from_numpy(z),
+                              torch.from_numpy(c), beam_size=K,
+                              n_best=n_best, min_length=min_length)
+    np.testing.assert_array_equal(h.numpy(), h_ref)
+    np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_plain_route_and_kernel_route_agree_on_cpu(models):
+    """On CPU tensors the kernel's route runs its plain version: plain=True
+    gives the same hypotheses; the launch counter stays at 0."""
+    _, _, tm, tp = models
+    z, c = map(torch.from_numpy, _zc(3))
+    before = tfm_beam_kernel.beam_scan_tfm.launches
+    outs = [t_beam.beam_search(tm, tp, z, c, beam_size=5, n_best=1,
+                               plain=p) for p in (False, True)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert tfm_beam_kernel.beam_scan_tfm.launches == before
+
+
+def test_applicability_gate():
+    """The JAX kernel's scope, fp32 only on CUDA (mirrors
+    tests/test_pallas_tfm_beam.py's gate test)."""
+    cfg = _small(TC)
+    model = t_build(cfg.model, n_vocab=26, max_seq_len=25)
+    assert tfm_beam_kernel.applicable(model, 5, torch.float32)
+    assert not tfm_beam_kernel.applicable(model, 5, torch.bfloat16)
+    assert not tfm_beam_kernel.applicable(model, 5, torch.float16)
+    assert not tfm_beam_kernel.applicable(model, 1, torch.float32)   # K<=1
+    assert not tfm_beam_kernel.applicable(model, 25, torch.float32)  # K>V-2
+    assert not tfm_beam_kernel.applicable(model, 11, torch.float32)  # T*K
+    # the GRU family is the other kernel's scope
+    gru = t_build(TC.default_config().model, n_vocab=26, max_seq_len=25)
+    assert not tfm_beam_kernel.applicable(gru, 5, torch.float32)
+    for key, val in (("d_model", 64), ("d_ff", 200), ("n_heads", 3)):
+        cfg2 = _small(TC)
+        cfg2.model.G_args.T_args[key] = val
+        m2 = t_build(cfg2.model, n_vocab=26, max_seq_len=25)
+        assert not tfm_beam_kernel.applicable(m2, 5, torch.float32), key
+    assert not tfm_beam_kernel.applicable(
+        t_build(cfg.model, n_vocab=128, max_seq_len=25), 5, torch.float32)
+    assert not tfm_beam_kernel.applicable(
+        t_build(cfg.model, n_vocab=26, max_seq_len=32), 5, torch.float32)
+
+
+def test_kernel_route_takes_cpu_or_cuda_tensors_only():
+    """The wrapper runs the plain version only for CPU tensors: any other
+    device that is not CUDA raises before any work."""
+    meta = torch.device("meta")
+    rows = [torch.empty((4, 128), device=meta)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfm_beam_kernel.beam_scan_tfm(
+            torch.empty((13, 128), device=meta), None, [], None, None, None,
+            None, rows, rows, T=10, K=5, V=13, S=11, H=4, F=256,
+            min_length=1, n_best=1)
