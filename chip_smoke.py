@@ -7,10 +7,11 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles the GRU beam kernel (csrc/beam_gru.cu), the GRU
-   training recurrence kernels (csrc/gru_seq.cu) and the transformer beam
-   kernel (csrc/tfm_beam.cu) with nvcc, one process per source, started
-   together before torch is imported, so the imports and the device's
-   start-up run meanwhile; prints ptxas' registers and spills;
+   recurrence kernels of training and the forward-only scan
+   (csrc/gru_seq.cu), the transformer beam kernel (csrc/tfm_beam.cu) and
+   the WAE-MMD kernels (csrc/mmd_full.cu) with nvcc, one process per
+   source, started together before torch is imported, so the imports and
+   the device's start-up run meanwhile; prints ptxas' registers and spills;
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -29,7 +30,18 @@ Phases, each raising on failure (the script then exits non-zero):
    (B2_SCOPE_CASES): hs within 1e-4, each gradient within 1e-3 of its
    largest entry, the backward bitwise repeatable; at B 32 of each width,
    gru_scan through autograd in both directions against the same scan
-   inside gru_kernel.plain(), all six gradients;
+   inside cuda_build.plain(), all six gradients;
+4b. the forward-only scan (B4) vs its plain version at both widths, T 25,
+   both directions, B in B4_BATCHES (the tape a strided view, as gru_scan
+   passes it) and at the scope edges: hs and h_T within 1e-4; B 20000's
+   first B rows equal every smaller B bitwise (1 to 8 rows per block); B2's forward (the same scan
+   kernel through its training entry) equal to B4's hs bitwise at B 32;
+4m. the WAE-MMD kernels (B5, value and gradient) vs their plain versions
+   for the gaussian, laplace and energy forms at N in B5_NS, D 100, and at
+   D 1 and the scope's largest D 256: the value within 1e-5, both
+   gradients within 1e-4 of their largest entry, bitwise repeatable; at
+   N 1 (a batch of one row) the value and both gradients NaN, as the plain
+   versions give;
 5. the CLaSS main path: the pipeline (pipeline.run_from_states, what
    sample_pipeline runs after its file reads) on a run dir holding a
    seeded full-width checkpoint written by the port's saver, with a
@@ -42,15 +54,30 @@ Phases, each raising on failure (the script then exits non-zero):
    decode modes, the B3 kernel's launch count must rise, one round through
    the kernel and one with plain=True on the same draws must agree;
 6. the training main path: ``main.main --phase 1 --dataset amp`` at the
-   shipped width and batch 32 for 301 steps: the GRU kernels launched 3
-   times per step each (plus the heldout forwards), finite losses, recon
+   shipped width and batch 32 for 301 steps: B2 launched 3 times per step
+   each, B4 3 times per heldout batch (4 batches per checkpoint), B5's
+   value once per step and its backward never; finite losses, recon
    falling, checkpoints at 150 and 300 reloading with their Adam moments,
    vae_gen.txt over the vocab; then one step from the same params, batch
-   and draws through the kernels and inside gru_kernel.plain() must agree;
+   and draws through the kernels and inside cuda_build.plain() (B2 and B5
+   as their plain versions) must agree; then 51 steps with
+   ``--vae.z_regu_loss mmd``: B5's value and backward once per step,
+   finite and falling loss;
+6t. the transformer family's training main path, the same way (its
+   flags, the shipped T_args, batch 32, 301 steps): B5 once per step and
+   no other kernel, the same output checks, one step through the kernels
+   and inside plain() agreeing (loss rtol 1e-5, gradients 1e-3 of each
+   tensor's largest entry);
+5d. the dataloader encodings (run after 6: they encode the phase-6 GRU
+   run): pipeline.get_encodings_from_dataloader on its amp-positive train
+   and val rows, 2 B4 launches per batch, mu and logvar within 1e-4 of the
+   same encode inside plain(); then run_from_states with
+   --Q_from_full_dataloader on that run until accepted samples are
+   written;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds, cuDNN's GRU, the cuBLAS product that the
-   weight-gradient kernel computes, train steps/s, the transformer beam
-   and round times, seconds per phase), a
+   weight-gradient kernel computes, B4 and B5, train steps/s of both
+   families, the transformer beam and round times, seconds per phase), a
    `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
 """
@@ -97,6 +124,15 @@ B3_SCOPE_CASES = (
     ("S 32", 31, 8, 1, 1, {"max_seq_len": 31}),
     ("d_ff 512 (two ff chunks), 8 heads, V 127", 25, 5, 1, 1,
      {"d_ff": 512, "n_heads": 8, "n_vocab": 127}))
+# B4: the forward-only scan (heldout eval, pipeline encodings), both widths
+B4_BATCHES = (1, 5, 32, 37, 1024, 4096, 20000)
+# B5: the WAE-MMD, value and gradient; (N, D) beyond the latent width 100
+B5_NS = (2, 5, 32, 37, 256, 1024, 4096)
+B5_EDGES = ((2, 1), (37, 1), (1024, 1), (2, 256), (37, 256), (1024, 256))
+B5_FORMS = ("gaussian", "laplace", "energy")
+MAX_MMD_DELTA = 1e-5     # fp64-accumulated pair sums against torch's fp32
+MAX_MMD_GRAD_REL = 1e-4  # of each gradient's largest entry
+MMD_ITERS = 50           # the short --vae.z_regu_loss mmd run (B5 backward)
 FP32_PEAK = 67e12        # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
 HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s, NVIDIA data sheet
 
@@ -188,6 +224,31 @@ def b2_bound_ms(kind, T_, B, H):
                                        else "bytes")
 
 
+def b4_bound_ms(T_, B, H):
+    """Least time of B4 at these shapes: the recurrent product per step
+    (2 B 3H^2 FLOP) over the fp32 peak, against gi/wh/bh/h0 read once and
+    hs/h_T written once over the HBM rate."""
+    g3 = 3 * H
+    flops = 2 * T_ * B * H * g3
+    words = T_ * B * g3 + H * g3 + g3 + B * H + T_ * B * H + B * H
+    t_ops, t_bytes = flops / FP32_PEAK, 4 * words / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def b5_bound_ms(kind, N, D):
+    """Least time of B5 for z1, z2 [N, D]: the value's three difference-form
+    distances per pair (9 N^2 D FLOP) or one gradient's two distances and
+    two weighted differences per pair and feature (12 N^2 D FLOP) over the
+    fp32 peak, against z1, z2 read once (and the gradient written once)
+    over the HBM rate."""
+    flops = (9 if kind == "fwd" else 12) * N * N * D
+    words = 2 * N * D + 1 + (N * D if kind == "bwd" else 0)
+    t_ops, t_bytes = flops / FP32_PEAK, 4 * words / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def main():
     phase_s = {}
     t_mark = [T_START]
@@ -209,7 +270,7 @@ def main():
         log_ = cuda_build.compile_library(source)[1]
         return time.perf_counter() - t_build, log_
 
-    sources = ("beam_gru.cu", "gru_seq.cu", "tfm_beam.cu")
+    sources = ("beam_gru.cu", "gru_seq.cu", "tfm_beam.cu", "mmd_full.cu")
     pool = ThreadPoolExecutor(len(sources))
     builds = [pool.submit(timed_build, src) for src in sources]
     pool.shutdown(wait=False)
@@ -232,8 +293,10 @@ def main():
     from controlled_peptide_generation_tpu_torch import main as train_main
     from controlled_peptide_generation_tpu_torch.ops import beam, beam_kernel
     from controlled_peptide_generation_tpu_torch.ops import gru as gru_ops
+    from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
     from controlled_peptide_generation_tpu_torch.ops import gru_kernel
     from controlled_peptide_generation_tpu_torch.ops import losses
+    from controlled_peptide_generation_tpu_torch.ops import mmd_kernel
     from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
     from controlled_peptide_generation_tpu_torch.train import checkpoints
     from controlled_peptide_generation_tpu_torch.train import opt as train_opt
@@ -253,7 +316,7 @@ def main():
     mark("1b imports and device, the builds running")
 
     built = [b.result() for b in builds]
-    for kernel in (beam_kernel, gru_kernel, tfm_beam_kernel):
+    for kernel in (beam_kernel, gru_kernel, tfm_beam_kernel, mmd_kernel):
         kernel.build()
     log("[2] built " + ", ".join(
         f"csrc/{src} in {sec:.2f}s" for src, (sec, _) in zip(sources, built))
@@ -477,7 +540,7 @@ def main():
         """Forward, backward and weight-gradient kernels against their plain
         versions on the same inputs, the backward twice (bitwise equal);
         with ``scan``, gru_scan through autograd too, both directions,
-        kernels against gru_kernel.plain()."""
+        kernels against cuda_build.plain()."""
         p = gru_ops.init_gru_params(gb, I, H, dev)
         xs = torch.randn((B, T_, I), generator=gb, device=dev)
         h0 = 0.5 * torch.randn((B, H), generator=gb, device=dev)
@@ -512,7 +575,8 @@ def main():
                 leaves = [p[k].detach().requires_grad_() for k in grad_names[:4]]
                 x = xs.detach().requires_grad_()
                 h = h0.detach().requires_grad_()
-                with gru_kernel.plain() if plain else contextlib.nullcontext():
+                with (cuda_build.plain() if plain
+                      else contextlib.nullcontext()):
                     out, last = gru_ops.gru_scan(
                         dict(zip(grad_names, leaves)), x, h, reverse=reverse)
                     loss = (out * w).sum() + (last * w_last).sum()
@@ -524,13 +588,13 @@ def main():
                                                               max(g_errs))
             if e_scan > MAX_HS_DELTA or max(g_errs) > MAX_GRAD_REL:
                 raise AssertionError(
-                    f"gru_scan kernels vs gru_kernel.plain() disagree "
+                    f"gru_scan kernels vs cuda_build.plain() disagree "
                     f"({what}, reverse={reverse}): hs {e_scan:.3e}, grads "
                     f"{dict(zip(grad_names, g_errs))}")
         log(f"[4] {what}: |hs delta| {e_hs:.3e}; backward rel errors "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f"; backward bitwise repeatable {bitwise}"
-            + ("; gru_scan vs gru_kernel.plain() (|hs delta|, max grad rel "
+            + ("; gru_scan vs cuda_build.plain() (|hs delta|, max grad rel "
                "error): " + ", ".join(f"{k} {a:.3e} {b:.3e}" for k, (a, b)
                                        in scan_errs.items())
                if scan else "")
@@ -636,7 +700,140 @@ def main():
             "cudnn_vs_scan_delta": lib_delta,
             "wgrad_mm": cuda_ms(lambda: torch.mm(hprev1.T, dgh), 50),
             "wgrad_mm_delta": wgrad_delta}
-    mark("4b B2 timings")
+    mark("4a B2 timings")
+
+    # ---- 4b. B4: the forward-only scan vs its plain version ---------------
+    b4_err = 0.0
+
+    def b4_case(p, gi, h0, reverse, what):
+        """B4 against its plain version on one tape: hs and h_T within
+        MAX_HS_DELTA. Returns the kernel's (hs, h_T)."""
+        nonlocal b4_err
+        got = gru_fwd_kernel.gru_fwd(p["wh"], p["bh"], gi, h0, reverse)
+        ref = gru_fwd_kernel.gru_fwd_reference(p["wh"], p["bh"], gi, h0,
+                                               reverse)
+        torch.cuda.synchronize()
+        e_hs, e_hT = ((a - b).abs().max().item() for a, b in zip(got, ref))
+        b4_err = max(b4_err, e_hs, e_hT)
+        if max(e_hs, e_hT) > MAX_HS_DELTA:
+            raise AssertionError(f"B4 disagrees with its plain version "
+                                 f"({what}): hs {e_hs:.3e}, h_T {e_hT:.3e} "
+                                 f"(limit {MAX_HS_DELTA})")
+        return got, (e_hs, e_hT)
+
+    for I, H_ in B2_WIDTHS:
+        p = gru_ops.init_gru_params(gb, I, H_, dev)
+        n4 = max(B4_BATCHES)
+        xs = torch.randn((n4, T, I), generator=gb, device=dev)
+        h0 = 0.5 * torch.randn((n4, H_), generator=gb, device=dev)
+        # the tape as gru_scan hands it over: a time-major view of the
+        # batch-major projection; smaller batches are views of its rows
+        gi_all = (xs @ p["wi"] + p["bi"]).transpose(0, 1)
+        del xs
+        for reverse in (False, True):
+            outs4, errs4 = {}, {}
+            for B in B4_BATCHES:
+                outs4[B], errs4[B] = b4_case(p, gi_all[:, :B], h0[:B],
+                                             reverse, f"in {I} H {H_} B {B} "
+                                             f"reverse {reverse}")
+            # every batch against the first rows of the largest: the
+            # plans differ (1 to 8 rows per block), the bits must not
+            big = max(B4_BATCHES)
+            off = [B for B in B4_BATCHES if not all(
+                torch.equal(a[:, :B] if a.dim() == 3 else a[:B], b)
+                for a, b in zip(outs4[big], outs4[B]))]
+            inv = not off
+            log(f"[4b] B4 in {I} H {H_} T {T} reverse {reverse}: max "
+                f"(|hs delta|, |h_T delta|) per B "
+                + ", ".join(f"{B}: {a:.2e} {b:.2e}" for B, (a, b)
+                            in errs4.items())
+                + f"; B {big}'s first rows == every smaller B bitwise "
+                f"{inv}; plan (rows/block, threads, smem) at B {big} "
+                f"{gru_kernel.launch_plan(big, H_)[:3]}")
+            if not inv:
+                raise AssertionError(f"B4 is not batch invariant (in {I} H "
+                                     f"{H_} reverse {reverse}): B {off} "
+                                     f"differ from B {big}'s first rows")
+            if not reverse:
+                # B2's forward is the same scan kernel on a contiguous tape
+                hs2 = gru_kernel.gru_seq_fwd(p["wh"], p["bh"],
+                                             gi_all[:, :32].contiguous(),
+                                             h0[:32])
+                same = torch.equal(hs2, outs4[32][0])
+                log(f"[4b] B2's forward == B4's hs at B 32, bitwise {same}")
+                if not same:
+                    raise AssertionError("B2's forward and B4 differ on the "
+                                         "same tape")
+            del outs4
+        del gi_all
+    for I, H_, B, T_ in B2_SCOPE_CASES:
+        p = gru_ops.init_gru_params(gb, I, H_, dev)
+        xs = torch.randn((B, T_, I), generator=gb, device=dev)
+        h0 = 0.5 * torch.randn((B, H_), generator=gb, device=dev)
+        gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1)
+        for reverse in (False, True):
+            _, (e_hs, e_hT) = b4_case(p, gi, h0, reverse,
+                                      f"scope in {I} H {H_} T {T_} B {B}")
+            log(f"[4b] B4 scope in {I} H {H_} T {T_} B {B} reverse "
+                f"{reverse}: |hs delta| {e_hs:.3e}, |h_T delta| {e_hT:.3e}")
+    mark("4b B4 vs plain")
+
+    # ---- 4m. B5: the WAE-MMD kernels vs their plain versions --------------
+    b5_err = {"fwd": 0.0, "bwd": 0.0}
+    one = torch.ones((), device=dev)
+
+    def b5_case(N, D, form):
+        """Value and both gradients against the plain versions on latent-
+        like z1 and prior-like z2, each kernel twice (bitwise equal)."""
+        z1 = 0.8 * torch.randn((N, D), generator=gb, device=dev) + 0.1
+        z2 = torch.randn((N, D), generator=gb, device=dev)
+        runs = [(mmd_kernel.mmd_full_fwd(z1, z2, 7.0, form),
+                 mmd_kernel.mmd_full_bwd(z1, z2, one, 7.0, form),
+                 mmd_kernel.mmd_full_bwd(z2, z1, one, 7.0, form))
+                for _ in range(2)]
+        ref = (mmd_kernel.mmd_full_reference(z1, z2, 7.0, form),
+               mmd_kernel.mmd_full_bwd_reference(z1, z2, 7.0, form),
+               mmd_kernel.mmd_full_bwd_reference(z2, z1, 7.0, form))
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
+        e_v = abs(runs[0][0].item() - ref[0].item())
+        e_g = [rel_err(a, b) for a, b in zip(runs[0][1:], ref[1:])]
+        b5_err["fwd"] = max(b5_err["fwd"], e_v)
+        b5_err["bwd"] = max(b5_err["bwd"], *(
+            (a - b).abs().max().item() for a, b in zip(runs[0][1:], ref[1:])))
+        if e_v > MAX_MMD_DELTA or max(e_g) > MAX_MMD_GRAD_REL or not bitwise:
+            raise AssertionError(
+                f"B5 disagrees with its plain versions (N {N} D {D} {form}): "
+                f"value {e_v:.3e} (limit {MAX_MMD_DELTA}), gradients "
+                f"{e_g} (limit {MAX_MMD_GRAD_REL} of their max), bitwise "
+                f"{bitwise}")
+        return f"{N}x{D} {form}: {e_v:.1e} {max(e_g):.1e}"
+
+    def b5_one_row(form):
+        """N 1: the value and both gradients divide 0 by N (N - 1) = 0, so
+        the kernels must give NaN where the plain versions do."""
+        z1 = torch.randn((1, 100), generator=gb, device=dev)
+        z2 = torch.randn((1, 100), generator=gb, device=dev)
+        got = (mmd_kernel.mmd_full_fwd(z1, z2, 7.0, form),
+               mmd_kernel.mmd_full_bwd(z1, z2, one, 7.0, form),
+               mmd_kernel.mmd_full_bwd(z2, z1, one, 7.0, form))
+        ref = (mmd_kernel.mmd_full_reference(z1, z2, 7.0, form),
+               mmd_kernel.mmd_full_bwd_reference(z1, z2, 7.0, form),
+               mmd_kernel.mmd_full_bwd_reference(z2, z1, 7.0, form))
+        if not all(bool(torch.isnan(a).all()) for a in got + ref):
+            raise AssertionError(f"B5 at N 1 ({form}): want NaN value and "
+                                 f"gradients as the plain versions give, "
+                                 f"got {got[0].item()} and non-NaN gradient "
+                                 f"entries")
+        return "1x100 NaN as plain"
+
+    for form in B5_FORMS:
+        res = [b5_case(N, 100, form) for N in B5_NS]
+        res += [b5_case(N, D, form) for N, D in B5_EDGES]
+        res.append(b5_one_row(form))
+        log(f"[4m] B5 {form} (N x D: |value delta|, max gradient error of "
+            f"its max), every case bitwise repeatable: " + "; ".join(res))
+    mark("4m B5 vs plain")
 
     # ---- 5. main path: the CLaSS round ------------------------------------
     rng = np.random.default_rng(4)
@@ -757,103 +954,288 @@ def main():
     # ---- 6. main path: phase-1 training ------------------------------------
     train_top = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(train_top, ignore_errors=True)
-    tflags = ["--phase", "1", "--dataset", "amp", "--datapath",
-              os.path.join(ROOT, "data"), "--savepath_toplevel", train_top,
-              "--tb_toplevel", os.path.join(train_top, "tb"), "--runname",
-              "smoke", "--seed", "1238", "--vae.n_iter", str(TRAIN_ITERS),
-              "--vae.cheaplog_every", "100", "--vae.expsvlog_every", "150"]
-    gru_kernel.reset_launches()
-    t0 = time.perf_counter()
-    tcfg = train_main.main(tflags)
-    train_s = time.perf_counter() - t0
-    train_launches = {k: getattr(gru_kernel, f"gru_seq_{k}").launches
-                      for k in ("fwd", "bwd", "wgrad")}
+
+    def train_flags(runname, n_iter, extra=()):
+        return ["--phase", "1", "--dataset", "amp", "--datapath",
+                os.path.join(ROOT, "data"), "--savepath_toplevel", train_top,
+                "--tb_toplevel", os.path.join(train_top, "tb"), "--runname",
+                runname, "--seed", "1238", "--vae.n_iter", str(n_iter),
+                "--vae.cheaplog_every", "100", "--vae.expsvlog_every",
+                "150"] + list(extra)
+
+    def reset_counts():
+        gru_kernel.reset_launches()
+        gru_fwd_kernel.gru_fwd.launches = 0
+        mmd_kernel.reset_launches()
+
+    def counts():
+        return {"B2 fwd": gru_kernel.gru_seq_fwd.launches,
+                "B2 bwd": gru_kernel.gru_seq_bwd.launches,
+                "B2 wgrad": gru_kernel.gru_seq_wgrad.launches,
+                "B4": gru_fwd_kernel.gru_fwd.launches,
+                "B5 fwd": mmd_kernel.mmd_full_fwd.launches,
+                "B5 bwd": mmd_kernel.mmd_full_bwd.launches}
+
+    def train_run(tag, flags_):
+        """main.main on the flags, the kernels' counts set to 0 just before
+        and read just after. Returns (cfg, counts, seconds)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        cfg_ = train_main.main(flags_)
+        return cfg_, counts(), time.perf_counter() - t0
+
+    def check_train_outputs(tag, tcfg_, n_steps_):
+        """Finite logged losses with recon falling, every checkpoint
+        reloading with its Adam moments (count it + 1, nonzero nu),
+        vae_gen.txt over the vocab. Returns (result rows, recon at the
+        logs, checkpoint iterations, sample lines, model, last params)."""
+        with open(os.path.join(tcfg_.savepath, "result.json")) as fh:
+            rows_ = json.load(fh)
+        logged = [r for r in rows_ if "train_L_vae_recon" in r]
+        bad = [(r["it"], k) for r in logged for k, v in r.items()
+               if k.startswith("train_") and not np.isfinite(v)]
+        recon_ = [r["train_L_vae_recon"] for r in logged]
+        if bad or not recon_ or recon_[-1] >= recon_[0]:
+            raise AssertionError(f"{tag} training losses: non-finite {bad}, "
+                                 f"recon at the logs {recon_}")
+        model_ = build_model(tcfg_.model, V, tcfg_.max_seq_len)
+        template = model_.init_params(
+            torch.Generator(device=dev).manual_seed(0), dev)
+        adam = train_opt.make_optimizer(tcfg_.vae)
+        ckpts_ = [it for it in range(1, n_steps_)
+                  if it % tcfg_.vae.expsvlog_every == 0]
+        params_ = None
+        for it in ckpts_:
+            params_, state = checkpoints.load_train_state(
+                tcfg_.vae.chkpt_path.format(it), template,
+                adam.init(template), dev)
+            empty = [checkpoints.keystr(k) for k, v in
+                     checkpoints.flatten(state["nu"]).items()
+                     if not v.abs().sum() > 0]
+            if int(state["count"]) != it + 1 or empty:
+                raise AssertionError(f"{tag} model_{it}.npz: Adam count "
+                                     f"{int(state['count'])}, moments empty "
+                                     f"for {empty}")
+        with open(tcfg_.vae.gen_samples_path) as fh:
+            lines = fh.read().splitlines()
+        if (len(lines) != tcfg_.evals.sample_size
+                or not set(" ".join(lines).split()) <= set(vocab.itos[4:])):
+            raise AssertionError(f"{tcfg_.vae.gen_samples_path}: "
+                                 f"{len(lines)} lines (want "
+                                 f"{tcfg_.evals.sample_size}) or tokens "
+                                 f"outside the vocab")
+        return rows_, recon_, ckpts_, lines, model_, params_
+
+    def step_vs_plain(tag, model_, tcfg_, params_):
+        """One step from the same params, batch and draws through the
+        kernels and inside cuda_build.plain() (every kernel of the step as
+        its plain version): loss rtol 1e-5, each gradient within
+        MAX_GRAD_REL of its tensor's largest entry."""
+        for leaf in checkpoints.flatten(params_).values():
+            leaf.requires_grad_(True)
+        batch = torch.from_numpy(train_main.load_dataset(tcfg_).next_batch(
+            "train_vae").text).to(dev)
+        draws = train_vae.draw_step(
+            model_, runtime.generator(dev, tcfg_.seed, 10 ** 6),
+            batch.shape[0], tcfg_.max_seq_len, dev)
+        rf = losses.init_rf_basis(runtime.generator(dev, tcfg_.seed, 7),
+                                  model_.z_dim, tcfg_.losses.wae_mmd.rf_dim,
+                                  dev)
+        loss_fn = train_vae.make_loss_fn(model_, tcfg_.vae,
+                                         tcfg_.losses.wae_mmd, rf)
+        res = [train_vae.loss_and_grads(loss_fn, params_, batch, 1.5, draws)]
+        with cuda_build.plain():
+            res.append(train_vae.loss_and_grads(loss_fn, params_, batch, 1.5,
+                                                draws))
+        loss_rel = abs(res[0][0].item() - res[1][0].item()) / abs(
+            res[1][0].item())
+        mmd_delta = abs(res[0][1]["L_wae_mmd"].item()
+                        - res[1][1]["L_wae_mmd"].item())
+        g_k = checkpoints.flatten(res[0][2])
+        g_p = checkpoints.flatten(res[1][2])
+        g_errs = {checkpoints.keystr(k): rel_err(g_k[k], g_p[k]) for k in g_k}
+        worst = max(g_errs, key=g_errs.get)
+        log(f"[6] {tag}: one train step, kernels vs cuda_build.plain() on "
+            f"the same params, batch and draws: loss {res[0][0].item():.6f} "
+            f"vs {res[1][0].item():.6f} (rel {loss_rel:.3e}), L_wae_mmd "
+            f"|delta| {mmd_delta:.3e}; largest gradient error "
+            f"{g_errs[worst]:.3e} of the tensor's max ({worst})")
+        if (loss_rel > 1e-5 or mmd_delta > MAX_MMD_DELTA
+                or g_errs[worst] > MAX_GRAD_REL):
+            raise AssertionError(f"{tag}: the train step disagrees between "
+                                 f"the kernels and cuda_build.plain()")
+        for leaf in checkpoints.flatten(params_).values():
+            leaf.requires_grad_(False)
+
     n_steps = TRAIN_ITERS + 1
-    ckpts = [it for it in range(1, TRAIN_ITERS + 1)
-             if it % tcfg.vae.expsvlog_every == 0]
-    # three recurrences per step; the heldout eval at each checkpoint runs
-    # the three forwards on each of its 4 batches
-    want = {"fwd": 3 * n_steps + 3 * 4 * len(ckpts), "bwd": 3 * n_steps,
-            "wgrad": 3 * n_steps}
+    tcfg, train_launches, train_s = train_run(
+        "GRU", train_flags("smoke", TRAIN_ITERS))
+    rows, recon, ckpts, gen_lines, model_t, tparams = check_train_outputs(
+        "GRU", tcfg, n_steps)
+    # three recurrences per step through B2; the heldout eval at each
+    # checkpoint runs its three scans without autograd, through B4, on each
+    # of its 4 batches; the MMD once per step through B5 (its backward
+    # only when it regularizes)
+    want = {"B2 fwd": 3 * n_steps, "B2 bwd": 3 * n_steps,
+            "B2 wgrad": 3 * n_steps, "B4": 3 * 4 * len(ckpts),
+            "B5 fwd": n_steps, "B5 bwd": 0}
     if train_launches != want:
-        raise AssertionError(f"training launched the B2 kernels "
+        raise AssertionError(f"GRU training launched the kernels "
                              f"{train_launches} times, expected {want}")
-    with open(os.path.join(tcfg.savepath, "result.json")) as fh:
-        rows = json.load(fh)
-    logged = [r for r in rows if "train_L_vae_recon" in r]
-    bad = [(r["it"], k) for r in logged for k, v in r.items()
-           if k.startswith("train_") and not np.isfinite(v)]
-    recon = [r["train_L_vae_recon"] for r in logged]
-    if bad or not recon or recon[-1] >= recon[0]:
-        raise AssertionError(f"training losses: non-finite {bad}, recon at "
-                             f"the logs {recon}")
-    final = rows[-1]
-    model_t = build_model(tcfg.model, V, tcfg.max_seq_len)
-    template = model_t.init_params(torch.Generator(device=dev).manual_seed(0),
-                                   dev)
-    adam = train_opt.make_optimizer(tcfg.vae)
-    for it in ckpts:
-        tparams, tstate = checkpoints.load_train_state(
-            tcfg.vae.chkpt_path.format(it), template, adam.init(template),
-            dev)
-        empty = [checkpoints.keystr(k) for k, v in
-                 checkpoints.flatten(tstate["nu"]).items()
-                 if not v.abs().sum() > 0]
-        if int(tstate["count"]) != it + 1 or empty:
-            raise AssertionError(f"model_{it}.npz: Adam count "
-                                 f"{int(tstate['count'])}, moments empty "
-                                 f"for {empty}")
-    with open(tcfg.vae.gen_samples_path) as fh:
-        gen_lines = fh.read().splitlines()
-    if (len(gen_lines) != tcfg.evals.sample_size
-            or not set(" ".join(gen_lines).split()) <= set(vocab.itos[4:])):
-        raise AssertionError(f"{tcfg.vae.gen_samples_path}: "
-                             f"{len(gen_lines)} lines (want "
-                             f"{tcfg.evals.sample_size}) or tokens outside "
-                             f"the vocab")
     log(f"[6] phase-1 training, {n_steps} steps at batch "
         f"{tcfg.vae.batch_size} (emb {tcfg.model.emb_dim}, encoder H "
         f"{tcfg.model.E_args.h_dim}, z {tcfg.model.z_dim}, decoder H "
         f"{model_t.h_dec}, V {V}, T {tcfg.max_seq_len}): {train_s:.2f} s in "
-        f"main.main; B2 launches {train_launches} ({want}); recon at the "
+        f"main.main; launches {train_launches} (want {want}); recon at the "
         f"logs {[round(r, 4) for r in recon]}; checkpoints {ckpts} reload "
         f"with Adam count it+1 and nonzero moments; {len(gen_lines)} "
-        f"samples in vae_gen.txt; heldout {[(r['it'], r['hld_recon']) for r in rows if 'hld_recon' in r]}")
-
+        f"samples in vae_gen.txt; heldout "
+        f"{[(r['it'], r['hld_recon']) for r in rows if 'hld_recon' in r]}")
     mark("6a phase-1 training (main.main) and its checks")
-    # one step from the same params, batch and draws: the kernels against
-    # the plain step loop
-    for leaf in checkpoints.flatten(tparams).values():
-        leaf.requires_grad_(True)
-    batch = torch.from_numpy(
-        train_main.load_dataset(tcfg).next_batch("train_vae").text).to(dev)
-    step_draws = train_vae.draw_step(
-        model_t, runtime.generator(dev, tcfg.seed, 10 ** 6),
-        batch.shape[0], tcfg.max_seq_len, dev)
-    rf = losses.init_rf_basis(runtime.generator(dev, tcfg.seed, 7),
-                                   model_t.z_dim,
-                                   tcfg.losses.wae_mmd.rf_dim, dev)
-    loss_fn = train_vae.make_loss_fn(model_t, tcfg.vae, tcfg.losses.wae_mmd,
-                                     rf)
-    step = [train_vae.loss_and_grads(loss_fn, tparams, batch, 1.5,
-                                     step_draws)]
-    with gru_kernel.plain():
-        step.append(train_vae.loss_and_grads(loss_fn, tparams, batch, 1.5,
-                                             step_draws))
-    loss_delta = abs(step[0][0].item() - step[1][0].item())
-    g_k = checkpoints.flatten(step[0][2])
-    g_p = checkpoints.flatten(step[1][2])
-    g_errs = {checkpoints.keystr(k): rel_err(g_k[k], g_p[k]) for k in g_k}
-    worst = max(g_errs, key=g_errs.get)
-    log(f"[6] one train step, kernels vs gru_kernel.plain() on the same "
-        f"params, "
-        f"batch and draws: loss {step[0][0].item():.6f} vs "
-        f"{step[1][0].item():.6f} (|delta| {loss_delta:.3e}); largest "
-        f"gradient error {g_errs[worst]:.3e} of the tensor's max ({worst})")
-    if loss_delta > MAX_HS_DELTA or g_errs[worst] > MAX_GRAD_REL:
-        raise AssertionError("the train step disagrees between the kernels "
-                             "and gru_kernel.plain()")
+    step_vs_plain("GRU", model_t, tcfg, tparams)
     mark("6b one step, kernels vs plain")
+
+    # the short run whose MMD regularizes: B5's backward on the card
+    mcfg, mmd_launches, mmd_s = train_run("GRU mmd", train_flags(
+        "smoke_mmd", MMD_ITERS, ["--vae.z_regu_loss", "mmd",
+                                 "--vae.cheaplog_every", "10",
+                                 "--vae.expsvlog_every", "1000"]))
+    with open(os.path.join(mcfg.savepath, "result.json")) as fh:
+        m_loss = [r["train_L_vae"] for r in json.load(fh)
+                  if "train_L_vae" in r]
+    want_m = MMD_ITERS + 1
+    if (mmd_launches["B5 fwd"] != want_m or mmd_launches["B5 bwd"] != want_m
+            or not all(np.isfinite(m_loss)) or m_loss[-1] >= m_loss[0]):
+        raise AssertionError(f"the mmd run: launches {mmd_launches} (want "
+                             f"B5 fwd and bwd {want_m}), L_vae at the logs "
+                             f"{m_loss}")
+    log(f"[6] --vae.z_regu_loss mmd, {want_m} steps: {mmd_s:.2f} s; "
+        f"launches {mmd_launches}; L_vae at the logs "
+        f"{[round(v, 4) for v in m_loss]}")
+    mark("6c mmd run (B5 backward)")
+
+    # ---- 6t. main path: phase-1 training of the transformer family --------
+    tcfg_t, tfm_launches, tfm_s = train_run(
+        "transformer", train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS))
+    rows_t, recon_t, ckpts_t, gen_t, model_t6, tparams_t = (
+        check_train_outputs("transformer", tcfg_t, n_steps))
+    want_t = dict.fromkeys(want, 0)
+    want_t["B5 fwd"] = n_steps
+    if tfm_launches != want_t:
+        raise AssertionError(f"transformer training launched the kernels "
+                             f"{tfm_launches} times, expected {want_t}")
+    t_args = tcfg_t.model.G_args.T_args
+    log(f"[6t] transformer phase-1 training, {n_steps} steps at batch "
+        f"{tcfg_t.vae.batch_size} (d_model {t_args.d_model}, "
+        f"{t_args.n_layers} layers, d_ff {t_args.d_ff}, {t_args.n_heads} "
+        f"heads, emb {tcfg_t.model.emb_dim}, z {tcfg_t.model.z_dim}, V {V}, "
+        f"T {tcfg_t.max_seq_len}): {tfm_s:.2f} s in main.main; launches "
+        f"{tfm_launches} (want {want_t}); recon at the logs "
+        f"{[round(r, 4) for r in recon_t]}; checkpoints {ckpts_t} reload "
+        f"with Adam count it+1 and nonzero moments; {len(gen_t)} samples "
+        f"in vae_gen.txt; heldout "
+        f"{[(r['it'], r['hld_recon']) for r in rows_t if 'hld_recon' in r]}")
+    mark("6t-a transformer training (main.main) and its checks")
+    step_vs_plain("transformer", model_t6, tcfg_t, tparams_t)
+    mark("6t-b one transformer step, kernels vs plain")
+
+    # ---- 5d. main path: Q from the dataloader's encodings -----------------
+    # the GRU run of phase 6, its amp-positive train and val rows
+    dataset = pipeline.load_dataloader(tcfg)
+    gru_fwd_kernel.gru_fwd.launches = 0
+    enc = pipeline.get_encodings_from_dataloader(
+        tcfg, {"amp": 1}, "train,val", model_t, tparams, dataset)
+    enc_launches = gru_fwd_kernel.gru_fwd.launches
+    with cuda_build.plain():
+        enc_plain = pipeline.get_encodings_from_dataloader(
+            tcfg, {"amp": 1}, "train,val", model_t, tparams, dataset)
+    n_batches = -(-enc[0].shape[0] // tcfg.vae.batch_size)
+    enc_delta = max(float(np.abs(a - b).max()) for a, b in zip(enc, enc_plain))
+    log(f"[5d] dataloader encodings of {enc[0].shape[0]} amp-positive "
+        f"train+val rows in {n_batches} batches: B4 launches {enc_launches} "
+        f"(2 per batch), max |mu, logvar delta| against cuda_build.plain() "
+        f"{enc_delta:.3e}")
+    if enc_launches != 2 * n_batches or enc_delta > MAX_HS_DELTA:
+        raise AssertionError("the dataloader encodings did not run through "
+                             "B4, or disagree with its plain version")
+    cfg_d, args_d, _ = C.parse_and_finalize(
+        train_flags("smoke", TRAIN_ITERS) + [
+            "--Q_from_full_dataloader", "--Q_select_amppos", "1",
+            "--Q_n_components", "10", "--n_samples_per_round", "5000",
+            "--n_samples_acc", "100", "--samples_outfn_prefix",
+            "smoke_dataloader"], extra_args=sample_pipeline.EXTRA_ARGS)
+    gru_fwd_kernel.gru_fwd.launches = 0
+    beam_kernel.beam_scan_gru.launches = 0
+    stem_d, samples_d, stats_d = pipeline.run_from_states(
+        cfg_d, args_d, model_t, tparams, vocab, states, device=dev,
+        dataset=dataset)
+    dl_launches = {"B4": gru_fwd_kernel.gru_fwd.launches,
+                   "B1": beam_kernel.beam_scan_gru.launches}
+    n_acc_d = int(np.sum(samples_d["accept"]))
+    if (dl_launches["B4"] != 2 * n_batches or dl_launches["B1"] < 1
+            or n_acc_d < 100
+            or not os.path.exists(stem_d + ".plain.txt")):
+        raise AssertionError(f"the --Q_from_full_dataloader run: launches "
+                             f"{dl_launches}, {n_acc_d} accepted")
+    log(f"[5d] run_from_states --Q_from_full_dataloader on the phase-6 run: "
+        f"{stats_d['rounds']} round(s), {n_acc_d} accepted samples in "
+        f"{stem_d}.*; launches {dl_launches}")
+    enc_launches += dl_launches["B4"]
+    mark("5d dataloader encodings and their pipeline")
+
+    # ---- B4 and B5 timings --------------------------------------------------
+    b4_times = {}
+    I, H_ = B2_WIDTHS[1]
+    p = gru_ops.init_gru_params(gb, I, H_, dev)
+    for B in (32, 1024, 20000):
+        xs = torch.randn((B, T, I), generator=gb, device=dev)
+        h0 = 0.5 * torch.randn((B, H_), generator=gb, device=dev)
+        gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1)
+        cudnn = torch.nn.GRU(I, H_, batch_first=True).to(dev)
+        with torch.no_grad():
+            for name, src in (("weight_ih_l0", p["wi"].T),
+                              ("weight_hh_l0", p["wh"].T),
+                              ("bias_ih_l0", p["bi"]),
+                              ("bias_hh_l0", p["bh"])):
+                getattr(cudnn, name).copy_(src)
+            lib_delta = (cudnn(xs, h0[None])[0]
+                         - gru_ops.gru_scan(p, xs, h0)[0]).abs().max().item()
+
+            def no_grad(fn):
+                def run():
+                    with torch.no_grad():
+                        fn()
+                return run
+
+            b4_times[B] = {
+                "kernel": cuda_ms(lambda: gru_fwd_kernel.gru_fwd(
+                    p["wh"], p["bh"], gi, h0), 50 if B < 20000 else 10),
+                "plain": cuda_ms(lambda: gru_fwd_kernel.gru_fwd_reference(
+                    p["wh"], p["bh"], gi, h0), 5),
+                "bound": b4_bound_ms(T, B, H_),
+                "cudnn_fwd": cuda_ms(no_grad(lambda: cudnn(xs, h0[None])),
+                                     20 if B < 20000 else 5),
+                "scan_fwd": cuda_ms(no_grad(lambda: gru_ops.gru_scan(
+                    p, xs, h0)), 20 if B < 20000 else 5),
+                "cudnn_delta": lib_delta}
+        del xs, gi, cudnn
+    b5_times = {}
+    for N in (32, 4096):
+        z1 = 0.8 * torch.randn((N, 100), generator=gb, device=dev) + 0.1
+        z2 = torch.randn((N, 100), generator=gb, device=dev)
+        b5_times[N] = {
+            "fwd": (cuda_ms(lambda: mmd_kernel.mmd_full_fwd(z1, z2, 7.0),
+                            50),
+                    cuda_ms(lambda: mmd_kernel.mmd_full_reference(z1, z2,
+                                                                  7.0), 5),
+                    b5_bound_ms("fwd", N, 100)),
+            "bwd": (cuda_ms(lambda: mmd_kernel.mmd_full_bwd(z1, z2, one,
+                                                            7.0), 50),
+                    cuda_ms(lambda: mmd_kernel.mmd_full_bwd_reference(
+                        z1, z2, 7.0), 5),
+                    b5_bound_ms("bwd", N, 100))}
+        del z1, z2
+    mark("7a B4 and B5 timings")
 
     # ---- 7. report --------------------------------------------------------
     for B, (k_ms, p_ms, (b_ms, _)) in times.items():
@@ -894,11 +1276,28 @@ def main():
             f"{lib['wgrad_mm']:.4f} ms (the kernel {t['wgrad'][0]:.4f} ms "
             f"also gathers its operands); max |delta| against the kernel "
             f"{lib['wgrad_mm_delta']:.3e} ({card})")
-    log(f"[7] phase-1 training at the shipped width, batch "
-        f"{tcfg.vae.batch_size}: {final['train_steps_per_sec_warm']:.2f} "
-        f"steps/s after the first {train_vae.WARM_STEPS} steps, "
-        f"{final['train_steps_per_sec']:.2f} steps/s over all {n_steps} "
-        f"(host clock, log and checkpoint boundaries included) ({card})")
+    for B, t in b4_times.items():
+        b_ms, b_by = t["bound"]
+        log(f"[7] B4 forward-only scan at B {B}, T {T}, H {H_}: kernel "
+            f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}); with the input projection (in {I}): "
+            f"torch.nn.GRU (cuDNN) forward {t['cudnn_fwd']:.4f} ms, the "
+            f"port's gru_scan without autograd {t['scan_fwd']:.4f} ms, max "
+            f"|hs delta| {t['cudnn_delta']:.3e} ({card})")
+    for N, t in b5_times.items():
+        for k in ("fwd", "bwd"):
+            k_ms, p_ms, (b_ms, b_by) = t[k]
+            log(f"[7] B5 {k} (gaussian) at N {N}, D 100: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+                f"({b_by}); no single PyTorch call computes it ({card})")
+    for tag, tcfg_, rows_ in (("GRU", tcfg, rows),
+                              ("transformer", tcfg_t, rows_t)):
+        fin = rows_[-1]
+        log(f"[7] {tag} phase-1 training at the shipped width, batch "
+            f"{tcfg_.vae.batch_size}: {fin['train_steps_per_sec_warm']:.2f} "
+            f"steps/s after the first {train_vae.WARM_STEPS} steps, "
+            f"{fin['train_steps_per_sec']:.2f} steps/s over all {n_steps} "
+            f"(host clock, log and checkpoint boundaries included) ({card})")
     k_ms, p_ms, (b_ms, b_by) = times[5000]
     entries = [{
         "name": "beam_scan_gru",
@@ -920,7 +1319,7 @@ def main():
             "source": "controlled_peptide_generation_tpu_torch/csrc/"
                       "gru_seq.cu",
             "replaces": f"controlled_peptide_generation_tpu/ops/{replaces}",
-            "launches": train_launches[k], "max_abs_err": b2_err[k],
+            "launches": train_launches[f"B2 {k}"], "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
     k_ms, p_ms, (b_ms, b_by) = b3_times[5000]
@@ -934,6 +1333,32 @@ def main():
         "max_abs_err": b3_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
+    t4 = b4_times[32]
+    entries.append({
+        "name": "gru_scan_fwd",
+        "route": "cuda",
+        "source": "controlled_peptide_generation_tpu_torch/csrc/gru_seq.cu",
+        "replaces":
+            "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
+        "launches": train_launches["B4"] + enc_launches,
+        "max_abs_err": b4_err,
+        "ms": t4["kernel"], "plain_ms": t4["plain"],
+        "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
+        "library_ms": t4["cudnn_fwd"]})
+    for k, n_launch in (("fwd", train_launches["B5 fwd"]
+                         + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]),
+                        ("bwd", mmd_launches["B5 bwd"])):
+        k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
+        entries.append({
+            "name": f"mmd_full_{k}",
+            "route": "cuda",
+            "source": "controlled_peptide_generation_tpu_torch/csrc/"
+                      "mmd_full.cu",
+            "replaces":
+                "controlled_peptide_generation_tpu/ops/pallas_kernels.py:128",
+            "launches": n_launch, "max_abs_err": b5_err[k],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
     mark("7 report")
     log("[7] seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())

@@ -4,9 +4,11 @@ WAE/VAE training, prior samples, result.json export.
     python -m controlled_peptide_generation_tpu_torch.main --phase 1 \\
         --runname myrun [--dataset synthetic] [--tiny 1] [--device cpu]
 
-Runs on CUDA unless ``--device cpu`` is given. Phase 2 (``--phase 2`` and
-``--phase -1``, both phases) and the transformer family's training are not
-ported yet and raise.
+The transformer family trains with ``--model.E_args.E_class transformer
+--model.G_args.G_class transformer``. Runs on CUDA unless ``--device cpu``
+is given. Phase 2 (``--phase 2`` and ``--phase -1``, both phases) and the
+mixed families (a transformer encoder with a GRU decoder, or the reverse)
+are not ported yet and raise.
 """
 
 import logging
@@ -43,10 +45,14 @@ def main(argv=None):
         raise NotImplementedError(
             f"--phase {cfg.phase}: phase-2 training is not ported yet "
             f"(ROADMAP.md A9); run --phase 1")
-    if "transformer" in (cfg.model.E_args.E_class, cfg.model.G_args.G_class):
+    families = (cfg.model.E_args.E_class, cfg.model.G_args.G_class)
+    if "transformer" in families and families != ("transformer",) * 2:
         raise NotImplementedError(
-            "training the transformer family is not ported yet (ROADMAP.md "
-            "A11); its CLaSS round runs in sample_pipeline")
+            f"training a transformer with a GRU (E_class {families[0]}, "
+            f"G_class {families[1]}) is not ported yet: no parity test "
+            f"covers the mixed families (ROADMAP.md A11); train "
+            f"--model.E_args.E_class transformer --model.G_args.G_class "
+            f"transformer, or the GRU family")
     C.save_config(overrides, cfg, cfg.savepath)
     C.pretty_print(cfg)
     log.info("device: %s; random seed: %s", device, cfg.seed)

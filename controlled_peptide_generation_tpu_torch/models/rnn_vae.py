@@ -111,9 +111,10 @@ class RNNVAE:
 
     # ---- encoder / latent ----------------------------------------------
 
-    def encode(self, params, inputs, train=False, gen=None):
+    def encode(self, params, inputs, train=False, gen=None, keeps=None):
         """inputs: [B, T] int tokens -> (mu [B, Z], logvar [B, Z]).
-        train/gen only matter for the transformer encoder's dropout."""
+        train, gen and ``keeps`` (one bool mask [B, T, d_model] per block)
+        only matter for the transformer encoder's block dropout."""
         emb = nn.embed(params["emb"], inputs)
         if self.E_class == "transformer":
             t_args = self.enc_tfm_args
@@ -121,7 +122,7 @@ class RNNVAE:
                 params["enc"], emb, inputs != PAD_IDX,
                 n_heads=t_args.get("n_heads", 4),
                 p_dropout=t_args.get("p_dropout", 0.0), train=train,
-                bf16=t_args.get("bf16", False), gen=gen)
+                bf16=t_args.get("bf16", False), gen=gen, keeps=keeps)
         return enc.apply(params["enc"], emb,
                          h_dim=self.E_args.get("h_dim", 80),
                          biGRU=self.E_args.get("biGRU", True))
@@ -152,10 +153,11 @@ class RNNVAE:
     # ---- decoder ----------------------------------------------------------
 
     def decode_train(self, params, tokens, z, c, train=True, gen=None,
-                     word_drop=None, out_keep=None):
+                     word_drop=None, out_keep=None, keeps=None):
         """Teacher-forced logits [B, T, V]. ``word_drop`` [B, T] is the
         word-dropout mask; ``out_keep`` [B, T, H] the GRU head's dropout
-        mask (the transformer blocks draw theirs from ``gen``)."""
+        mask; ``keeps`` the transformer blocks' masks, one [B, T + 1,
+        d_model] per block. Masks not given are drawn from ``gen``."""
         if self.G_class == "transformer":
             t_args = self.dec_tfm_args
             return tfm.apply_teacher_forced(
@@ -164,7 +166,7 @@ class RNNVAE:
                 p_word_dropout=t_args.get("p_word_dropout", 0.3),
                 p_dropout=t_args.get("p_dropout", 0.0),
                 bf16=t_args.get("bf16", False), gen=gen,
-                word_drop=word_drop)
+                word_drop=word_drop, keeps=keeps)
         g_args = self.gru_args
         return dec.apply_teacher_forced(
             params["dec"], params["emb"], tokens, z, c, train,
@@ -199,11 +201,14 @@ class RNNVAE:
         """Returns ((mu, logvar), (z, c), dec_logits).
 
         ``draws`` may hold "eps" [B, Z] (reparameterization noise),
-        "c_bits" [B] (bool, the c prior), "word_drop" [B, T] and
-        "out_keep" [B, T, H] (bool, the dropout masks); the others are
-        drawn from ``gen`` in that order."""
+        "c_bits" [B] (bool, the c prior), "word_drop" [B, T], "out_keep"
+        [B, T, H] (the GRU head's mask), "enc_keeps" and "dec_keeps" (the
+        transformer blocks' masks, one per block; bool); the others are
+        drawn from ``gen``. ``train`` switches every dropout, the
+        encoder's included."""
         draws = draws or {}
-        mu, logvar = self.encode(params, sequences)
+        mu, logvar = self.encode(params, sequences, train=train, gen=gen,
+                                 keeps=draws.get("enc_keeps"))
         if sample_z == "max":
             z = mu
         elif sample_z == 1:
@@ -223,7 +228,8 @@ class RNNVAE:
                 f"(ROADMAP.md A9)")
         dec_logits = self.decode_train(
             params, sequences, z, c, train=train, gen=gen,
-            word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"))
+            word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"),
+            keeps=draws.get("dec_keeps"))
         return (mu, logvar), (z, c), dec_logits
 
 

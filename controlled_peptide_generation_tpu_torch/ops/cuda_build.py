@@ -1,12 +1,20 @@
-"""nvcc builds of the port's CUDA sources, bound with ctypes.
+"""nvcc builds of the port's CUDA sources, bound with ctypes, and the one
+switch to their plain versions.
 
 Each source in ``csrc/`` exposes a plain C interface. ``compile_library``
 runs nvcc for sm_90a once per source content into ``build/torch_kernels/``
 (at the repository root, listed in .gitignore) and loads the shared
 library. Nothing is built when a module is imported: the wrappers call it
 at their first launch on a CUDA tensor.
+
+Inside ``with plain():`` the train step's kernels run as their plain
+versions on any device (for comparisons with the kernels only): the
+training recurrence B2 as its step loop differentiated by autograd,
+``gru_scan``'s forward-only route B4 as ``gru_fwd_reference`` and the
+WAE-MMD B5 as ``mmd_full_reference``.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +25,24 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_plain = False
+
+
+@contextlib.contextmanager
+def plain():
+    """Run B2, B4 and B5 as their plain versions while the context is
+    open."""
+    global _plain
+    prev, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = prev
+
+
+def in_plain():
+    """True inside ``plain()``."""
+    return _plain
 
 
 def _nvcc():

@@ -7,8 +7,10 @@ applied to the projected hidden state with ``bh_n`` inside it:
 
 ``gru_scan`` runs a whole sequence: the input projection of every step is
 one product hoisted out of the recurrence, and the recurrence itself is
-``gru_kernel.gru_seq`` (the CUDA kernels on CUDA tensors, their plain
-versions on CPU tensors or inside ``gru_kernel.plain()``).
+``gru_kernel.gru_seq`` when autograd records it (B2) and
+``gru_fwd_kernel.gru_fwd`` otherwise (B4): the CUDA kernels on CUDA
+tensors, their plain versions on CPU tensors or inside
+``cuda_build.plain()``.
 """
 
 import torch
@@ -45,13 +47,23 @@ def gru_scan(params, xs, h0, reverse=False):
     """Full-sequence GRU: xs [B, T, in], h0 [B, H] -> (hs [B, T, H],
     h_last [B, H]). With reverse=True the scan runs T-1..0 and hs[:, t]
     is the state after consuming xs[:, t..T-1] (torch bidirectional
-    semantics); h_last is then the state after xs[:, 0]."""
-    from . import gru_kernel
+    semantics); h_last is then the state after xs[:, 0].
+
+    A scan that autograd records (grad enabled and an input requiring
+    grad) runs B2's differentiable recurrence; any other scan runs the
+    forward-only kernel B4, which reads the tape in place."""
+    from . import cuda_build, gru_fwd_kernel, gru_kernel
     gi_tm = (xs @ params["wi"] + params["bi"]).transpose(0, 1)  # [T, B, 3H]
+    wh, bh = params["wh"], params["bh"]
+    if not (torch.is_grad_enabled() and any(
+            a.requires_grad for a in (gi_tm, wh, bh, h0))):
+        fwd = (gru_fwd_kernel.gru_fwd_reference if cuda_build.in_plain()
+               else gru_fwd_kernel.gru_fwd)
+        hs_tm, h_last = fwd(wh, bh, gi_tm, h0, reverse)
+        return hs_tm.transpose(0, 1), h_last
     if reverse:
         gi_tm = gi_tm.flip(0)
-    hs_tm = gru_kernel.gru_seq(params["wh"], params["bh"],
-                               gi_tm.contiguous(), h0)
+    hs_tm = gru_kernel.gru_seq(wh, bh, gi_tm.contiguous(), h0)
     h_last = hs_tm[-1]
     if reverse:
         hs_tm = hs_tm.flip(0)

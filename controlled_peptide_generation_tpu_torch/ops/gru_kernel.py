@@ -17,19 +17,17 @@ reverse recurrence); CUDA tensors launch the kernels or raise, also for a
 shape outside the kernels' scope (H <= 128) or a dtype other than float32.
 ``gru_seq_fwd.launches``, ``gru_seq_bwd.launches`` and
 ``gru_seq_wgrad.launches`` count the wrapper calls that launched kernels.
-Inside ``with plain():`` ``gru_seq`` runs the step loop under autograd on
-any device: the kernels' yardstick on CUDA, and the one place where the
-route of every ``gru_scan`` above it (encoder, decoder, train step) is
-switched.
+Inside ``cuda_build.plain()`` ``gru_seq`` runs the step loop under
+autograd on any device: the kernels' yardstick on CUDA, and with it the
+route of every ``gru_scan`` above it (encoder, decoder, train step).
 """
 
-import contextlib
 import ctypes
 import threading
 
 import torch
 
-from .cuda_build import compile_library
+from .cuda_build import compile_library, in_plain
 from .gru import _gates
 
 MAX_H = 128           # the kernels' scope: wh [H, 3H] in shared memory
@@ -37,7 +35,6 @@ MAX_H = 128           # the kernels' scope: wh [H, 3H] in shared memory
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
-_plain = False
 
 
 def build():
@@ -52,8 +49,12 @@ def build():
         lib.gru_seq_fwd_f32.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.gru_seq_bwd_f32.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.gru_seq_wgrad_f32.argtypes = [p] * 7 + [i] * 3 + [p]
+        q = ctypes.c_longlong
+        # B4's entry (ops/gru_fwd_kernel.py): strides are 64-bit
+        lib.gru_scan_f32.argtypes = [p, q, q, p, p, p, p, q, q, p] + [i] * 4 \
+            + [p]
         for fn in (lib.gru_seq_fwd_f32, lib.gru_seq_bwd_f32,
-                   lib.gru_seq_wgrad_f32):
+                   lib.gru_seq_wgrad_f32, lib.gru_scan_f32):
             fn.restype = i
         lib.gru_seq_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.gru_seq_plan.restype = i
@@ -226,21 +227,9 @@ class GruSeq(torch.autograd.Function):
 def gru_seq(wh, bh, gi_tm, h0):
     """Fused GRU over a whole sequence: wh [H, 3H], bh [3H], gi_tm
     [T, B, 3H] time-major with bi folded in, h0 [B, H] -> hs [T, B, H]."""
-    if _plain:
+    if in_plain():
         return gru_seq_reference(wh, bh, gi_tm, h0)
     return GruSeq.apply(wh, bh, gi_tm, h0)
-
-
-@contextlib.contextmanager
-def plain():
-    """Run ``gru_seq`` as its plain step loop, differentiated by autograd,
-    while the context is open (for comparisons with the kernels only)."""
-    global _plain
-    prev, _plain = _plain, True
-    try:
-        yield
-    finally:
-        _plain = prev
 
 
 # ---- plain versions ---------------------------------------------------------

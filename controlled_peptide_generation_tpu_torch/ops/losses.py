@@ -16,6 +16,7 @@ import math
 import torch
 
 from ..data.vocab import PAD_IDX
+from . import cuda_build, mmd_kernel
 
 
 def recon_dec(sequences, logits):
@@ -43,27 +44,14 @@ def kl_gaussian_sharedmu(mu, logvar):
     return (0.5 * (logvar.exp() - 1.0 - logvar).sum(1)).mean()
 
 
-def compute_mmd_kernel(x, y, sigma, kernel):
-    """x: [N, d], y: [M, d] -> [N, M] kernel matrix."""
-    xmy = ((x[:, None, :] - y[None, :, :]) ** 2).sum(2)
-    if kernel == "gaussian":
-        return torch.exp(-xmy / sigma ** 2)
-    if kernel == "laplace":
-        return torch.exp(-torch.sqrt(xmy + sigma ** 2))
-    if kernel == "energy":
-        return torch.pow(xmy + sigma ** 2, -0.25)
-    raise ValueError(f"unknown kernel {kernel}")
-
-
 def mmd_full_kernel(z1, z2, sigma, kernel="gaussian"):
-    K11 = compute_mmd_kernel(z1, z1, sigma, kernel)
-    K22 = compute_mmd_kernel(z2, z2, sigma, kernel)
-    K12 = compute_mmd_kernel(z1, z2, sigma, kernel)
-    n = z1.shape[0]
-    H = K11 + K22 - 2.0 * K12
-    # the reference's quirk: diag(H) broadcast across rows is subtracted
-    H = H - torch.diagonal(H)[None, :]
-    return H.sum() / (n * (n - 1))
+    """The WAE-MMD with the full kernel matrices and the diag quirk: kernel
+    B5 (``ops/mmd_kernel.py``) on CUDA tensors, its plain versions on CPU
+    tensors, the plain expression on any device inside
+    ``cuda_build.plain()``."""
+    if cuda_build.in_plain():
+        return mmd_kernel.mmd_full_reference(z1, z2, sigma, kernel)
+    return mmd_kernel.mmd_full(z1, z2, sigma, kernel)
 
 
 def init_rf_basis(gen, z_dim, rf_dim, device="cpu"):

@@ -27,8 +27,10 @@ import torch
 from . import config as C
 from .api import (load_trained_model, get_model_and_vocab_path,
                   get_result_for_model, load_vocab)
+from .data.loader import AttributeDataLoader
 from .evals.peptide_evals import modlamp_from_tokens
 from .latent import density, fused, logreg
+from .train import checkpoints
 from .utils import runtime
 from .vis import build_index
 
@@ -79,17 +81,62 @@ def get_encodings_from_states(states, query, attributes):
     return mu[sel], logvar[sel]
 
 
+@torch.no_grad()
+def get_encodings_from_dataloader(cfg, query, split, model, params,
+                                  dataloader):
+    """(mu, logvar) as float32 numpy arrays of the amp-positive rows of
+    ``split`` (e.g. "train,val"), encoded straight from the dataloader in
+    batches of cfg.vae.batch_size, one pass in its shuffled order. The JAX
+    package encodes through ``forward(q_c="classifier", sample_z="max",
+    train=False)``; mu and logvar do not depend on c and the CNN classifier
+    is not ported, so this calls ``model.encode(train=False)``, the same
+    numbers. Without autograd the GRU encoder's scans run the forward-only
+    kernel B4 on the card."""
+    if query != {"amp": 1}:
+        raise ValueError(f"the dataloader encodings select amp=1 only, as "
+                         f"in the JAX package (got {query}); pass "
+                         f"--Q_select_amppos 1")
+    spec = {"get_encoding": {
+        "subset": [f"split={split}", "amp=amp_posc,amp_posnc"],
+        "repeat": False}}
+    iterators, _ = dataloader.get_subset_iterators(spec, cfg.vae.batch_size)
+    dev = next(iter(checkpoints.flatten(params).values())).device
+    mus, logvars = [], []
+    for rows in iterators["get_encoding"]:
+        text = torch.from_numpy(dataloader._make_batch(rows).text).to(dev)
+        mu, logvar = model.encode(params, text, train=False)
+        mus.append(mu.cpu().numpy())
+        logvars.append(logvar.cpu().numpy())
+    return np.concatenate(mus), np.concatenate(logvars)
+
+
+def load_dataloader(cfg):
+    """The run's dataset, batched at cfg.vae.batch_size (the JAX
+    package's ``run`` loads it the same way)."""
+    spec = C.dataset_spec(cfg)
+    spec.pop("synthetic", None)
+    return AttributeDataLoader(mbsize=cfg.vae.batch_size,
+                               max_seq_len=cfg.max_seq_len, **spec)
+
+
 # ---------------------------------------------------------------------------
 # Q fit + latent classifiers
 # ---------------------------------------------------------------------------
 
-def fitQ_and_test(cfg, QClass, QKwargs, states, Q_select=None, device="cpu"):
-    """Fit Q on the train split's selection; NLL on train and test."""
+def fitQ_and_test(cfg, QClass, QKwargs, states, Q_select=None, device="cpu",
+                  model=None, params=None, dataloader=None):
+    """Fit Q on the train split's selection, or, given a model and a
+    dataloader, on the encodings of the dataloader's train and val rows
+    (--Q_from_full_dataloader); NLL on the states' train and test."""
     Q_select = Q_select or {}
     attributes = C.dataset_spec(cfg)["attributes"]
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    mu, logvar = get_encodings_from_states(states["train"], Q_select,
-                                           attributes)
+    if model is not None and dataloader is not None:
+        mu, logvar = get_encodings_from_dataloader(
+            cfg, Q_select, "train,val", model, params, dataloader)
+    else:
+        mu, logvar = get_encodings_from_states(states["train"], Q_select,
+                                               attributes)
     # keep only the kwargs this Q family's __init__ accepts
     accepts = set(inspect.signature(QClass.__init__).parameters)
     qkw = {k: v for k, v in QKwargs.items()
@@ -402,11 +449,7 @@ def save_samples(samples, basedir, fn_prefix):
 # driver
 # ---------------------------------------------------------------------------
 
-def _check_slice(cfg, args):
-    if args.Q_from_full_dataloader:
-        raise NotImplementedError(
-            "--Q_from_full_dataloader needs the encoder, not ported yet "
-            "(ROADMAP.md A2)")
+def _check_slice(cfg):
     if not cfg.hw.get("fused_rounds", True):
         raise NotImplementedError(
             "hw.fused_rounds=0 (the serial loop) is not ported yet "
@@ -419,13 +462,15 @@ def _check_slice(cfg, args):
 def run(cfg, args, device="cuda"):
     """Full pipeline main: read the run dir, then run_from_states. Runs
     on CUDA unless ``device`` is the CPU; without CUDA it raises."""
-    _check_slice(cfg, args)
+    _check_slice(cfg)
     device = runtime.setup(device)
     model_path, vocab_path, _ = get_model_and_vocab_path(cfg)
-    LOG.info("Load model, vocab.")
+    LOG.info("Load model, vocab, dataloader.")
     vocab = load_vocab(vocab_path)
     model, params = load_trained_model(model_path, vocab.size(), cfg,
                                        device=device)
+    # only --Q_from_full_dataloader reads the corpus
+    dataset = load_dataloader(cfg) if args.Q_from_full_dataloader else None
     LOG.info("Loaded model succesfully.")
     try:
         metrics = get_result_for_model(model_path)
@@ -434,16 +479,24 @@ def run(cfg, args, device="cuda"):
         LOG.info("No result.json next to model; continuing.")
     states = load_states(cfg)
     return run_from_states(cfg, args, model, params, vocab, states,
-                           device)[0]
+                           device, dataset)[0]
 
 
-def run_from_states(cfg, args, model, params, vocab, states, device="cuda"):
+def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
+                    dataset=None):
     """Everything run does after its file reads: fit Q and the heads on
     ``states`` ({'train': ..., 'test': ...} with mu, logvar, label),
     sample, write the sample files. Returns (path stem, samples, stats).
-    ``model``/``params`` must already be on ``device``."""
-    _check_slice(cfg, args)
+    ``model``/``params`` must already be on ``device``. With
+    ``--Q_from_full_dataloader`` Q is fitted on the encodings of
+    ``dataset`` (``load_dataloader(cfg)``, which the caller passes); the
+    eval points and the heads still come from ``states``, as in the JAX
+    package."""
+    _check_slice(cfg)
     device = runtime.setup(device)
+    if args.Q_from_full_dataloader and dataset is None:
+        raise ValueError("--Q_from_full_dataloader needs the dataset: pass "
+                         "dataset=load_dataloader(cfg)")
     attributes = C.dataset_spec(cfg)["attributes"]
     LOG.info("Fit attribute-conditioned marginal posterior Q_xi^a(z)")
     qkwargs = dict(Q_KWARGS)
@@ -452,8 +505,11 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda"):
             qkwargs[k] = getattr(args, "Q_" + k)
     QClass = resolve_QClass(getattr(args, "QClass", "mogQ"))
     q_select = {"amp": 1} if args.Q_select_amppos else {}
-    Q, q_metrics = fitQ_and_test(cfg, QClass, qkwargs, states, q_select,
-                                 device=device)
+    full = args.Q_from_full_dataloader
+    Q, q_metrics = fitQ_and_test(
+        cfg, QClass, qkwargs, states, q_select, device=device,
+        model=model if full else None, params=params if full else None,
+        dataloader=dataset if full else None)
     LOG.info("Q Fit metrics: %s", json.dumps(q_metrics, indent=4))
     z_clfs = {attr: build_clfZ(cfg, attr, states, attributes, device)
               for attr in ["amp", "tox"]}

@@ -13,6 +13,12 @@ The transformer family takes the JAX package's flags,
 (``T_args`` under each for the widths); its beam runs in the CUDA kernel
 of ``ops/tfm_beam_kernel.py`` on the card, whatever ``--hw.pallas_beam``
 says, and in the plain version under ``--device cpu``.
+
+``--Q_from_full_dataloader --Q_select_amppos 1`` fits Q on the encodings
+of the dataset's amp-positive train and val rows (the encoder runs on the
+device; the GRU encoder's scans in the forward-only kernel B4) instead of
+the states dump; the eval points and the attribute heads still come from
+the states.
 """
 
 import logging

@@ -13,8 +13,8 @@ then runs ``--steps`` more under ``torch.profiler`` and prints, per step:
   intervals) and its idle share of the profiled wall time;
 * the host time of the parts of a step (batch and draws, forward,
   backward, optimizer), from ``record_function`` ranges;
-* the device time of each kernel, largest first, and the GRU recurrence
-  kernels' launches.
+* the device time of each kernel, largest first, and the launches of the
+  port's kernels per step (B2's recurrences, B4, B5's value and gradient).
 
 A step here is the trainer's own ``train_step``
 (``train/train_vae.make_train_step``), whose ``record_function`` ranges
@@ -33,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .. import config as C
 from ..main import EXTRA_ARGS, load_dataset
 from ..models.rnn_vae import build_model
-from ..ops import gru_kernel
+from ..ops import gru_fwd_kernel, gru_kernel, mmd_kernel
 from ..ops import losses as L
 from ..train import checkpoints
 from ..train import train_vae as TV
@@ -99,12 +99,15 @@ def main(argv=None):
     for it in range(opts.warm):
         step(it)
     wall_plain = window(opts.warm)
-    gru_kernel.reset_launches()
+    counted = (gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
+               gru_kernel.gru_seq_wgrad, gru_fwd_kernel.gru_fwd,
+               mmd_kernel.mmd_full_fwd, mmd_kernel.mmd_full_bwd)
+    for fn in counted:
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = window(opts.warm + opts.steps)
-    launches = {k: getattr(gru_kernel, f"gru_seq_{k}").launches / opts.steps
-                for k in ("fwd", "bwd", "wgrad")}
+    launches = {fn.__name__: fn.launches / opts.steps for fn in counted}
 
     n = opts.steps
     # the device's events, less the ranges record_function mirrors there
@@ -132,7 +135,7 @@ def main(argv=None):
                               if dev_events else None),
         "host_ms_per_step": {k: host_parts[k] / 1e3 / n for k in PARTS},
         "device_events_per_step": len(dev_events) / n,
-        "gru_launches_per_step": launches,
+        "kernel_launches_per_step": launches,
         "kernels": [{"name": k, "ms_per_step": v[0] / 1e3 / n,
                      "calls_per_step": v[1] / n}
                     for k, v in sorted(per_kernel.items(),
@@ -147,7 +150,7 @@ def main(argv=None):
              else "not measured (the profiler saw no device events)"))
     print("[profile] host ms per step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in report["host_ms_per_step"].items()))
-    print(f"[profile] GRU kernel launches per step: {launches}")
+    print(f"[profile] the port's kernel launches per step: {launches}")
     for row in report["kernels"][:15]:
         print(f"[profile]   {row['ms_per_step']:.4f} ms/step, "
               f"{row['calls_per_step']:.1f} calls/step: {row['name'][:100]}")

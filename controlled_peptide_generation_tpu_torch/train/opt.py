@@ -19,18 +19,25 @@ import torch
 from .checkpoints import flatten
 
 
+def _zeros(tree):
+    """Zeros nested like ``tree`` (dicts, and lists such as the
+    transformer's blocks)."""
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros(v) for v in tree]
+    return torch.zeros_like(tree)
+
+
 class ClipAdam:
     def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8):
         self.lr, self.clip = float(lr), float(clip)
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params):
-        zeros = lambda tree: {  # noqa: E731
-            k: zeros(v) if isinstance(v, dict) else torch.zeros_like(v)
-            for k, v in tree.items()}
         dev = next(iter(flatten(params).values())).device
         return {"count": torch.zeros((), dtype=torch.int32, device=dev),
-                "mu": zeros(params), "nu": zeros(params)}
+                "mu": _zeros(params), "nu": _zeros(params)}
 
     @staticmethod
     def global_norm(grads):

@@ -1,13 +1,17 @@
-"""Phase-1 WAE/VAE training of the GRU family on one device.
+"""Phase-1 WAE/VAE training on one device, of the GRU family and of the
+transformer family (both parts transformer).
 
 Adam over the autoencoder's parameters with a linearly annealed beta:
 loss = recon + beta * z_regu + lambda1 * |logvar|_1 + lambda2 *
 KL_sharedmu, gradients clipped to global norm 5.0; kl, mmd and mmdrf are
 all computed every step (the reference logs all three whichever one
-regularizes). Each step runs three GRU recurrences forward (encoder
-forward and backward directions, teacher-forced decoder) and their three
-gradient recurrences backward, in the CUDA kernels of
-``ops/gru_kernel.py`` on a CUDA device.
+regularizes), the full-kernel MMD in the CUDA kernel B5
+(``ops/mmd_kernel.py``) on a CUDA device. A GRU step runs three GRU
+recurrences forward (encoder forward and backward directions,
+teacher-forced decoder) and their three gradient recurrences backward, in
+the CUDA kernels B2 of ``ops/gru_kernel.py``; the heldout eval runs its
+scans without autograd, in the forward-only kernel B4
+(``ops/gru_fwd_kernel.py``).
 
 Every random draw of a step comes from ``draw_step`` with the generator of
 (seed, it), so a step is reproducible from its iteration alone, and the
@@ -60,25 +64,43 @@ def check_supported(cfg):
         raise NotImplementedError("hw.profile_dir is not ported")
 
 
+def _block_keeps(t_args, gen, B, S, device):
+    """One bool dropout mask [B, S, d_model] per transformer block."""
+    shape = (B, S, t_args.get("d_model", 128))
+    p_keep = 1.0 - t_args["p_dropout"]
+    return [torch.rand(shape, generator=gen, device=device) < p_keep
+            for _ in range(t_args.get("n_layers", 2))]
+
+
 def draw_step(model, gen, B, T, device, rf_dim=None):
-    """Every random draw of one train step, in this order: eps [B, Z]
-    (reparameterization), c_bits [B], word_drop [B, T], out_keep
-    [B, T, H] (the bool dropout masks, at the model's rates), z_prior_mmd
-    and z_prior_rf [B, Z] (the WAE terms' prior samples), and with
+    """Every random draw of one train step (bool dropout masks at the
+    model's rates), in this order: eps [B, Z] (reparameterization), c_bits
+    [B], word_drop [B, T]; the GRU decoder's out_keep [B, T, H]; the
+    transformer blocks' masks when they have dropout, enc_keeps ([B, T,
+    d_model] each) and dec_keeps ([B, T + 1, d_model] each); z_prior_mmd
+    and z_prior_rf [B, Z] (the WAE terms' prior samples); and with
     ``rf_dim`` a fresh RF basis rf_w [Z, rf_dim], rf_b [rf_dim]."""
-    g_args = model.gru_args
+    tfm_dec = model.G_class == "transformer"
+    g_args = model.dec_tfm_args if tfm_dec else model.gru_args
     p_wd = g_args.get("p_word_dropout", 0.3)
-    p_keep = 1.0 - g_args.get("p_out_dropout", 0.3)
     Z = model.z_dim
     draws = {
         "eps": torch.randn((B, Z), generator=gen, device=device),
         "c_bits": torch.rand((B,), generator=gen, device=device) < 0.5,
         "word_drop": torch.rand((B, T), generator=gen, device=device) < p_wd,
-        "out_keep": torch.rand((B, T, model.h_dec), generator=gen,
-                               device=device) < p_keep,
-        "z_prior_mmd": torch.randn((B, Z), generator=gen, device=device),
-        "z_prior_rf": torch.randn((B, Z), generator=gen, device=device),
     }
+    if not tfm_dec:
+        p_keep = 1.0 - g_args.get("p_out_dropout", 0.3)
+        draws["out_keep"] = torch.rand((B, T, model.h_dec), generator=gen,
+                                       device=device) < p_keep
+    for name, on, t_args, S in (
+            ("enc_keeps", model.E_class == "transformer", model.enc_tfm_args,
+             T),
+            ("dec_keeps", tfm_dec, model.dec_tfm_args, T + 1)):
+        if on and t_args.get("p_dropout", 0.0) > 0.0:
+            draws[name] = _block_keeps(t_args, gen, B, S, device)
+    draws["z_prior_mmd"] = torch.randn((B, Z), generator=gen, device=device)
+    draws["z_prior_rf"] = torch.randn((B, Z), generator=gen, device=device)
     if rf_dim is not None:
         draws["rf_w"], draws["rf_b"] = L.init_rf_basis(gen, Z, rf_dim,
                                                        device)

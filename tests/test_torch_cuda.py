@@ -10,6 +10,7 @@ import contextlib
 import pytest
 import torch
 
+from controlled_peptide_generation_tpu_torch.ops import cuda_build
 from controlled_peptide_generation_tpu_torch.ops import gru as t_gru
 from controlled_peptide_generation_tpu_torch.ops import gru_kernel as t_gk
 
@@ -37,7 +38,7 @@ def test_kernels_match_plain_versions_on_the_card():
         w = torch.randn((B, T_, H), generator=g, device=dev)
         runs = []
         for plain in (False, True, False):
-            with t_gk.plain() if plain else contextlib.nullcontext():
+            with cuda_build.plain() if plain else contextlib.nullcontext():
                 hs, _ = t_gru.gru_scan(p, xs, h0, reverse=True)
                 grads = torch.autograd.grad((hs * w).sum(),
                                             [p[k] for k in NAMES]
@@ -82,3 +83,77 @@ def test_transformer_beam_kernel_matches_plain_version_on_the_card():
             & (got[1] == ref[1]).all(dim=(1, 2)))
     assert same.float().mean().item() >= 0.99
     assert (got[3] - ref[3]).abs()[same].max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_forward_only_scan_matches_plain_version_on_the_card():
+    """On the card: B4 (gru_scan without autograd) against its plain
+    version at the encoder width, both directions, a batch that is no
+    multiple of the rows per block (hs and h_T within 1e-4), one launch
+    counted per scan, batch invariance on one tape (bitwise: the rows of
+    a smaller batch's own projection are another cuBLAS product) and B2's
+    forward, the same scan kernel, equal to B4 (bitwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(1)
+    p = t_gru.init_gru_params(g, 150, 80, dev)
+    xs = torch.randn((1037, 25, 150), generator=g, device=dev)
+    h0 = torch.randn((1037, 80), generator=g, device=dev)
+    gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1)      # as gru_scan makes it
+    wh, bh = p["wh"], p["bh"]
+    for reverse in (False, True):
+        before = gru_fwd_kernel.gru_fwd.launches
+        with torch.no_grad():
+            hs, hT = t_gru.gru_scan(p, xs, h0, reverse=reverse)
+            with cuda_build.plain():
+                hs_ref, hT_ref = t_gru.gru_scan(p, xs, h0, reverse=reverse)
+        torch.cuda.synchronize()
+        assert gru_fwd_kernel.gru_fwd.launches == before + 1
+        assert (hs - hs_ref).abs().max().item() <= 1e-4
+        assert (hT - hT_ref).abs().max().item() <= 1e-4
+        full = gru_fwd_kernel.gru_fwd(wh, bh, gi, h0, reverse)
+        head = gru_fwd_kernel.gru_fwd(wh, bh, gi[:, :37], h0[:37], reverse)
+        assert torch.equal(head[0], full[0][:, :37])
+        assert torch.equal(head[1], full[1][:37])
+        if not reverse:
+            hs2 = t_gk.gru_seq_fwd(wh, bh, gi.contiguous(), h0)
+            assert torch.equal(hs2, full[0])
+
+
+@pytest.mark.cuda
+def test_mmd_kernels_match_plain_versions_on_the_card():
+    """On the card: B5's value (|delta| <= 1e-5) and both gradients
+    (within 1e-4 of their largest entry) against the plain versions, for
+    the three kernel forms at the train step's N 32, D 100; bitwise
+    repeatable; NaN at N 1, as the plain versions give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch.ops import losses as t_L
+    from controlled_peptide_generation_tpu_torch.ops import mmd_kernel
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    z1 = 0.8 * torch.randn((32, 100), generator=g, device=dev) + 0.1
+    z2 = torch.randn((32, 100), generator=g, device=dev)
+    for form in ("gaussian", "laplace", "energy"):
+        runs = []
+        for plain in (False, False, True):
+            a = z1.clone().requires_grad_()
+            b = z2.clone().requires_grad_()
+            with cuda_build.plain() if plain else contextlib.nullcontext():
+                v = t_L.mmd_full_kernel(a, b, 7.0, form)
+                runs.append((v.detach(),) + torch.autograd.grad(v, (a, b)))
+        torch.cuda.synchronize()
+        assert abs(runs[0][0].item() - runs[2][0].item()) <= 1e-5
+        for got, want in zip(runs[0][1:], runs[2][1:]):
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+        # one row: NaN value and gradients, as the plain versions give
+        a = z1[:1].clone().requires_grad_()
+        v = t_L.mmd_full_kernel(a, z2[:1], 7.0, form)
+        (ga,) = torch.autograd.grad(v, (a,))
+        assert torch.isnan(v) and torch.isnan(ga).all()
+    assert mmd_kernel.mmd_full_fwd.launches >= 9
+    assert mmd_kernel.mmd_full_bwd.launches >= 15

@@ -1,7 +1,7 @@
 """B2 of the port (ops/gru_kernel.py and ops/gru.gru_scan) against the JAX
 package's gru_scan in both of its arms: the XLA scan and the Pallas
 gru_seq in interpret mode. On the CPU the port's autograd Function runs
-the kernels' plain versions; inside ``gru_kernel.plain()`` gru_scan runs
+the kernels' plain versions; inside ``cuda_build.plain()`` gru_scan runs
 the step loop under torch autograd. Tolerances as tests/test_pallas_gru.py on the CPU: forward
 2e-5, gradients rtol 1e-4 / atol 1e-5 (fp32 sums in other orders)."""
 
@@ -16,6 +16,7 @@ import torch
 from controlled_peptide_generation_tpu.ops import gru as j_gru
 from controlled_peptide_generation_tpu.ops import pallas_gru as j_pg
 
+from controlled_peptide_generation_tpu_torch.ops import cuda_build
 from controlled_peptide_generation_tpu_torch.ops import gru as t_gru
 from controlled_peptide_generation_tpu_torch.ops import gru_kernel as t_gk
 
@@ -65,7 +66,7 @@ def _torch_scan_and_grads(params, xs, h0, w_hs, w_hl, reverse, plain):
     T = torch.from_numpy
     p = {k: T(v).requires_grad_() for k, v in params.items()}
     x, h = T(xs).requires_grad_(), T(h0).requires_grad_()
-    with t_gk.plain() if plain else contextlib.nullcontext():
+    with cuda_build.plain() if plain else contextlib.nullcontext():
         hs, hl = t_gru.gru_scan(p, x, h, reverse=reverse)
     loss = (hs * T(w_hs)).sum() + (hl * T(w_hl)).sum()
     g = torch.autograd.grad(loss, [p[k] for k in NAMES] + [x, h])

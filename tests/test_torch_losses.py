@@ -15,6 +15,7 @@ from controlled_peptide_generation_tpu.utils import annealing as j_ann
 
 from controlled_peptide_generation_tpu_torch.config import Bunch
 from controlled_peptide_generation_tpu_torch.ops import losses as t_L
+from controlled_peptide_generation_tpu_torch.ops import mmd_kernel as t_mk
 from controlled_peptide_generation_tpu_torch.ops import nn as t_nn
 from controlled_peptide_generation_tpu_torch.utils import annealing as t_ann
 
@@ -54,14 +55,14 @@ def test_mmd_kernels_and_the_diag_quirk(kernel):
     z1, z2 = _z(3), _z(4)
     want_k = j_L.compute_mmd_kernel(jnp.asarray(z1), jnp.asarray(z2), 2.0,
                                     kernel)
-    got_k = t_L.compute_mmd_kernel(T(z1), T(z2), 2.0, kernel)
+    got_k = t_mk.compute_mmd_kernel(T(z1), T(z2), 2.0, kernel)
     np.testing.assert_allclose(got_k.numpy(), np.asarray(want_k), **TOL)
     want = j_L.mmd_full_kernel(jnp.asarray(z1), jnp.asarray(z2), 2.0, kernel)
     got = t_L.mmd_full_kernel(T(z1), T(z2), 2.0, kernel)
     np.testing.assert_allclose(got.item(), float(want), **TOL)
     # the quirk is held: a zeroed diagonal would give another value
-    H = (t_L.compute_mmd_kernel(T(z1), T(z1), 2.0, kernel)
-         + t_L.compute_mmd_kernel(T(z2), T(z2), 2.0, kernel)
+    H = (t_mk.compute_mmd_kernel(T(z1), T(z1), 2.0, kernel)
+         + t_mk.compute_mmd_kernel(T(z2), T(z2), 2.0, kernel)
          - 2 * got_k)
     zeroed = (H.sum() - H.diagonal().sum()) / (8 * 7)
     assert abs(zeroed.item() - got.item()) > 1e-4

@@ -107,11 +107,15 @@ def test_port_pipeline_end_to_end(run_dir):
 
 
 def test_slice_limits_raise(run_dir):
-    for extra in (["--hw.fused_rounds", "0"], ["--hw.dp", "2"],
-                  ["--Q_from_full_dataloader"]):
+    for extra in (["--hw.fused_rounds", "0"], ["--hw.dp", "2"]):
         with pytest.raises(NotImplementedError):
             sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,
                                           "--device", "cpu"] + extra)
+    # the dataloader encodings select amp=1, as in the JAX package
+    with pytest.raises(ValueError, match="Q_select_amppos"):
+        sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,
+                                      "--device", "cpu",
+                                      "--Q_from_full_dataloader"])
 
 
 def test_beam_canary_raises_on_the_kernel_route():
@@ -220,3 +224,50 @@ def test_round_halves_on_device_oom(tfm_run_dir, monkeypatch):
     monkeypatch.setattr(pipeline, "launch_round", broken)
     with pytest.raises(RuntimeError, match="not a memory error"):
         sample_pipeline.main(argv)
+
+
+@pytest.mark.parametrize("family", ["gru", "transformer"])
+def test_dataloader_encodings_match_jax(family, request):
+    """get_encodings_from_dataloader on the same checkpoint and rows as the
+    JAX package's (which encodes through forward(q_c="classifier",
+    sample_z="max", train=False); mu and logvar do not depend on c, so the
+    port calls encode(train=False)): the same rows in the same order, mu
+    and logvar within 1e-5."""
+    from controlled_peptide_generation_tpu_torch.api import load_trained_model
+    tfm = family == "transformer"
+    top = request.getfixturevalue("tfm_run_dir" if tfm else "run_dir")
+    flags = (FLAGS[:FLAGS.index("--n_samples_per_round")]
+             + (TFM if tfm else []) + ["--savepath_toplevel", top])
+    jcfg, _, _ = JC.parse_and_finalize(flags)
+    jm = j_build(jcfg.model, n_vocab=24, max_seq_len=10)
+    jp = jm.init_params(jax.random.PRNGKey(4 if tfm else 3))
+    spec = JC.dataset_spec(jcfg)
+    spec.pop("synthetic", None)
+    jl = j_pipeline.AttributeDataLoader(mbsize=jcfg.vae.batch_size,
+                                        max_seq_len=jcfg.max_seq_len, **spec)
+    want = j_pipeline.get_encodings_from_dataloader(
+        jcfg, {"amp": 1}, "train,val", jm, jp, jl)
+    tcfg, _, _ = TC.parse_and_finalize(flags)
+    tm, tp = load_trained_model(
+        os.path.join(top, "tiny", f"model_{N_ITER}.npz"), 24, tcfg,
+        device="cpu")
+    got = pipeline.get_encodings_from_dataloader(
+        tcfg, {"amp": 1}, "train,val", tm, tp, pipeline.load_dataloader(tcfg))
+    assert got[0].shape == want[0].shape and got[0].shape[0] > 10
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-5)
+
+
+def test_pipeline_fits_Q_on_the_dataloader(run_dir):
+    """--Q_from_full_dataloader --Q_select_amppos 1 end to end on the CPU:
+    Q from the encodings of the dataset's amp-positive train and val rows,
+    the eval points and heads from the states, samples written."""
+    stem = sample_pipeline.main(
+        FLAGS + ["--savepath_toplevel", run_dir, "--device", "cpu",
+                 "--Q_from_full_dataloader", "--Q_select_amppos", "1",
+                 "--samples_outfn_prefix", "from_dataloader"])
+    with open(stem + ".csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    peps = [r["peptide"] for r in rows]
+    assert len(peps) == len(set(peps))
+    assert sum(r["accept"] == "True" for r in rows) >= 20

@@ -41,7 +41,7 @@ from controlled_peptide_generation_tpu_torch.models import decoder as t_dec
 from controlled_peptide_generation_tpu_torch.models import encoder as t_enc
 from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
     build_model as t_build)
-from controlled_peptide_generation_tpu_torch.ops import gru_kernel as t_gk
+from controlled_peptide_generation_tpu_torch.ops import cuda_build
 from controlled_peptide_generation_tpu_torch.ops import sampling as t_samp
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 from controlled_peptide_generation_tpu_torch.train import opt as t_opt
@@ -171,7 +171,7 @@ def test_loss_fn_matches_jax(z_regu, plain, one_thread):
     t_loss = t_tv.make_loss_fn(tm, tcfg.vae, tcfg.losses.wae_mmd,
                                tuple(torch.from_numpy(np.array(a))
                                      for a in rf))
-    with t_gk.plain() if plain else contextlib.nullcontext():
+    with cuda_build.plain() if plain else contextlib.nullcontext():
         tl, tmet, tg = t_tv.loss_and_grads(
             t_loss, tparams, torch.from_numpy(text), beta,
             _jax_draws(tm, key, text))
