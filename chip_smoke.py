@@ -11,7 +11,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (csrc/gru_seq.cu), the transformer beam kernel (csrc/tfm_beam.cu) and
    the WAE-MMD kernels (csrc/mmd_full.cu) with nvcc, one process per
    source, started together before torch is imported, so the imports and
-   the device's start-up run meanwhile; prints ptxas' registers and spills;
+   the device's start-up run meanwhile; prints ptxas' registers and spills,
+   and for the GRU scan's instantiations at H 80, 102 and 128 and the
+   weight-gradient kernel (from gru_kernel.build_log) fails on any spill;
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -30,7 +32,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (B2_SCOPE_CASES): hs within 1e-4, each gradient within 1e-3 of its
    largest entry, the backward bitwise repeatable; at B 32 of each width,
    gru_scan through autograd in both directions against the same scan
-   inside cuda_build.plain(), all six gradients;
+   inside cuda_build.plain(), all six gradients; at B 32 and 1,024 of the
+   decoder width, two weight-gradient runs bitwise equal and within 1e-3
+   of one torch.mm's largest entry;
 4b. the forward-only scan (B4) vs its plain version at both widths, T 25,
    both directions, B in B4_BATCHES (the tape a strided view, as gru_scan
    passes it) and at the scope edges: hs and h_T within 1e-4; B 20000's
@@ -76,7 +80,8 @@ Phases, each raising on failure (the script then exits non-zero):
    written;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds, cuDNN's GRU, the cuBLAS product that the
-   weight-gradient kernel computes, B4 and B5, train steps/s of both
+   weight-gradient kernel computes, each GRU kernel's ratio to its library
+   call and the scans' us per step, B4 and B5, train steps/s of both
    families, the transformer beam and round times, seconds per phase), a
    `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
@@ -124,6 +129,9 @@ B3_SCOPE_CASES = (
     ("S 32", 31, 8, 1, 1, {"max_seq_len": 31}),
     ("d_ff 512 (two ff chunks), 8 heads, V 127", 25, 5, 1, 1,
      {"d_ff": 512, "n_heads": 8, "n_vocab": 127}))
+# widths whose GRU scan plan is printed with ptxas' registers and spills:
+# the encoder's, the decoder's and the scope's largest
+PTXAS_WIDTHS = (80, 102, 128)
 # B4: the forward-only scan (heldout eval, pipeline encodings), both widths
 B4_BATCHES = (1, 5, 32, 37, 1024, 4096, 20000)
 # B5: the WAE-MMD, value and gradient; (N, D) beyond the latent width 100
@@ -327,6 +335,23 @@ def main():
             if "Compiling entry" in line or "registers" in line or (
                     "spill" in line):
                 log(f"    ptxas: {line.strip()}")
+    # the GRU scan's instantiations at each plan width and the weight
+    # gradient's: the scan keeps wh in registers, so no spill is allowed
+    usage = gru_kernel.ptxas_report()
+    spilled = {k: v for k, v in usage.items() if v[1] or v[2]}
+    for H_ in PTXAS_WIDTHS:
+        sp = gru_kernel.launch_plan(1, H_)["scan"]
+        for name, (regs, st, ld) in usage.items():
+            if name.startswith(f"gru_scan_kernel<{sp['KS']}, {sp['S']},"):
+                log(f"[2] H {H_}: {name} (KS, S, R) {regs} registers, spill "
+                    f"stores {st} B, spill loads {ld} B")
+    for name, (regs, st, ld) in usage.items():
+        if name.startswith("gru_wgrad_kernel"):
+            log(f"[2] {name} (floats per copy) {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
+    if spilled or not any(k.startswith("gru_wgrad") for k in usage):
+        raise AssertionError(f"csrc/gru_seq.cu: spills {spilled} or no "
+                             f"ptxas report ({sorted(usage)})")
 
     # ---- run dir: seeded full-width checkpoint + amp vocab ----------------
     run_top = os.path.join(ROOT, "build", "chip_smoke_run")
@@ -598,8 +623,7 @@ def main():
                "error): " + ", ".join(f"{k} {a:.3e} {b:.3e}" for k, (a, b)
                                        in scan_errs.items())
                if scan else "")
-            + f"; plan (rows/block, threads, fwd smem, bwd smem) "
-            f"{gru_kernel.launch_plan(B, H)}, wgrad (rows/split, splits) "
+            + f"; plans {gru_kernel.launch_plan(B, H)}, wgrad "
             f"{gru_kernel.wgrad_plan(T_, B, H)}")
         if (e_hs > MAX_HS_DELTA or max(errs.values()) > MAX_GRAD_REL
                 or not bitwise):
@@ -634,9 +658,20 @@ def main():
                             torch.ones((T * B, 1), device=dev)], 1)
         dgh = torch.cat([dgi[..., :2 * H_], dghn], 2).reshape(-1, 3 * H_)
         lib_w = torch.mm(hprev1.T, dgh)
+        w_runs = [gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
+                  for _ in range(2)]
         wgrad_delta = max((a - b).abs().max().item() for a, b in zip(
-            gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn),
-            (lib_w[:H_], lib_w[H_])))
+            w_runs[0], (lib_w[:H_], lib_w[H_])))
+        w_rel = max(rel_err(a, b) for a, b in zip(
+            w_runs[0], (lib_w[:H_], lib_w[H_])))
+        w_bitwise = all(torch.equal(a, b) for a, b in zip(*w_runs))
+        log(f"[4] B2 wgrad at B {B}, H {H_}: two runs bitwise equal "
+            f"{w_bitwise}; against one torch.mm max |delta| "
+            f"{wgrad_delta:.3e}, {w_rel:.3e} of the largest entry; plan "
+            f"{gru_kernel.wgrad_plan(T, B, H_)}")
+        if not w_bitwise or w_rel > MAX_GRAD_REL:
+            raise AssertionError(f"B2 wgrad at B {B}: bitwise {w_bitwise}, "
+                                 f"{w_rel:.3e} of torch.mm's largest entry")
         kern = {
             "fwd": (lambda: gru_kernel.gru_seq_fwd(*args),
                     lambda: gru_kernel.gru_seq_reference(*args)),
@@ -748,8 +783,8 @@ def main():
                 + ", ".join(f"{B}: {a:.2e} {b:.2e}" for B, (a, b)
                             in errs4.items())
                 + f"; B {big}'s first rows == every smaller B bitwise "
-                f"{inv}; plan (rows/block, threads, smem) at B {big} "
-                f"{gru_kernel.launch_plan(big, H_)[:3]}")
+                f"{inv}; scan plan at B {big} "
+                f"{gru_kernel.launch_plan(big, H_)['scan']}")
             if not inv:
                 raise AssertionError(f"B4 is not batch invariant (in {I} H "
                                      f"{H_} reverse {reverse}): B {off} "
@@ -1256,12 +1291,22 @@ def main():
                 f"round(s), {st['rounds_launched']} launched: too short a "
                 f"window for an accepted-samples/s metric")
     for B, t in b2_times.items():
+        lib = t["library"]
+        # each kernel against its yardstick in this call: cuDNN's forward
+        # (with the projection), cuDNN's backward, one torch.mm
+        yard = {"fwd": ("cuDNN forward", lib["cudnn_fwd"]),
+                "bwd": ("cuDNN backward", lib["cudnn_bwd"]),
+                "wgrad": ("torch.mm", lib["wgrad_mm"])}
         for k in ("fwd", "bwd", "wgrad"):
             k_ms, p_ms, (b_ms, b_by) = t[k]
+            y_name, y_ms = yard[k]
             log(f"[7] B2 {k} at B {B}, T {T}, H {B2_WIDTHS[1][1]}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-                f"({b_by}), launches per train step 3 ({card})")
-        lib = t["library"]
+                f"{k_ms:.4f} ms"
+                + (f" ({1e3 * k_ms / T:.3f} us per step)" if k != "wgrad"
+                   else "")
+                + f", plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+                f"{k_ms / y_ms:.3f}x {y_name} ({y_ms:.4f} ms), launches per "
+                f"train step 3 ({card})")
         log(f"[7] B2 at B {B}, in {B2_WIDTHS[1][0]}, H {B2_WIDTHS[1][1]}, "
             f"T {T}, with the input projection: torch.nn.GRU (cuDNN) "
             f"forward {lib['cudnn_fwd']:.4f} ms, backward "
@@ -1279,7 +1324,9 @@ def main():
     for B, t in b4_times.items():
         b_ms, b_by = t["bound"]
         log(f"[7] B4 forward-only scan at B {B}, T {T}, H {H_}: kernel "
-            f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+            f"{t['kernel']:.4f} ms ({1e3 * t['kernel'] / T:.3f} us per "
+            f"step, {t['kernel'] / t['cudnn_fwd']:.3f}x cuDNN's forward), "
+            f"plain {t['plain']:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}); with the input projection (in {I}): "
             f"torch.nn.GRU (cuDNN) forward {t['cudnn_fwd']:.4f} ms, the "
             f"port's gru_scan without autograd {t['scan_fwd']:.4f} ms, max "

@@ -56,13 +56,14 @@ def _nvcc():
 def compile_library(source):
     """Compile csrc/<source> (skipped when a library of the same source
     content and flags exists) and load it. Returns (ctypes.CDLL, the nvcc
-    output, empty when nothing was compiled)."""
+    output of the build, ptxas' -v report included). The output is kept
+    beside the library, so a cached build returns it too."""
     src = os.path.join(CSRC, source)
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     so = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
-    log = ""
+    log_path = so[:-3] + ".log"
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -71,5 +72,13 @@ def compile_library(source):
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as fh:
+            fh.write(log)
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
         os.replace(tmp, so)
+    try:
+        with open(log_path) as fh:
+            log = fh.read()
+    except FileNotFoundError:
+        log = ""
     return ctypes.CDLL(so), log

@@ -6,10 +6,12 @@ pre-gated, time-major tape (gi = x @ wi + bi, [T, B, 3H]) and returns
 hs [T, B, H]; its backward is the reverse-time gradient recurrence. It
 replaces the TPU kernels of the JAX package (``ops/pallas_gru.py:gru_seq``,
 forward ``_fwd_kernel`` and backward ``_bwd_kernel``). The CUDA source,
-with its design note, is ``csrc/gru_seq.cu``: the forward scan, the
-backward recurrence (dgi, dh0 and the n-section of the recurrent gradient)
-and the recurrent-weight gradient (split partial products summed in a
-fixed order, so two runs give the same bits).
+with its design note, is ``csrc/gru_seq.cu``: the forward scan (the
+recurrent weights held in registers for the whole scan), the backward
+recurrence (dgi, dh0 and the n-section of the recurrent gradient) and the
+recurrent-weight gradient (one launch: each output tile's rows split over
+a thread-block cluster, whose partials are summed in a fixed order, so
+two runs give the same bits).
 
 Dispatch: CPU tensors run the plain versions (``gru_seq_reference``, a
 step loop of ``_gates``, and ``gru_seq_bwd_reference``, the explicit
@@ -23,6 +25,7 @@ route of every ``gru_scan`` above it (encoder, decoder, train step).
 """
 
 import ctypes
+import re
 import threading
 
 import torch
@@ -30,7 +33,7 @@ import torch
 from .cuda_build import compile_library, in_plain
 from .gru import _gates
 
-MAX_H = 128           # the kernels' scope: wh [H, 3H] in shared memory
+MAX_H = 128           # the kernels' scope: wh [H, 3H] on one SM
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -48,7 +51,7 @@ def build():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_seq_fwd_f32.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.gru_seq_bwd_f32.argtypes = [p] * 9 + [i] * 3 + [p]
-        lib.gru_seq_wgrad_f32.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.gru_seq_wgrad_f32.argtypes = [p] * 6 + [i] * 3 + [p]
         q = ctypes.c_longlong
         # B4's entry (ops/gru_fwd_kernel.py): strides are 64-bit
         lib.gru_scan_f32.argtypes = [p, q, q, p, p, p, p, q, q, p] + [i] * 4 \
@@ -73,20 +76,62 @@ def _check(lib, code, what):
 
 
 def launch_plan(B, H):
-    """(rows per block, threads per block, forward shared bytes, backward
-    shared bytes) of the recurrence kernels at these shapes."""
+    """The recurrence kernels' plans at these shapes: the scan's lanes per
+    hidden unit S, k values per lane KS, rows per block R, threads per
+    block and row tiles; the backward's rows per block, threads per block
+    and dynamic shared bytes."""
     lib = build()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 8)()
     _check(lib, lib.gru_seq_plan(B, H, out), "gru_seq_plan")
-    return tuple(out)
+    return {"scan": dict(zip(("S", "KS", "rows", "threads", "tiles"),
+                             out[:5])),
+            "bwd": dict(zip(("rows", "threads", "smem"), out[5:]))}
 
 
 def wgrad_plan(T, B, H):
-    """(T*B rows per split, number of splits) of the weight gradient."""
+    """The weight gradient's plan: output tile (k, m), number of tiles,
+    cluster size (blocks per tile) and T*B rows per block."""
     lib = build()
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 5)()
     _check(lib, lib.gru_seq_wgrad_plan(T, B, H, out), "gru_seq_wgrad_plan")
-    return tuple(out)
+    return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows"), out))
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SCAN = re.compile(r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+_WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E")
+
+
+def ptxas_report(log=None):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    scan and weight-gradient instantiations, read from ptxas' -v output in
+    the build log (``build_log`` by default). Scan kernels are named
+    ``gru_scan_kernel<KS, S, R>`` (k values per lane, lanes per unit, rows
+    per block), weight-gradient kernels ``gru_wgrad_kernel<V>`` (floats per
+    copy)."""
+    report, name = {}, None
+    for line in (build_log if log is None else log).splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            scan, wgrad = _SCAN.search(m.group(1)), _WGRAD.search(m.group(1))
+            name = (f"gru_scan_kernel<{', '.join(scan.groups())}>" if scan
+                    else f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad
+                    else None)
+            if name:
+                report[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            report[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = _REGS.search(line)
+        if m:
+            report[name][0] = int(m.group(1))
+            name = None
+    return {k: tuple(v) for k, v in report.items()}
 
 
 def _validate(named, T, B, H):
@@ -180,18 +225,17 @@ def gru_seq_wgrad(h0, hs, dgi, dghn):
                      "dgi": (dgi, (T, B, 3 * H)),
                      "dghn": (dghn, (T, B, H))}, T, B, H)
     ins = tuple(a.contiguous() for a in (h0, hs, dgi, dghn))
-    dwh = torch.zeros((H, 3 * H), dtype=torch.float32, device=dev)
-    dbh = torch.zeros((3 * H,), dtype=torch.float32, device=dev)
     if B == 0:
-        return dwh, dbh
-    _, nsplit = wgrad_plan(T, B, H)
-    part = torch.empty((nsplit, H + 1, 3 * H), dtype=torch.float32,
-                       device=dev)
+        return (torch.zeros((H, 3 * H), dtype=torch.float32, device=dev),
+                torch.zeros((3 * H,), dtype=torch.float32, device=dev))
+    # the kernel writes every entry
+    dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
+    dbh = torch.empty((3 * H,), dtype=torch.float32, device=dev)
     lib = build()
     with torch.cuda.device(dev):
         code = lib.gru_seq_wgrad_f32(*(a.data_ptr() for a in ins),
-                                     part.data_ptr(), dwh.data_ptr(),
-                                     dbh.data_ptr(), T, B, H, _stream(dev))
+                                     dwh.data_ptr(), dbh.data_ptr(), T, B,
+                                     H, _stream(dev))
     _check(lib, code, "gru_seq_wgrad_f32 launch")
     gru_seq_wgrad.launches += 1
     return dwh, dbh

@@ -51,6 +51,74 @@ def test_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
+def test_weight_gradient_kernel_matches_reference_and_mm_on_the_card():
+    """On the card: the weight-gradient kernel (one cluster launch per
+    call) against its plain version and against one torch.mm of
+    [h_{t-1} | 1]^T by dgh at the decoder width, B 32 and 1,024 (within
+    1e-3 of each tensor's largest entry), two runs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(3)
+    T_, H = 25, 102
+    for B in (32, 1024):
+        p = t_gru.init_gru_params(g, 252, H, dev)
+        xs = torch.randn((B, T_, 252), generator=g, device=dev)
+        h0 = 0.5 * torch.randn((B, H), generator=g, device=dev)
+        gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1).contiguous()
+        hs = t_gk.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
+        dhs = torch.randn(hs.shape, generator=g, device=dev)
+        dgi, dghn, _ = t_gk.gru_seq_bwd(p["wh"], p["bh"], gi, h0, hs, dhs)
+        before = t_gk.gru_seq_wgrad.launches
+        runs = [t_gk.gru_seq_wgrad(h0, hs, dgi, dghn) for _ in range(2)]
+        ref = t_gk._wgrad_reference(h0, hs, dgi, dghn)
+        hprev1 = torch.cat([torch.cat([h0[None], hs[:-1]]).reshape(-1, H),
+                            torch.ones((T_ * B, 1), device=dev)], 1)
+        dgh = torch.cat([dgi[..., :2 * H], dghn], 2).reshape(-1, 3 * H)
+        mm = torch.mm(hprev1.T, dgh)
+        torch.cuda.synchronize()
+        assert t_gk.gru_seq_wgrad.launches == before + 2
+        for got, want in zip(runs[0], ref):
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+        for got, want in zip(runs[0], (mm[:H], mm[H])):
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_scan_is_batch_invariant_at_the_scope_edges_on_the_card():
+    """On the card: the scan kernel at H 128 (the scope's largest, four
+    lanes per unit) and H 1 (one unit, its slices zero-padded), both
+    directions: hs and h_T within 1e-4 of the plain version, and the
+    first rows of B 1,037 equal to B 1, 5 and 37 bitwise (other rows per
+    block, the same sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(4)
+    for H in (t_gk.MAX_H, 1):
+        p = t_gru.init_gru_params(g, 16, H, dev)
+        xs = torch.randn((1037, 25, 16), generator=g, device=dev)
+        h0 = 0.5 * torch.randn((1037, H), generator=g, device=dev)
+        gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1)
+        for reverse in (False, True):
+            full = gru_fwd_kernel.gru_fwd(p["wh"], p["bh"], gi, h0, reverse)
+            ref = gru_fwd_kernel.gru_fwd_reference(p["wh"], p["bh"], gi, h0,
+                                                   reverse)
+            torch.cuda.synchronize()
+            assert (full[0] - ref[0]).abs().max().item() <= 1e-4
+            assert (full[1] - ref[1]).abs().max().item() <= 1e-4
+            for B in (1, 5, 37):
+                head = gru_fwd_kernel.gru_fwd(p["wh"], p["bh"], gi[:, :B],
+                                              h0[:B], reverse)
+                assert torch.equal(head[0], full[0][:, :B])
+                assert torch.equal(head[1], full[1][:B])
+
+
+@pytest.mark.cuda
 def test_transformer_beam_kernel_matches_plain_version_on_the_card():
     """On the card: B3 against its plain version at the shipped
     transformer width, >= 99% of rows with identical token and pointer

@@ -154,3 +154,28 @@ def test_wrapper_refuses_other_devices():
         t_gk.gru_seq_fwd(torch.empty((4, 12), device="meta"),
                          torch.empty((12,), device="meta"), meta,
                          torch.empty((3, 4), device="meta"))
+
+
+def test_ptxas_report_reads_each_instantiation():
+    """``ptxas_report`` maps ptxas' -v lines of the scan and weight-gradient
+    instantiations to (registers, spill store bytes, spill load bytes),
+    ignores other kernels, and reads spills where they occur."""
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_gru_seq_"
+        "cu_115gru_scan_kernelILi13ELi8ELi4EEEvPKfxxS2_S2_S2_PfxxS3_iiii' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN37_INTERNAL_x_15gru_scan",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 3328 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_14gru_bwd_"
+        "kernelILi4EEEvPKfS2_' for 'sm_90a'",
+        "ptxas info    : Used 90 registers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_16gru_wgrad"
+        "_kernelILi2EEEvPKfS2_S2_S2_PfS3_iiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN37_INTERNAL_x_16gru_wgrad",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 2 barriers"])
+    assert t_gk.ptxas_report(log) == {
+        "gru_scan_kernel<13, 8, 4>": (72, 0, 0),
+        "gru_wgrad_kernel<2>": (64, 4, 8)}
