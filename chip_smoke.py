@@ -26,6 +26,18 @@ Phases, each raising on failure (the script then exits non-zero):
    z 100, V 24, T 25, K 5, n_best 1, fp32, seeded weights) for B in
    B3_BATCHES, with the same gates and batch invariance (B 12288 against
    B 2500), and at the scope edges (B3_SCOPE_CASES);
+3-bf16, 3t-bf16. the bf16 forms of B1 and B3 (entries beam_gru_bf16 and
+   tfm_beam_bf16) vs their plain versions on the same inputs, the weight
+   tree cast to bf16 as --hw.gen_dtype bfloat16 casts it, and for B3 also
+   T_args.bf16 over the f32 weights, at the shipped widths for B in
+   BF16_BATCHES and at the scope edges (SCOPE_CASES, B3_SCOPE_CASES),
+   with the gates stated at BF16_*: (a) the first 2500 rows at B 12288
+   equal B 2500 bitwise; (b) at T 1 >= 99% identical token rows, |score
+   delta| <= 2e-2 on them; (c) at T 25 every emitted top-1 hypothesis's
+   score within rtol 2e-2, atol 0.3 of its teacher-forced recompute under
+   the plain version; (d) at T 25 >= 70% identical rows; (e) unique
+   decodes of the kernel over the plain version's at B 5000 within
+   [0.99, 1.01];
 4. the GRU recurrence kernels (forward, backward, weight gradient) vs
    their plain versions at the encoder and decoder widths (in 150, H 80;
    in 252, H 102), T 25, B in B2_BATCHES, and at the scope edges
@@ -57,6 +69,12 @@ Phases, each raising on failure (the script then exits non-zero):
    full-width transformer checkpoint written by the port's saver, both
    decode modes, the B3 kernel's launch count must rise, one round through
    the kernel and one with plain=True on the same draws must agree;
+5-bf16, 5t-bf16. the CLaSS main path decoded in bf16: both families
+   under --hw.gen_dtype bfloat16 and the transformer with T_args.bf16 over
+   its f32 weights, both decode modes, the bf16 entry's launch count must
+   rise; on the same draws one round through the kernel and one with
+   plain=True give identical accept masks, tokens within gates (c) and
+   (d);
 6. the training main path: ``main.main --phase 1 --dataset amp`` at the
    shipped width and batch 32 for 301 steps: B2 launched 3 times per step
    each, B4 3 times per heldout batch (4 batches per checkpoint), B5's
@@ -78,11 +96,16 @@ Phases, each raising on failure (the script then exits non-zero):
    same encode inside plain(); then run_from_states with
    --Q_from_full_dataloader on that run until accepted samples are
    written;
+5d-bf16. the sampling CLI as a user runs it, sample_pipeline.main with
+   --Q_from_full_dataloader and --hw.gen_dtype bfloat16 on the phase-6 GRU
+   run (the states dump from memory: the card has no h5py): B4 twice per
+   encode batch, the bf16 B1 entry launched, accepted samples written;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds, cuDNN's GRU, the cuBLAS product that the
    weight-gradient kernel computes, each GRU kernel's ratio to its library
    call and the scans' us per step, B4 and B5, train steps/s of both
-   families, the transformer beam and round times, seconds per phase), a
+   families, the transformer beam and round times, the bf16 kernels and
+   rounds, seconds per phase), a
    `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
 """
@@ -142,7 +165,27 @@ MAX_MMD_DELTA = 1e-5     # fp64-accumulated pair sums against torch's fp32
 MAX_MMD_GRAD_REL = 1e-4  # of each gradient's largest entry
 MMD_ITERS = 50           # the short --vae.z_regu_loss mmd run (B5 backward)
 FP32_PEAK = 67e12        # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
+BF16_PEAK = 989e12       # H100 SXM bf16 tensor-core FLOP/s, dense, data sheet
 HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s, NVIDIA data sheet
+# bf16 decode (3-bf16, 3t-bf16, 5-bf16, 5t-bf16): the gates, each kernel and
+# round against its plain version on the same inputs
+BF16_BATCHES = (1, 37, 2500, 5000, 12288)
+# (b) at T 1: bf16 logits are quantised, so a sum taken in another order
+# flips a near-tie now and then; one bf16 logit ulp is 0.0156 at magnitude
+# 2-4
+BF16_T1_SAME_ROWS = 0.99
+BF16_T1_SCORE_DELTA = 2e-2
+# (c) at T 25: the kernel's score of each emitted top-1 hypothesis against
+# its teacher-forced recompute under the plain version, the JAX package's
+# own bf16 hardware guard (tests/test_pallas_beam_tpu.py:155-162)
+BF16_RECOMPUTE_RTOL, BF16_RECOMPUTE_ATOL = 2e-2, 0.3
+# (d) at T 25: identical rows; on the TPU the JAX package's own two bf16
+# arms differed on 22.12% of rows (BENCH_DETAILS.json "divergence"), so 99%
+# would fail a correct kernel, and a broken one gives near 0
+BF16_T25_SAME_ROWS = 0.70
+# (e) unique decodes of the kernel over the plain version's at B 5000 (the
+# JAX package measured 1.0006)
+BF16_UNIQ_RATIO = (0.99, 1.01)
 
 
 LOG_FILE = []          # the full log, also under chiprun_out/ (gitignored)
@@ -179,31 +222,36 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(B):
-    """Least time for the beam scan at batch B: fp32 FMAs of the GRU and
-    head products over the fp32 peak, against inputs read once and tapes
-    written once over the HBM rate."""
+def bound_ms(B, bf16=False):
+    """Least time for the beam scan at batch B: the FLOP of the GRU and
+    head products over the fp32 peak (bf16: the bf16 tensor-core peak),
+    against inputs (4 bytes each, bf16 2) read once and tapes written once
+    over the HBM rate."""
     flops = B * K * T * 2 * (H * 3 * H + H * V)
     n_in = V * 3 * H + B * 3 * H + H * 3 * H + 3 * H + H * V + V + B * H
     n_out = 3 * B * T * K + B * K + 2 * B
-    t_ops, t_bytes = flops / FP32_PEAK, 4 * (n_in + n_out) / HBM_RATE
+    t_ops = flops / (BF16_PEAK if bf16 else FP32_PEAK)
+    t_bytes = ((2 if bf16 else 4) * n_in + 4 * n_out) / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def b3_bound_ms(B, T_=T, K_=K, L=2, D=128, F=256, V_=V, S=26):
+def b3_bound_ms(B, T_=T, K_=K, L=2, D=128, F=256, V_=V, S=26, bf16=False):
     """Least time of the transformer beam scan at batch B: per beam-token
     the products' FLOP, 2 L (3D^2 + D^2 + 2 D F) + 2 D V, plus attention's
-    4 D (t+2) per layer at step t, over the fp32 peak; against the inputs
-    (weights, tables, the prefix rows) read once and the tapes written once
-    over the HBM rate."""
+    4 D (t+2) per layer at step t, over the fp32 peak (bf16: the bf16
+    tensor-core peak); against the inputs (weights, tables, the prefix
+    rows; in bf16 2 bytes each but LayerNorm's parameters, the final LN and
+    the head, 4) read once and the tapes written once over the HBM rate."""
     per_tok = 2 * L * (3 * D * D + D * D + 2 * D * F) + 2 * D * V_
     flops = B * K_ * sum(per_tok + L * 4 * D * (t + 2) for t in range(T_))
-    weights = L * (3 * D * D + 3 * D + D * D + 5 * D + 2 * D * F + F) + (
-        2 * D + D * V_ + V_)
-    n_in = weights + V_ * D + S * D + 2 * L * B * D
+    f32_words = L * 4 * D + 2 * D + D * V_ + V_
+    words = (L * (3 * D * D + 3 * D + D * D + D + 2 * D * F + F + D)
+             + V_ * D + S * D + 2 * L * B * D)
     n_out = 3 * B * T_ * K_ + B * K_ + 2 * B
-    t_ops, t_bytes = flops / FP32_PEAK, 4 * (n_in + n_out) / HBM_RATE
+    t_ops = flops / (BF16_PEAK if bf16 else FP32_PEAK)
+    t_bytes = ((2 if bf16 else 4) * words + 4 * (f32_words + n_out)
+               ) / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -299,7 +347,11 @@ def main():
     from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
         build_model)
     from controlled_peptide_generation_tpu_torch import main as train_main
+    from controlled_peptide_generation_tpu_torch.data.vocab import EOS_IDX
+    from controlled_peptide_generation_tpu_torch.models import (
+        transformer as tfm)
     from controlled_peptide_generation_tpu_torch.ops import beam, beam_kernel
+    from controlled_peptide_generation_tpu_torch.ops import nn
     from controlled_peptide_generation_tpu_torch.ops import gru as gru_ops
     from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
     from controlled_peptide_generation_tpu_torch.ops import gru_kernel
@@ -390,14 +442,23 @@ def main():
     n_max = max(BATCHES)
     z_all = torch.randn((n_max, model.z_dim), generator=g, device=dev)
     c_all = model.sample_c_prior(g, n_max, device=dev)
-    dec = params["dec"]
+
+    def decode_inputs(m, p, z_, c_):
+        """The beam kernel's inputs of family m for latents z_, c_ cast to
+        the weight tree's type, as the round casts them (B1: the step
+        tables, B3: the folded decoder), and their dims."""
+        wdt = p["dec"]["out"]["w"].dtype
+        z_, c_ = z_.to(wdt), c_.to(wdt)
+        if m.G_class == "transformer":
+            return beam.tfm_scan_inputs(m, p, z_, c_)
+        tok, zc_gi = decoder.step_tables(p["dec"], p["emb"], z_, c_)
+        d_ = p["dec"]
+        return (tok, zc_gi, d_["gru"]["wh"], d_["gru"]["bh"], d_["out"]["w"],
+                d_["out"]["b"], m.init_decoder_hidden(p, z_, c_)), {
+                    "H": m.h_dec}
 
     def scan_inputs(B):
-        tok_table, zc_gi = decoder.step_tables(dec, params["emb"],
-                                               z_all[:B], c_all[:B])
-        zc0 = model.init_decoder_hidden(params, z_all[:B], c_all[:B])
-        return (tok_table, zc_gi, dec["gru"]["wh"], dec["gru"]["bh"],
-                dec["out"]["w"], dec["out"]["b"], zc0)
+        return decode_inputs(model, params, z_all[:B], c_all[:B])[0]
 
     def compare(ins, kw, what, scan=beam_kernel.beam_scan_gru,
                 ref_scan=beam_kernel.beam_scan_gru_reference,
@@ -510,7 +571,7 @@ def main():
     c3 = model_t3.sample_c_prior(g, n3, device=dev)
 
     def b3_inputs(m, p, B, **kw):
-        ins, dims = beam.tfm_scan_inputs(m, p, z3[:B], c3[:B])
+        ins, dims = decode_inputs(m, p, z3[:B], c3[:B])
         return ins, dict(kw, **dims)
 
     kw3 = dict(T=T, K=K, V=V, min_length=1, n_best=1)
@@ -551,6 +612,191 @@ def main():
                 *ins, **kwb), 3),
             b3_bound_ms(B))
     mark("3t-c B3 timings")
+
+    # ---- 3-bf16, 3t-bf16: the bf16 kernels vs their plain versions -------
+    # the decode in bf16 as --hw.gen_dtype bfloat16 runs it (the weight tree
+    # cast), and B3 also with T_args.bf16 over the f32 weights
+    BF = torch.bfloat16
+    params_bf = nn.cast_tree(params, BF)
+    params_t3_bf = nn.cast_tree(params_t3, BF)
+    cfg_tb = C.parse_and_finalize(tflags_t + [
+        "--model.G_args.T_args.bf16", "1"])[0]
+    model_tb = build_model(cfg_tb.model, vocab.size(), cfg_tb.max_seq_len)
+
+    def teacher_forced(ins, dims, toks, T_):
+        """The teacher-forced score of each row of toks [B, T_+1] (BOS
+        first) under the plain version's step: the sum of its f32
+        log-probabilities up to and including the first EOS (over all T_
+        steps where none)."""
+        dt = ins[0].dtype
+        tok = nn.canonical_zeros(ins[0])
+        B_ = toks.shape[0]
+        picks = []
+        if "S" in dims:                         # B3: the folded transformer
+            pos, layers, lg, lb, wo, bo, k0s, v0s = ins[1:]
+            caches = []
+            for rows in (k0s, v0s):
+                for r in rows:
+                    c_ = torch.zeros((B_, dims["S"], tok.shape[1]), dtype=dt,
+                                     device=dev)
+                    c_[:, 0] = r.to(dt)
+                    caches.append(c_)
+            L_ = len(layers)
+            for t in range(T_):
+                x = (tok[toks[:, t]] + pos[t + 1]).to(dt)
+                p_ = torch.full((B_,), t + 1, dtype=torch.int32, device=dev)
+                for l, lp in enumerate(layers):
+                    x, caches[l], caches[L_ + l] = tfm._block_step(
+                        lp, x, caches[l], caches[L_ + l], p_, dims["H"],
+                        write_pos=t + 1)
+                logits = nn.linear({"w": wo, "b": bo}, tfm.final_ln(
+                    {"g": lg, "b": lb}, x, dt)).float()
+                picks.append(torch.log_softmax(logits, -1).gather(
+                    1, toks[:, t + 1:t + 2])[:, 0])
+        else:                                   # B1: the GRU step
+            zc_gi, wh, bh, wo, bo, zc0 = ins[1:]
+            h_ = zc0.to(dt)
+            for t in range(T_):
+                h_ = beam_kernel.gru_cell_bf16_points(tok[toks[:, t]] + zc_gi,
+                                                      h_, wh, bh)
+                logits = (h_.float() @ wo.float() + bo.float()).to(dt)
+                picks.append(torch.log_softmax(logits.float(), -1).gather(
+                    1, toks[:, t + 1:t + 2])[:, 0])
+        body = toks[:, 1:T_ + 1]
+        eos = (body == EOS_IDX).int()
+        live = (torch.cumsum(eos, 1) - eos) == 0
+        return (torch.stack(picks, 1) * live).sum(1)
+
+    def recompute_gate(ins, dims, tapes, T_, what):
+        """Gate (c): the kernel's top-1 score of each sentence against its
+        teacher-forced recompute. Returns the largest |delta|."""
+        hyps, sc_ = beam.hyps_from_tapes(tapes, 1)
+        rec = teacher_forced(ins, dims, hyps[:, 0], T_)
+        err = (sc_[:, 0] - rec).abs()
+        lim = BF16_RECOMPUTE_ATOL + BF16_RECOMPUTE_RTOL * rec.abs()
+        if (err > lim).any() or not torch.isfinite(rec).all():
+            raise AssertionError(
+                f"{what}: a top-1 score disagrees with its teacher-forced "
+                f"recompute under the plain version: max |delta| "
+                f"{err.max().item():.4f}, {int((err > lim).sum())} rows "
+                f"beyond atol {BF16_RECOMPUTE_ATOL} + rtol "
+                f"{BF16_RECOMPUTE_RTOL}")
+        return err.max().item()
+
+    def compare_bf16(ins, dims, kw, what, scan, ref_scan, tag):
+        """A bf16 kernel against its plain version on the same inputs: gate
+        (b) at T 1, gates (c) and (d) at kw's T. Returns (the kernel's
+        tapes at kw's T, the largest |score delta| on the T 1 rows that
+        agree, the kernel's and the plain version's unique top-1 decodes)."""
+        def rows_same(a, b):
+            return ((a[0] == b[0]).all(dim=(1, 2))
+                    & (a[1] == b[1]).all(dim=(1, 2)))
+        kw1 = dict(kw, **dims, T=1)
+        got1, ref1 = scan(*ins, **kw1), ref_scan(*ins, **kw1)
+        same1 = rows_same(got1, ref1)
+        d1 = ((got1[3] - ref1[3]).abs()[same1].max().item()
+              if same1.any() else float("inf"))
+        kwt = dict(kw, **dims)
+        got, ref = scan(*ins, **kwt), ref_scan(*ins, **kwt)
+        torch.cuda.synchronize()
+        share1 = same1.float().mean().item()
+        share = rows_same(got, ref).float().mean().item()
+        rec_err = recompute_gate(ins, dims, got, kw["T"], what)
+        uniq = [len(set(pipeline.canonical_keys(
+            beam.hyps_from_tapes(tp, 1)[0][:, 0].cpu().numpy())))
+            for tp in (got, ref)]
+        log(f"[{tag}] {what}: T 1 rows identical {share1:.6f}, max |score "
+            f"delta| on them {d1:.3e}; T {kw['T']} rows identical "
+            f"{share:.6f}, max |top-1 score - teacher-forced recompute| "
+            f"{rec_err:.4f}; unique top-1 decodes kernel {uniq[0]} plain "
+            f"{uniq[1]}")
+        if share1 < BF16_T1_SAME_ROWS or d1 > BF16_T1_SCORE_DELTA:
+            raise AssertionError(
+                f"{what}: at T 1 {share1:.4f} identical rows (need "
+                f"{BF16_T1_SAME_ROWS}), max score delta {d1:.3e} (limit "
+                f"{BF16_T1_SCORE_DELTA})")
+        if share < BF16_T25_SAME_ROWS:
+            raise AssertionError(
+                f"{what}: at T {kw['T']} {share:.4f} identical rows (need "
+                f"{BF16_T25_SAME_ROWS})")
+        return got, d1, uniq
+
+    bf16_stats = {}
+    b3_kernels = dict(scan=tfm_beam_kernel.beam_scan_tfm,
+                      ref_scan=tfm_beam_kernel.beam_scan_tfm_reference)
+    b1_kernels = dict(scan=beam_kernel.beam_scan_gru,
+                      ref_scan=beam_kernel.beam_scan_gru_reference)
+    for tag, m, p, z_all_, c_all_, kern in (
+            ("3-bf16", model, params_bf, z_all, c_all, b1_kernels),
+            ("3t-bf16", model_t3, params_t3_bf, z3, c3, b3_kernels),
+            ("3t-bf16 T_args.bf16", model_tb, params_t3, z3, c3,
+             b3_kernels)):
+        outs_bf, err_bf = {}, 0.0
+        for B in BF16_BATCHES:
+            ins, dims = decode_inputs(m, p, z_all_[:B], c_all_[:B])
+            outs_bf[B], d1, uniq = compare_bf16(
+                ins, dims, dict(T=T, K=K, V=V, min_length=1, n_best=1),
+                f"B={B}", tag=tag, **kern)
+            err_bf = max(err_bf, d1)
+            if B == 5000:
+                ratio = uniq[0] / uniq[1]
+                log(f"[{tag}] uniq_ratio at B 5000: {ratio:.6f}")
+                if not BF16_UNIQ_RATIO[0] <= ratio <= BF16_UNIQ_RATIO[1]:
+                    raise AssertionError(f"{tag}: uniq_ratio {ratio:.4f} "
+                                         f"outside {BF16_UNIQ_RATIO}")
+        for a, b in zip(outs_bf[12288], outs_bf[2500]):
+            if not torch.equal(a[:2500], b):
+                raise AssertionError(f"{tag}: not batch invariant: rows of "
+                                     f"B=12288 differ from B=2500")
+        log(f"[{tag}] batch invariance: first 2500 rows of B=12288 == "
+            f"B=2500 bitwise")
+        del outs_bf
+        bf16_stats[tag] = err_bf
+        mark(f"{tag} batches")
+    # the scope edges in bf16: B1's on seeded random inputs, B3's on
+    # seeded models with the weight tree cast
+    for t_, k_, v_, h_, ml, nb in SCOPE_CASES:
+        B = 512
+        ins = tuple(a.to(BF) for a in (
+            rnd(v_, 3 * h_, sc=0.5), rnd(B, 3 * h_, sc=0.5),
+            rnd(h_, 3 * h_, sc=h_ ** -0.5), rnd(3 * h_, sc=0.1),
+            rnd(h_, v_, sc=3 * h_ ** -0.5), rnd(v_, sc=0.1),
+            rnd(B, h_, sc=1.0)))
+        compare_bf16(ins, {"H": h_}, dict(T=t_, K=k_, V=v_, min_length=ml,
+                                          n_best=nb),
+                     f"scope T={t_} K={k_} V={v_} H={h_} min_length={ml} "
+                     f"n_best={nb} B={B}", tag="3-bf16", **b1_kernels)
+    for what, t_, k_, ml, nb, over in B3_SCOPE_CASES:
+        cfg_s = C.parse_and_finalize(tflags_t)[0]
+        for key in ("d_ff", "n_heads"):
+            if key in over:
+                cfg_s.model.G_args.T_args[key] = over[key]
+        m_s = build_model(cfg_s.model, over.get("n_vocab", V),
+                          over.get("max_seq_len", T))
+        p_s = nn.cast_tree(m_s.init_params(
+            torch.Generator(device=dev).manual_seed(5), dev), BF)
+        ins, dims = decode_inputs(m_s, p_s, z3[:512], c3[:512])
+        compare_bf16(ins, dims, dict(T=t_, K=k_, V=m_s.n_vocab,
+                                     min_length=ml, n_best=nb),
+                     f"scope {what}: T={t_} K={k_} V={m_s.n_vocab} "
+                     f"S={dims['S']} H={dims['H']} F={dims['F']} "
+                     f"min_length={ml} n_best={nb} B=512", tag="3t-bf16",
+                     **b3_kernels)
+    mark("3-bf16 scope cases")
+    bf16_times = {}
+    for tag, m, p, kern, bound in (
+            ("B1", model, params_bf, b1_kernels, bound_ms),
+            ("B3", model_t3, params_t3_bf, b3_kernels, b3_bound_ms)):
+        for B in (2500, 5000):
+            zz, cc = (z_all, c_all) if tag == "B1" else (z3, c3)
+            ins, dims = decode_inputs(m, p, zz[:B], cc[:B])
+            kwb = dict(T=T, K=K, V=V, min_length=1, n_best=1, **dims)
+            bf16_times[tag, B] = (
+                cuda_ms(lambda: kern["scan"](*ins, **kwb),
+                        20 if tag == "B1" else 10),
+                cuda_ms(lambda: kern["ref_scan"](*ins, **kwb), 3),
+                bound(B, bf16=True))
+    mark("3-bf16 timings")
 
     # ---- 4. B2: the GRU recurrence kernels vs their plain versions -------
     gb = torch.Generator(device=dev).manual_seed(2)
@@ -883,10 +1129,12 @@ def main():
                                            np.float16),
                          "label": label}
 
-    def class_runs(tag, run_flags, model_, params_, counter):
+    def class_runs(tag, run_flags, model_, params_, counter,
+                   attr="launches"):
         """pipeline.run_from_states in both decode modes; each run drives
-        the main path with the kernel's count set to 0 just before it and
-        read just after. Returns (launches, loop stats, the last cfg)."""
+        the main path with the kernel's count (``counter.<attr>``, the
+        entry's) set to 0 just before it and read just after. Returns
+        (launches, loop stats, the last cfg)."""
         launches_, loop_ = {}, {}
         for mode in ("all", "accepted"):
             cfg_, args_, _ = C.parse_and_finalize(
@@ -896,10 +1144,10 @@ def main():
                              "--n_samples_acc", "100",
                              "--samples_outfn_prefix", f"smoke_{mode}"],
                 extra_args=sample_pipeline.EXTRA_ARGS)
-            counter.launches = 0
+            setattr(counter, attr, 0)
             stem, samples, stats = pipeline.run_from_states(
                 cfg_, args_, model_, params_, vocab, states, device=dev)
-            n_launches = counter.launches
+            n_launches = getattr(counter, attr)
             if n_launches < 1:
                 raise AssertionError(f"{tag} {mode} run: the main path "
                                      f"never launched the beam kernel")
@@ -931,10 +1179,14 @@ def main():
             mark(f"5 {tag} {mode} run")
         return launches_, loop_, cfg_
 
-    def round_checks(tag, cfg_, model_, params_):
+    def round_checks(tag, cfg_, model_, params_, decode_dtype="float32"):
         """One round through the kernel and one with plain=True on the same
-        draws (identical accept masks, >= 99% identical token rows), then
-        host-clock round times per decode mode (quartiles of ROUND_REPS)."""
+        draws (identical accept masks, >= 99% identical token rows; a bf16
+        decode: gates (c) and (d)), then host-clock round times per decode
+        mode (quartiles of ROUND_REPS)."""
+        bf16 = decode_dtype == "bfloat16" or (
+            model_.G_class == "transformer"
+            and model_.dec_tfm_args.get("bf16", False))
         Q = pipeline.fitQ_and_test(
             cfg_, pipeline.resolve_QClass("mogQ"),
             {"n_components": 100, "z_num_samples": 10,
@@ -944,18 +1196,40 @@ def main():
              for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
         draws = fused.round_draws(pipeline.round_generator(cfg_.seed, 1, dev),
                                   Q._sampler()[1], 5000)
-        r_kernel = fused.fused_round(model_, params_, draws, Q)
-        r_plain = fused.fused_round(model_, params_, draws, Q, plain=True)
+        r_kernel = fused.fused_round(model_, params_, draws, Q,
+                                     decode_dtype=decode_dtype)
+        r_plain = fused.fused_round(model_, params_, draws, Q, plain=True,
+                                    decode_dtype=decode_dtype)
         if not torch.equal(r_kernel[2], r_plain[2]):
             raise AssertionError(f"{tag}: accept masks differ between the "
                                  f"routes")
         rows_same = (r_kernel[3] == r_plain[3]).all(dim=1).float().mean(
             ).item()
+        need = BF16_T25_SAME_ROWS if bf16 else MIN_SAME_ROWS
+        rec_note = ""
+        if bf16:
+            # gate (c) on the round's decode: its latents through the
+            # kernel again give its tokens and their scores
+            p_dec = (params_ if decode_dtype == "float32"
+                     else nn.cast_tree(params_, getattr(torch, decode_dtype)))
+            ins, dims = decode_inputs(
+                model_, p_dec, model_.apply_flow(params_, r_kernel[0])[0],
+                model_.c_from_bits(draws.cbit))
+            scan = (tfm_beam_kernel.beam_scan_tfm
+                    if model_.G_class == "transformer"
+                    else beam_kernel.beam_scan_gru)
+            tapes = scan(*ins, T=T, K=5, V=V, min_length=1, n_best=1, **dims)
+            if not torch.equal(beam.hyps_from_tapes(tapes, 1)[0][:, 0],
+                               r_kernel[3]):
+                raise AssertionError(f"{tag}: the round's tokens differ "
+                                     f"from its latents' decode")
+            rec_note = (f", max |top-1 score - teacher-forced recompute| "
+                        f"{recompute_gate(ins, dims, tapes, T, tag):.4f}")
         log(f"[5] {tag} same draws, kernel vs plain version: accept masks "
-            f"identical, token rows identical {rows_same:.6f}")
-        if rows_same < MIN_SAME_ROWS:
+            f"identical, token rows identical {rows_same:.6f}{rec_note}")
+        if rows_same < need:
             raise AssertionError(f"{tag}: only {rows_same:.4f} token rows "
-                                 f"identical")
+                                 f"identical (need {need})")
         mark(f"5 {tag} kernel vs plain round")
         round_ms_ = {}
         for mode, cap in (("all", None), ("accepted", 2500)):
@@ -963,7 +1237,8 @@ def main():
                 d = fused.round_draws(
                     pipeline.round_generator(cfg_.seed, 2, dev),
                     Q._sampler()[1], 5000)
-                out = fused.fused_round(model_, params_, d, Q, capacity=cap)
+                out = fused.fused_round(model_, params_, d, Q, capacity=cap,
+                                        decode_dtype=decode_dtype)
                 torch.cuda.synchronize()
                 return out
             one_round()
@@ -985,6 +1260,24 @@ def main():
         "transformer", tflags_t, model_t3, params_t3,
         tfm_beam_kernel.beam_scan_tfm)
     round_ms_t = round_checks("transformer", cfg_t5, model_t3, params_t3)
+
+    # ---- 5-bf16, 5t-bf16: the CLaSS main path decoded in bf16 --------------
+    # --hw.gen_dtype bfloat16 for both families, and the transformer with
+    # T_args.bf16 over its f32 weights; the bf16 entries' counts must rise
+    bf16_runs = {}
+    for tag, run_flags, model_, params_, counter, dtype in (
+            ("GRU bf16", flags + ["--hw.gen_dtype", "bfloat16"], model,
+             params, beam_kernel.beam_scan_gru, "bfloat16"),
+            ("transformer bf16", tflags_t + ["--hw.gen_dtype", "bfloat16"],
+             model_t3, params_t3, tfm_beam_kernel.beam_scan_tfm, "bfloat16"),
+            ("transformer T_args.bf16",
+             tflags_t + ["--model.G_args.T_args.bf16", "1"], model_tb,
+             params_t3, tfm_beam_kernel.beam_scan_tfm, "float32")):
+        launches_b, loop_b, cfg_b = class_runs(tag, run_flags, model_,
+                                               params_, counter,
+                                               "launches_bf16")
+        bf16_runs[tag] = (launches_b, loop_b,
+                          round_checks(tag, cfg_b, model_, params_, dtype))
 
     # ---- 6. main path: phase-1 training ------------------------------------
     train_top = os.path.join(ROOT, "build", "chip_smoke_train")
@@ -1218,6 +1511,38 @@ def main():
     enc_launches += dl_launches["B4"]
     mark("5d dataloader encodings and their pipeline")
 
+    # ---- 5d-bf16: the sampling CLI, decoding in bf16, on the phase-6 run --
+    # sample_pipeline.main as a user runs it; the card has no h5py for the
+    # states dump (ROADMAP.md A2), so its reader returns the states in
+    # memory
+    read_states = pipeline.load_states
+    pipeline.load_states = lambda cfg_: states
+    gru_fwd_kernel.gru_fwd.launches = 0
+    beam_kernel.beam_scan_gru.launches_bf16 = 0
+    try:
+        stem_c = sample_pipeline.main(train_flags("smoke", TRAIN_ITERS) + [
+            "--Q_from_full_dataloader", "--Q_select_amppos", "1",
+            "--Q_n_components", "10", "--n_samples_per_round", "5000",
+            "--n_samples_acc", "100", "--samples_outfn_prefix",
+            "smoke_cli_bf16", "--hw.gen_dtype", "bfloat16"])
+    finally:
+        pipeline.load_states = read_states
+    cli_launches = {"B4": gru_fwd_kernel.gru_fwd.launches,
+                    "B1 bf16": beam_kernel.beam_scan_gru.launches_bf16}
+    acc_files = [f for f in os.listdir(os.path.dirname(stem_c))
+                 if f.startswith(os.path.basename(stem_c) + ".accepted.")
+                 and f.endswith(".csv")]
+    n_acc_c = (int(acc_files[0].split(".accepted.")[1].split(".")[0])
+               if len(acc_files) == 1 else 0)
+    if (cli_launches["B4"] != 2 * n_batches or cli_launches["B1 bf16"] < 1
+            or n_acc_c < 100 or not os.path.exists(stem_c + ".plain.txt")):
+        raise AssertionError(f"the bf16 sample_pipeline run: launches "
+                             f"{cli_launches}, {n_acc_c} accepted")
+    log(f"[5d] sample_pipeline.main --Q_from_full_dataloader --hw.gen_dtype "
+        f"bfloat16 on the phase-6 run: {n_acc_c} accepted samples in "
+        f"{stem_c}.*; launches {cli_launches}")
+    mark("5d-bf16 sample_pipeline CLI in bf16")
+
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
     I, H_ = B2_WIDTHS[1]
@@ -1279,8 +1604,16 @@ def main():
     for B, (k_ms, p_ms, (b_ms, b_by)) in b3_times.items():
         log(f"[7] B3 transformer beam scan B={B}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+    for (tag, B), (k_ms, p_ms, (b_ms, b_by)) in bf16_times.items():
+        fp32_ms = (times if tag == "B1" else b3_times)[B][0]
+        log(f"[7] {tag} bf16 beam scan B={B}: kernel {k_ms:.4f} ms "
+            f"({k_ms / fp32_ms:.3f}x the fp32 kernel's {fp32_ms:.4f} ms), "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, the bf16 "
+            f"tensor-core rate) ({card})")
     for tag, loop_, round_ms_ in (("GRU", loop, round_ms),
-                                  ("transformer", loop_t, round_ms_t)):
+                                  ("transformer", loop_t, round_ms_t),
+                                  *((t_, v_[1], v_[2])
+                                    for t_, v_ in bf16_runs.items())):
         for mode in ("all", "accepted"):
             st = loop_[mode]
             q1, med, q3 = round_ms_[mode]
@@ -1404,6 +1737,21 @@ def main():
             "replaces":
                 "controlled_peptide_generation_tpu/ops/pallas_kernels.py:128",
             "launches": n_launch, "max_abs_err": b5_err[k],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    for name, tag, src, replaces, runs, err in (
+            ("beam_gru_bf16", "B1", "beam_gru.cu", "pallas_beam.py:285",
+             ("GRU bf16",), bf16_stats["3-bf16"]),
+            ("tfm_beam_bf16", "B3", "tfm_beam.cu", "pallas_tfm_beam.py:395",
+             ("transformer bf16", "transformer T_args.bf16"),
+             max(bf16_stats["3t-bf16"], bf16_stats["3t-bf16 T_args.bf16"]))):
+        k_ms, p_ms, (b_ms, b_by) = bf16_times[tag, 5000]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"controlled_peptide_generation_tpu_torch/csrc/{src}",
+            "replaces": f"controlled_peptide_generation_tpu/ops/{replaces}",
+            "launches": sum(sum(bf16_runs[r][0].values()) for r in runs),
+            "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
     mark("7 report")

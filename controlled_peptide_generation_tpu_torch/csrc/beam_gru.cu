@@ -1,4 +1,4 @@
-// Whole-scan GRU beam search for NVIDIA Hopper (sm_90a), fp32.
+// Whole-scan GRU beam search for NVIDIA Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces the TPU kernel controlled_peptide_generation_tpu/ops/
 // pallas_beam.py:beam_scan_gru (kernel body _kernel). One launch runs all
@@ -36,7 +36,26 @@
 // Sums are taken in another order than cuBLAS or the CPU, so near-tie
 // rows may pick another token than the plain version; chip_smoke.py
 // bounds that share.
+//
+// bf16 (entry beam_gru_bf16): the same kernel instantiated on bf16
+// storage for the inputs and the shared weights (wh 62.4 KB at H 102,
+// half of fp32's); the hidden states stay in shared memory as floats that
+// hold bf16 values. The math is fp32 FMAs, rounded to bf16 (round to
+// nearest even) where the JAX kernel rounds in interpret mode
+// (ops/beam_kernel.py:gru_cell_bf16_points): gi = tok_table[prev] + zc_gi;
+// gh and the logits accumulated in f32 with their bias and rounded once;
+// r and z the f32 sigmoid (expf) of the unrounded f32 sum gi + gh, rounded;
+// n the f32 tanhf of gi_n plus the rounded r * gh_n, rounded; the blend
+// (1 - z) * n + z * h with each op rounded. The log-softmax, scores and
+// top-K stay f32, so the tie rule is unchanged: equal candidates, far more
+// common on bf16 logits, go to the lowest flat index k*V+v. Each output
+// is one sequential sum over k whatever the batch, so batch invariance
+// stays bitwise. The fp32 instantiation's rounding is the identity: the
+// fp32 kernel's arithmetic is unchanged. Bound at the shipped width: the
+// same FMAs over the bf16 tensor-core rate (this kernel does not use the
+// tensor cores: that is a later redesign).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -71,8 +90,46 @@ __host__ __device__ inline Layout make_layout(int K, int V, int H) {
   return L;
 }
 
+// storage types: a load widens to f32, rnd rounds an f32 result to the
+// storage type's precision (the identity for float)
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return x; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float sigmoid_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// h' = (1 - z) * n + z * h; in bf16 each op rounded, as the JAX kernel
+template <typename T>
+__device__ __forceinline__ float blend(float z, float n, float h) {
+  return (1.0f - z) * n + z * h;
+}
+template <>
+__device__ __forceinline__ float blend<__nv_bfloat16>(float z, float n,
+                                                      float h) {
+  typedef __nv_bfloat16 B;
+  return rnd<B>(rnd<B>(rnd<B>(1.0f - z) * n) + rnd<B>(z * h));
+}
+
+// shared-memory words of the weights wh and w_out in storage type T, kept
+// a multiple of four (16-byte alignment of the sentences' state after them)
+template <typename T>
+__host__ __device__ inline int weight_words(int H, int V) {
+  const int bytes = (3 * H * H + H * V) * (int)sizeof(T);
+  return ((bytes + 15) / 16) * 4;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -106,14 +163,15 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+template <typename St>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
-                const float* __restrict__ zc_gi,       // [B, 3H]
-                const float* __restrict__ wh_g,        // [H, 3H]
-                const float* __restrict__ bh,          // [3H]
-                const float* __restrict__ wout_g,      // [H, V]
-                const float* __restrict__ b_out,       // [V]
-                const float* __restrict__ zc0,         // [B, H]
+beam_gru_kernel(const St* __restrict__ tok_table,       // [V, 3H]
+                const St* __restrict__ zc_gi,           // [B, 3H]
+                const St* __restrict__ wh_g,            // [H, 3H]
+                const St* __restrict__ bh,              // [3H]
+                const St* __restrict__ wout_g,          // [H, V]
+                const St* __restrict__ b_out,           // [V]
+                const St* __restrict__ zc0,             // [B, H]
                 int* __restrict__ ys,                  // [B, T, K]
                 int* __restrict__ ptr,                 // [B, T, K]
                 float* __restrict__ sc,                // [B, T, K]
@@ -122,7 +180,8 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
                 int* __restrict__ fin_out,             // [B]
                 int B, int T, int K, int V, int H, int min_length,
                 int n_best, int S, int weights_in_smem) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
@@ -132,17 +191,17 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
   const int s0 = blockIdx.x * S;
   const int n_s = min(S, B - s0);          // live sentences in this block
 
-  const float* wh = wh_g;
-  const float* wout = wout_g;
+  const St* wh = wh_g;
+  const St* wout = wout_g;
   float* sent_base = smem;
   if (weights_in_smem) {
-    float* s_wh = smem;
-    float* s_wout = smem + H * H3;
+    St* s_wh = reinterpret_cast<St*>(smem);
+    St* s_wout = s_wh + H * H3;
     for (int i = tid; i < H * H3; i += nt) s_wh[i] = wh_g[i];
     for (int i = tid; i < H * V; i += nt) s_wout[i] = wout_g[i];
     wh = s_wh;
     wout = s_wout;
-    sent_base = smem + H * H3 + H * V;
+    sent_base = smem + weight_words<St>(H, V);
   }
   const Layout L = make_layout(K, V, H);
   auto sent = [&](int s) { return sent_base + s * L.words; };
@@ -150,11 +209,11 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
   // ---- initial state ------------------------------------------------
   for (int i = tid; i < n_s * H3; i += nt) {
     int s = i / H3, j = i - s * H3;
-    sent(s)[L.zcgi + j] = zc_gi[(size_t)(s0 + s) * H3 + j];
+    sent(s)[L.zcgi + j] = ld(zc_gi + (size_t)(s0 + s) * H3 + j);
   }
   for (int i = tid; i < n_s * K * H; i += nt) {
     int s = i / (K * H), r = i - s * K * H, j = r % H;
-    sent(s)[L.h + r] = zc0[(size_t)(s0 + s) * H + j];
+    sent(s)[L.h + r] = ld(zc0 + (size_t)(s0 + s) * H + j);
   }
   for (int i = tid; i < n_s * K; i += nt) {
     int s = i / K, k = i - s * K;
@@ -186,8 +245,8 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
         for (int q = 0; q < KC; ++q) row[q] = min(b0 + q, K - 1) * H;
 #pragma unroll 2
         for (int k = 0; k < H; ++k) {
-          const float* w = wh + k * H3 + j;
-          const float wr = w[0], wz = w[H], wn = w[2 * H];
+          const St* w = wh + k * H3 + j;
+          const float wr = ld(w), wz = ld(w + H), wn = ld(w + 2 * H);
 #pragma unroll
           for (int q = 0; q < KC; ++q) {
             const float hv = hs[row[q] + k];
@@ -200,17 +259,18 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
         for (int q = 0; q < KC; ++q) {
           const int b = b0 + q;
           if (b < K) {
-            const float* tt = tok_table + (size_t)prev[b] * H3;
-            const float gir = __ldg(tt + j) + st[L.zcgi + j];
-            const float giz = __ldg(tt + H + j) + st[L.zcgi + H + j];
-            const float gin = __ldg(tt + 2 * H + j) + st[L.zcgi + 2 * H + j];
-            const float ghr = ar[q] + __ldg(bh + j);
-            const float ghz = az[q] + __ldg(bh + H + j);
-            const float ghn = an[q] + __ldg(bh + 2 * H + j);
-            const float r = sigmoid_(gir + ghr);
-            const float z = sigmoid_(giz + ghz);
-            const float n = tanhf(gin + r * ghn);
-            st[L.hn + b * H + j] = (1.0f - z) * n + z * hs[b * H + j];
+            const St* tt = tok_table + (size_t)prev[b] * H3;
+            const float gir = rnd<St>(ldg(tt + j) + st[L.zcgi + j]);
+            const float giz = rnd<St>(ldg(tt + H + j) + st[L.zcgi + H + j]);
+            const float gin =
+                rnd<St>(ldg(tt + 2 * H + j) + st[L.zcgi + 2 * H + j]);
+            const float ghr = rnd<St>(ar[q] + ldg(bh + j));
+            const float ghz = rnd<St>(az[q] + ldg(bh + H + j));
+            const float ghn = rnd<St>(an[q] + ldg(bh + 2 * H + j));
+            const float r = rnd<St>(sigmoid_(gir + ghr));
+            const float z = rnd<St>(sigmoid_(giz + ghz));
+            const float n = rnd<St>(tanhf(gin + rnd<St>(r * ghn)));
+            st[L.hn + b * H + j] = blend<St>(z, n, hs[b * H + j]);
           }
         }
       }
@@ -231,14 +291,14 @@ beam_gru_kernel(const float* __restrict__ tok_table,   // [V, 3H]
           row[q] = min(b0 + q, K - 1) * H;
         }
         for (int k = 0; k < H; ++k) {
-          const float w = wout[k * V + v];
+          const float w = ld(wout + k * V + v);
 #pragma unroll
           for (int q = 0; q < KC; ++q) acc[q] = fmaf(hn[row[q] + k], w, acc[q]);
         }
-        const float bo = __ldg(b_out + v);
+        const float bo = ldg(b_out + v);
 #pragma unroll
         for (int q = 0; q < KC; ++q)
-          if (b0 + q < K) st[L.cand + (b0 + q) * V + v] = acc[q] + bo;
+          if (b0 + q < K) st[L.cand + (b0 + q) * V + v] = rnd<St>(acc[q] + bo);
       }
     }
     __syncthreads();
@@ -360,6 +420,7 @@ struct Plan {
 };
 
 // Sentences per block and where the weights live, for this device.
+template <typename T>
 int make_plan(int B, int K, int V, int H, Plan* plan) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -369,7 +430,7 @@ int make_plan(int B, int K, int V, int H, Plan* plan) {
                              cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   const size_t per_sent = (size_t)make_layout(K, V, H).words * 4;
-  const size_t w_bytes = (size_t)(3 * H * H + H * V) * 4;
+  const size_t w_bytes = (size_t)weight_words<T>(H, V) * 4;
   const int s_threads = MAX_THREADS / H > 0 ? MAX_THREADS / H : 1;
   int S;
   if (w_bytes + per_sent <= (size_t)max_smem) {
@@ -390,15 +451,37 @@ int make_plan(int B, int K, int V, int H, Plan* plan) {
   return 0;
 }
 
+template <typename T>
+int launch(const T* tok_table, const T* zc_gi, const T* wh, const T* bh,
+           const T* w_out, const T* b_out, const T* zc0, int* ys, int* ptr,
+           float* sc, float* scores, int* adv, int* fin, int B, int T_,
+           int K, int V, int H, int min_length, int n_best, void* stream) {
+  if (B <= 0) return 0;
+  Plan p;
+  int e = make_plan<T>(B, K, V, H, &p);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      beam_gru_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (ce != cudaSuccess) return (int)ce;
+  const int grid = (B + p.S - 1) / p.S;
+  beam_gru_kernel<T><<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+      tok_table, zc_gi, wh, bh, w_out, b_out, zc0, ys, ptr, sc, scores, adv,
+      fin, B, T_, K, V, H, min_length, n_best, p.S, p.weights_in_smem);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // The launch plan for these shapes: sentences per block, threads per
-// block, weights in shared memory (1/0), dynamic shared bytes.
-int beam_gru_plan(int B, int K, int V, int H, int* out4) {
+// block, weights in shared memory (1/0), dynamic shared bytes; bf16 != 0
+// for the bf16 instantiation.
+int beam_gru_plan(int B, int K, int V, int H, int bf16, int* out4) {
   Plan p;
-  int e = make_plan(B, K, V, H, &p);
+  int e = bf16 ? make_plan<__nv_bfloat16>(B, K, V, H, &p)
+               : make_plan<float>(B, K, V, H, &p);
   if (e) return e;
   out4[0] = p.S;
   out4[1] = p.threads;
@@ -414,19 +497,21 @@ int beam_gru_f32(const float* tok_table, const float* zc_gi, const float* wh,
                  const float* zc0, int* ys, int* ptr, float* sc,
                  float* scores, int* adv, int* fin, int B, int T, int K,
                  int V, int H, int min_length, int n_best, void* stream) {
-  if (B <= 0) return 0;
-  Plan p;
-  int e = make_plan(B, K, V, H, &p);
-  if (e) return e;
-  cudaError_t ce = cudaFuncSetAttribute(
-      beam_gru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem);
-  if (ce != cudaSuccess) return (int)ce;
-  const int grid = (B + p.S - 1) / p.S;
-  beam_gru_kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
-      tok_table, zc_gi, wh, bh, w_out, b_out, zc0, ys, ptr, sc, scores, adv,
-      fin, B, T, K, V, H, min_length, n_best, p.S, p.weights_in_smem);
-  return (int)cudaGetLastError();
+  return launch<float>(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, ys, ptr,
+                       sc, scores, adv, fin, B, T, K, V, H, min_length,
+                       n_best, stream);
+}
+
+// The same on bf16 inputs (tapes and scores as the f32 entry's).
+int beam_gru_bf16(const __nv_bfloat16* tok_table, const __nv_bfloat16* zc_gi,
+                  const __nv_bfloat16* wh, const __nv_bfloat16* bh,
+                  const __nv_bfloat16* w_out, const __nv_bfloat16* b_out,
+                  const __nv_bfloat16* zc0, int* ys, int* ptr, float* sc,
+                  float* scores, int* adv, int* fin, int B, int T, int K,
+                  int V, int H, int min_length, int n_best, void* stream) {
+  return launch<__nv_bfloat16>(tok_table, zc_gi, wh, bh, w_out, b_out, zc0,
+                               ys, ptr, sc, scores, adv, fin, B, T, K, V, H,
+                               min_length, n_best, stream);
 }
 
 const char* beam_gru_error_string(int code) {

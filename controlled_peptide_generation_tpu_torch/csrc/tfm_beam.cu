@@ -1,4 +1,5 @@
-// Whole-scan transformer beam search for NVIDIA Hopper (sm_90a), fp32.
+// Whole-scan transformer beam search for NVIDIA Hopper (sm_90a), fp32 and
+// bf16.
 //
 // Replaces the TPU kernel controlled_peptide_generation_tpu/ops/
 // pallas_tfm_beam.py:beam_scan_tfm (kernel body _kernel). One launch runs
@@ -59,7 +60,26 @@
 // Sums are taken in another order than cuBLAS or the CPU, so near-tie
 // rows may pick another token than the plain version; chip_smoke.py
 // bounds that share.
+//
+// bf16 (entry tfm_beam_bf16): the same kernel instantiated on bf16 storage
+// for the tables, the products' weights and biases, the prefix rows and
+// the KV caches (53 KB a sentence at the shipped width, 266 MB at
+// B 5,000, half of fp32's); LayerNorm's parameters, the final LN and the
+// head stay f32, as the JAX kernel keeps them (pallas_tfm_beam.py:406).
+// Activations stay f32 in shared memory and the math is fp32 FMAs,
+// rounded to bf16 (round to nearest even) where the JAX kernel rounds in
+// interpret mode (models/transformer.py:_block_step): the entry
+// tok_table[prev] + pos_table[t+1]; each product accumulated in f32 and
+// rounded, then its bias added and the sum rounded (qkv, out, ff2); the
+// attention probabilities before the value sum and that sum once; the
+// LayerNorms and the GELU in f32, their outputs rounded. LayerNorm reads
+// the residual stream's f32 sum before its rounding and the GELU the f32
+// sum of ff1's rounded product and bias, while the residual adds take the
+// rounded values: the stream is kept unrounded in shared memory and
+// rounded where a residual add reads it. The fp32 instantiation's
+// rounding is the identity: the fp32 kernel's arithmetic is unchanged.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -166,6 +186,41 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// storage types: a load widens to f32, st narrows (exact on the values
+// stored here), rnd rounds an f32 result to the storage type's precision
+// (the identity for float)
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float x) { return x; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// four consecutive values of a row (16-byte aligned for float, 8-byte for
+// bf16) widened to f32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;   // sqrt(2 / pi)
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
@@ -176,15 +231,16 @@ enum Epi { EPI_BIAS, EPI_GELU, EPI_RESID, EPI_PARTIAL };
 // C[r][n] for r < rows, n < RN*128: the product of the shared rows A
 // [rows, Kd] (row stride LDA) and the device-memory W [Kd, ldw] (columns
 // from W's first, ldw its row stride), each output one sequential sum over
-// k. Sums start from Cin (stride D) when given, else 0. Epilogues:
-// BIAS C = sum + b; GELU C = gelu(sum + b); RESID C = C + (sum + b);
-// PARTIAL C = sum. Thread (g = tid / 128, c = tid % 128) owns rows
-// g*RM.. of columns c + 128*q. Rows at and above `rows` read whatever the
-// buffer holds and are not stored.
-template <int RN, int EPI, int LDA>
+// k. Sums start from Cin (stride D) when given, else 0. Epilogues, with
+// P = rnd(sum) + b (the rounded product plus the bias, unrounded):
+// BIAS C = rnd(P); GELU C = rnd(gelu(P)); RESID C = rnd(C) + rnd(P), the
+// residual stream's unrounded sum; PARTIAL C = sum. Thread (g = tid / 128,
+// c = tid % 128) owns rows g*RM.. of columns c + 128*q. Rows at and above
+// `rows` read whatever the buffer holds and are not stored.
+template <int RN, int EPI, int LDA, typename T>
 __device__ __forceinline__ void gemm(const float* A, int Kd,
-                                     const float* __restrict__ W, int ldw,
-                                     const float* __restrict__ bias,
+                                     const T* __restrict__ W, int ldw,
+                                     const T* __restrict__ bias,
                                      float* C, int ldc, const float* Cin,
                                      int rows) {
   const int c = threadIdx.x & 127;
@@ -202,14 +258,14 @@ __device__ __forceinline__ void gemm(const float* A, int Kd,
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int q = 0; q < RN; ++q) w[kk][q] = __ldg(W + kk * ldw + c + 128 * q);
+    for (int q = 0; q < RN; ++q) w[kk][q] = ldg(W + kk * ldw + c + 128 * q);
   for (int k = 0; k < Kd; k += 4) {
     if (k + 4 < Kd) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int q = 0; q < RN; ++q)
-          wn[kk][q] = __ldg(W + (k + 4 + kk) * ldw + c + 128 * q);
+          wn[kk][q] = ldg(W + (k + 4 + kk) * ldw + c + 128 * q);
     }
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
@@ -237,21 +293,26 @@ __device__ __forceinline__ void gemm(const float* A, int Kd,
       for (int q = 0; q < RN; ++q) {
         const int n = c + 128 * q;
         float* out = C + r * ldc + n;
-        if (EPI == EPI_BIAS) {
-          *out = acc[i][q] + __ldg(bias + n);
-        } else if (EPI == EPI_GELU) {
-          *out = gelu_tanh(acc[i][q] + __ldg(bias + n));
-        } else if (EPI == EPI_RESID) {
-          *out = *out + (acc[i][q] + __ldg(bias + n));
-        } else {
+        if (EPI == EPI_PARTIAL) {
           *out = acc[i][q];
+        } else {
+          const float pb = rnd<T>(acc[i][q]) + ldg(bias + n);
+          if (EPI == EPI_BIAS) {
+            *out = rnd<T>(pb);
+          } else if (EPI == EPI_GELU) {
+            *out = rnd<T>(gelu_tanh(pb));
+          } else {
+            *out = rnd<T>(*out) + rnd<T>(pb);
+          }
         }
       }
     }
   }
 }
 
-// Y[r] = LayerNorm(X[r]) * g + b over D = 128 values, one warp per row
+// Y[r] = LayerNorm(X[r]) * g + b over D = 128 values, one warp per row,
+// rounded to T's precision
+template <typename T>
 __device__ __forceinline__ void layer_norm(const float* X, float* Y, int rows,
                                            const float* __restrict__ g,
                                            const float* __restrict__ b) {
@@ -267,25 +328,27 @@ __device__ __forceinline__ void layer_norm(const float* X, float* Y, int rows,
         warp_sum((dx * dx + dy * dy) + (dz * dz + dw * dw)) / D;
     const float inv = 1.0f / sqrtf(var + 1e-6f);
     float4 y;
-    y.x = (dx * inv) * gv.x + bv.x;
-    y.y = (dy * inv) * gv.y + bv.y;
-    y.z = (dz * inv) * gv.z + bv.z;
-    y.w = (dw * inv) * gv.w + bv.w;
+    y.x = rnd<T>((dx * inv) * gv.x + bv.x);
+    y.y = rnd<T>((dy * inv) * gv.y + bv.y);
+    y.z = rnd<T>((dz * inv) * gv.z + bv.z);
+    y.w = rnd<T>((dw * inv) * gv.w + bv.w);
     reinterpret_cast<float4*>(Y + r * D)[lane] = y;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
-                const float* __restrict__ pos,      // [S, D]
-                const float* __restrict__ wpack,    // L x LayerOff.size
+tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
+                const T* __restrict__ pos,          // [S, D]
+                const T* __restrict__ wpack,        // L x LayerOff.size
+                const float* __restrict__ lnpack,   // L x LayerOff.size
                 const float* __restrict__ lnf_g,    // [D]
                 const float* __restrict__ lnf_b,    // [D]
                 const float* __restrict__ wout,     // [D, V]
                 const float* __restrict__ bout,     // [V]
-                const float* __restrict__ k0,       // [L, B, D]
-                const float* __restrict__ v0,       // [L, B, D]
-                float* scratch,                     // [B, K, L, 2, S, D]
+                const T* __restrict__ k0,           // [L, B, D]
+                const T* __restrict__ v0,           // [L, B, D]
+                T* scratch,                         // [B, K, L, 2, S, D]
                 int* __restrict__ ys,               // [B, T, K]
                 int* __restrict__ ptr,              // [B, T, K]
                 float* __restrict__ sc,             // [B, T, K]
@@ -339,7 +402,7 @@ tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
   for (int i = tid; i < n_s * L * 2 * D; i += NT) {
     const int c = i % D, kv = (i / D) % 2, l = (i / (2 * D)) % L,
               s = i / (2 * D * L);
-    const float* src = kv ? v0 : k0;
+    const T* src = kv ? v0 : k0;
     kv_rows(s, 0, l, kv)[c] = src[((size_t)l * d.B + s0 + s) * D + c];
   }
   __syncthreads();
@@ -354,13 +417,14 @@ tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
       // ---- x = tok_table[prev] + pos_table[t+1] -------------------------
       for (int i = tid; i < rows * D; i += NT) {
         const int r = i / D, c = i - r * D;
-        xs[i] = __ldg(tok + prev[r0 + r] * D + c) + __ldg(pos + p * D + c);
+        xs[i] = rnd<T>(ldg(tok + prev[r0 + r] * D + c) + ldg(pos + p * D + c));
       }
       __syncthreads();
 
       for (int l = 0; l < L; ++l) {
-        const float* W = wpack + (size_t)l * lo.size;
-        layer_norm(xs, hs, rows, W + lo.ln1g, W + lo.ln1b);
+        const T* W = wpack + (size_t)l * lo.size;
+        const float* Wln = lnpack + (size_t)l * lo.size;
+        layer_norm<T>(xs, hs, rows, Wln + lo.ln1g, Wln + lo.ln1b);
         __syncthreads();
         gemm<3, EPI_BIAS, D>(hs, D, W + lo.qkvw, 3 * D, W + lo.qkvb, big, FC,
                              nullptr, rows);
@@ -370,8 +434,8 @@ tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
           const int r = i / D, c = i - r * D;
           const int row = r0 + r, hh = c / Dh, dd = c - hh * Dh;
           const float* q = big + r * FC + hh * 3 * Dh + dd;
-          kv_rows(row / K, row % K, l, 0)[p * D + c] = q[Dh];
-          kv_rows(row / K, row % K, l, 1)[p * D + c] = q[2 * Dh];
+          st(kv_rows(row / K, row % K, l, 0) + p * D + c, q[Dh]);
+          st(kv_rows(row / K, row % K, l, 1) + p * D + c, q[2 * Dh]);
         }
         __syncthreads();
         // ---- attention: one warp per (lane, head) -> hs ----------------
@@ -382,49 +446,51 @@ tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
           const float* q = big + r * FC + hh * 3 * Dh;
           float score = -INFINITY;
           if (lane <= p) {
-            const float* kr = kv_rows(sent, an[lane], l, 0) + lane * D +
-                              hh * Dh;
+            const T* kr = kv_rows(sent, an[lane], l, 0) + lane * D +
+                          hh * Dh;
             float dot = 0.0f;
             if ((Dh & 3) == 0) {
               for (int dd = 0; dd < Dh; dd += 4) {
                 const float4 qv = *reinterpret_cast<const float4*>(q + dd);
-                const float4 kv = *reinterpret_cast<const float4*>(kr + dd);
+                const float4 kv = ld4(kr + dd);
                 dot = fmaf(qv.x, kv.x, dot);
                 dot = fmaf(qv.y, kv.y, dot);
                 dot = fmaf(qv.z, kv.z, dot);
                 dot = fmaf(qv.w, kv.w, dot);
               }
             } else {
-              for (int dd = 0; dd < Dh; ++dd) dot = fmaf(q[dd], kr[dd], dot);
+              for (int dd = 0; dd < Dh; ++dd)
+                dot = fmaf(q[dd], ld(kr + dd), dot);
             }
             score = dot / sqrt_dh;
           }
           const float m = warp_max(score);
           const float e = (lane <= p) ? expf(score - m) : 0.0f;
-          const float prob = e / warp_sum(e);
+          const float prob = rnd<T>(e / warp_sum(e));
           for (int d0 = 0; d0 < Dh; d0 += 32) {
             const int dd = d0 + lane;
             float acc = 0.0f;
             for (int s = 0; s <= p; ++s) {
               const float ps = __shfl_sync(0xffffffffu, prob, s);
               if (dd < Dh)
-                acc = fmaf(ps, kv_rows(sent, an[s], l, 1)[s * D + hh * Dh + dd],
+                acc = fmaf(ps,
+                           ld(kv_rows(sent, an[s], l, 1) + s * D + hh * Dh + dd),
                            acc);
             }
-            if (dd < Dh) hs[r * D + hh * Dh + dd] = acc;
+            if (dd < Dh) hs[r * D + hh * Dh + dd] = rnd<T>(acc);
           }
         }
         __syncthreads();
         gemm<1, EPI_RESID, D>(hs, D, W + lo.aow, D, W + lo.aob, xs, D,
                               nullptr, rows);
         __syncthreads();
-        layer_norm(xs, hs, rows, W + lo.ln2g, W + lo.ln2b);
+        layer_norm<T>(xs, hs, rows, Wln + lo.ln2g, Wln + lo.ln2b);
         __syncthreads();
         // ---- feed-forward in chunks of up to 384 columns of d_ff --------
         for (int f0 = 0; f0 < F; f0 += FC) {
           const int wdt = min(FC, F - f0);
-          const float* w1 = W + lo.ff1w + f0;
-          const float* b1 = W + lo.ff1b + f0;
+          const T* w1 = W + lo.ff1w + f0;
+          const T* b1 = W + lo.ff1b + f0;
           if (wdt == 3 * 128)
             gemm<3, EPI_GELU, D>(hs, D, w1, F, b1, big, FC, nullptr, rows);
           else if (wdt == 2 * 128)
@@ -432,19 +498,19 @@ tfm_beam_kernel(const float* __restrict__ tok,      // [V, D]
           else
             gemm<1, EPI_GELU, D>(hs, D, w1, F, b1, big, FC, nullptr, rows);
           __syncthreads();
-          const float* w2 = W + lo.ff2w + (size_t)f0 * D;
+          const T* w2 = W + lo.ff2w + (size_t)f0 * D;
           const float* from = (f0 == 0) ? nullptr : acc2;
           if (f0 + wdt >= F)
             gemm<1, EPI_RESID, FC>(big, wdt, w2, D, W + lo.ff2b, xs, D, from,
                                    rows);
           else
-            gemm<1, EPI_PARTIAL, FC>(big, wdt, w2, D, nullptr, acc2, D, from,
-                                     rows);
+            gemm<1, EPI_PARTIAL, FC>(big, wdt, w2, D, (const T*)nullptr, acc2,
+                                     D, from, rows);
           __syncthreads();
         }
       }
       // ---- final LN and head -> candidate rows ----------------------------
-      layer_norm(xs, hs, rows, lnf_g, lnf_b);
+      layer_norm<T>(xs, hs, rows, lnf_g, lnf_b);
       __syncthreads();
       for (int i = tid; i < rows * V; i += NT) {
         const int r = i / V, v = i - r * V;
@@ -586,12 +652,37 @@ int make_plan(int B, int K, int V, int S, int F, Plan* plan) {
   return 0;
 }
 
+template <typename T>
+int launch(const T* tok, const T* pos, const T* wpack, const float* lnpack,
+           const float* lnf_g, const float* lnf_b, const float* wout,
+           const float* bout, const T* k0, const T* v0, T* scratch, int* ys,
+           int* ptr, float* sc, float* scores, int* adv, int* fin, int B,
+           int T_, int K, int V, int S, int L, int H, int F, int min_length,
+           int n_best, void* stream) {
+  if (B <= 0) return 0;
+  if (H <= 0 || D % H || T_ + 1 > S || V > 127 || K > V - 2 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  int e = make_plan(B, K, V, S, F, &p);
+  if (e) return e;
+  cudaError_t ce = cudaFuncSetAttribute(
+      tfm_beam_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (ce != cudaSuccess) return (int)ce;
+  Dims d{B, T_, K, V, S, L, H, F, min_length, n_best, p.n_sent};
+  const int grid = (B + p.n_sent - 1) / p.n_sent;
+  tfm_beam_kernel<T><<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // The launch plan for these shapes: sentences per block, threads per
-// block, dynamic shared bytes.
+// block, dynamic shared bytes (the same for both types).
 int tfm_beam_plan(int B, int K, int V, int S, int F, int* out3) {
   Plan p;
   int e = make_plan(B, K, V, S, F, &p);
@@ -612,22 +703,26 @@ int tfm_beam_f32(const float* tok, const float* pos, const float* wpack,
                  int* adv, int* fin, int B, int T, int K, int V, int S,
                  int L, int H, int F, int min_length, int n_best,
                  void* stream) {
-  if (B <= 0) return 0;
-  if (H <= 0 || D % H || T + 1 > S || V > 127 || K > V - 2 || L < 1)
-    return (int)cudaErrorInvalidValue;
-  Plan p;
-  int e = make_plan(B, K, V, S, F, &p);
-  if (e) return e;
-  cudaError_t ce = cudaFuncSetAttribute(
-      tfm_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem);
-  if (ce != cudaSuccess) return (int)ce;
-  Dims d{B, T, K, V, S, L, H, F, min_length, n_best, p.n_sent};
-  const int grid = (B + p.n_sent - 1) / p.n_sent;
-  tfm_beam_kernel<<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
-      tok, pos, wpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys, ptr, sc,
-      scores, adv, fin, d);
-  return (int)cudaGetLastError();
+  return launch<float>(tok, pos, wpack, wpack, lnf_g, lnf_b, wout, bout, k0,
+                       v0, scratch, ys, ptr, sc, scores, adv, fin, B, T, K, V,
+                       S, L, H, F, min_length, n_best, stream);
+}
+
+// The same on bf16 tables, products' weights and biases (wpack), prefix
+// rows and KV scratch; LayerNorm's parameters come from the f32 pack
+// lnpack (laid out as wpack), the final LN and the head are f32.
+int tfm_beam_bf16(const __nv_bfloat16* tok, const __nv_bfloat16* pos,
+                  const __nv_bfloat16* wpack, const float* lnpack,
+                  const float* lnf_g, const float* lnf_b, const float* wout,
+                  const float* bout, const __nv_bfloat16* k0,
+                  const __nv_bfloat16* v0, __nv_bfloat16* scratch, int* ys,
+                  int* ptr, float* sc, float* scores, int* adv, int* fin,
+                  int B, int T, int K, int V, int S, int L, int H, int F,
+                  int min_length, int n_best, void* stream) {
+  return launch<__nv_bfloat16>(tok, pos, wpack, lnpack, lnf_g, lnf_b, wout,
+                               bout, k0, v0, scratch, ys, ptr, sc, scores,
+                               adv, fin, B, T, K, V, S, L, H, F, min_length,
+                               n_best, stream);
 }
 
 const char* tfm_beam_error_string(int code) {

@@ -55,13 +55,17 @@ def apply_teacher_forced(params, emb_params, tokens, z, c, train,
 
 def step_tables(params, emb_params, z, c):
     """The loop-invariant pieces of apply_step: (tok_table [V, 3H] with
-    signed zeros canonicalized, zc_gi [B, 3H] with bi folded in)."""
+    signed zeros canonicalized, zc_gi [B, 3H] with bi folded in), in the
+    weights' type. A bf16 product is accumulated in f32 and rounded once,
+    and zc_gi's bias added in bf16, as the JAX package builds its beam
+    kernel's inputs."""
     wi, bi = params["gru"]["wi"], params["gru"]["bi"]
-    emb_w = nn.embedding_table(emb_params).to(wi.dtype)
+    dt = wi.dtype
+    emb_w = nn.embedding_table(emb_params).to(dt)
     E = emb_w.shape[1]
-    tok_table = nn.canonical_zeros(emb_w @ wi[:E])
-    zc = init_hidden(z, c)
-    zc_gi = zc @ wi[E:] + bi
+    tok_table = nn.canonical_zeros((emb_w.float() @ wi[:E].float()).to(dt))
+    zc = init_hidden(z, c).to(dt)
+    zc_gi = (zc.float() @ wi[E:].float()).to(dt) + bi
     return tok_table, zc_gi
 
 

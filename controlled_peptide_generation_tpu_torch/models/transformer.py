@@ -15,6 +15,15 @@ parameter names and layouts, so checkpoints cross unchanged:
   are cast back (``ops/nn.py``);
 * optional bfloat16 compute for the blocks (parameters stay f32 at rest).
 
+The cached step rounds in bfloat16 where the JAX package's step and its
+whole-scan kernel round when XLA runs them on the CPU: each product is
+accumulated in f32 and rounded, its bias added in the compute type; the
+attention as above; LayerNorm reads the residual stream's f32 sum before
+its rounding, and the GELU the f32 sum of ff1's rounded product and its
+bias (XLA drops a bf16 rounding that is cast straight back to f32), while
+the residual adds take the rounded values. In f32 these are the same ops
+as the plain forms.
+
 The free-running step carries a KV cache ``{'k': [L x [B, S, D]], 'v':
 ..., 'pos': [B]}`` with S = max_seq_len + 1 and the latent prefix at
 position 0; every engine advances all lanes in lockstep, so the write
@@ -102,14 +111,31 @@ def _block_full(p, x, mask, n_heads, p_dropout=0.0, train=False, gen=None,
     return x + h
 
 
+def _lin32(p, x, dt):
+    """x @ w + b at the compute type's rounding points, returned in f32
+    before its final rounding: the product accumulated in f32 and rounded
+    to dt, then the bias (in dt) added."""
+    return (x.float() @ p["w"].float()).to(dt).float() + p["b"].to(dt).float()
+
+
+def _ln_dt(p, x, dt):
+    """LayerNorm of x's f32 value (f32 math, as nn.layer_norm), rounded to
+    dt."""
+    return nn.layer_norm(p, x.float()).to(dt)
+
+
 def _block_step(p, x, cache_k, cache_v, pos, n_heads, write_pos=None):
-    """One token through a block with its KV cache: x [B, D], cache_k/v
-    [B, S, D], pos [B] (uniform) the write position, also given as an int
-    in ``write_pos`` by callers that know it (saves a device sync).
-    Returns (y [B, D], new_k, new_v); the given caches are not modified."""
+    """One token through a block with its KV cache: x [B, D] the residual
+    stream entering it (its f32 value feeds LN1, its value in the compute
+    type the residual add), cache_k/v [B, S, D], pos [B] (uniform) the
+    write position, also given as an int in ``write_pos`` by callers that
+    know it (saves a device sync). Returns (y, new_k, new_v), y [B, D] the
+    block's output sum in f32 before its rounding to the compute type; the
+    given caches are not modified."""
     B, S, D = cache_k.shape
-    h = nn.layer_norm(p["ln1"], x)
-    q, k, v = _unpack_qkv(nn.linear(p["qkv"], h), n_heads)   # [B, H, Dh]
+    dt = p["qkv"]["w"].dtype
+    h = _ln_dt(p["ln1"], x, dt)
+    q, k, v = _unpack_qkv(_lin32(p["qkv"], h, dt).to(dt), n_heads)
     p0 = int(pos[0]) if write_pos is None else write_pos
     cache_k = cache_k.clone()
     cache_v = cache_v.clone()
@@ -119,11 +145,25 @@ def _block_step(p, x, cache_k, cache_v, pos, n_heads, write_pos=None):
             <= pos[:, None])[:, None, None, :]
     a = _attention(q[:, None], _split_heads(cache_k, n_heads),
                    _split_heads(cache_v, n_heads), mask).reshape(B, D)
-    x = x + nn.linear(p["attn_out"], a)
-    h = nn.layer_norm(p["ln2"], x)
-    h = nn.linear(p["ff2"], nn.gelu(nn.linear(p["ff1"], h).float()).to(
-        x.dtype))
-    return x + h, cache_k, cache_v
+    x = x.to(dt).float() + _lin32(p["attn_out"], a, dt).to(dt).float()
+    h = _ln_dt(p["ln2"], x, dt)
+    h = nn.gelu(_lin32(p["ff1"], h, dt)).to(dt)
+    return (x.to(dt).float() + _lin32(p["ff2"], h, dt).to(dt).float(),
+            cache_k, cache_v)
+
+
+def _entry(a, b, dt):
+    """(a + b) cast to the compute type, as the stream entering the first
+    block: a sum of f32 operands is rounded to dt; a sum in dt keeps its f32
+    value for LN1 (XLA drops its rounding there), the residual rounds it."""
+    s = a.float() + b.float()
+    return s if a.dtype == dt and dt != torch.float32 else s.to(dt)
+
+
+def final_ln(ln_f, x, dt):
+    """The final LayerNorm of the stream's f32 value, rounded to the compute
+    type and read back in f32 (the head's input)."""
+    return _ln_dt(ln_f, x, dt).float()
 
 
 # ---- encoder: tokens -> (mu, logvar) ----------------------------------------
@@ -219,8 +259,8 @@ def init_cache(params, z, c, max_seq_len, n_heads=4, bf16=False):
     S = max_seq_len + 1
     dt = compute_dtype(params, bf16)
     blocks = nn.cast_tree(params["blocks"], dt)
-    x = (nn.linear(params["latent"], torch.cat([z, c], dim=1).to(dt))
-         + params["pos"][0]).to(dt)
+    x = _entry(nn.linear(params["latent"], torch.cat([z, c], dim=1).to(dt)),
+               params["pos"][0], dt)
     pos0 = torch.zeros((B,), dtype=torch.int32, device=z.device)
     ks, vs = [], []
     for p in blocks:
@@ -244,9 +284,9 @@ def apply_step(params, emb_params, token_hard, token_soft, cache, n_heads=4,
     pos = cache["pos"]
     dt = compute_dtype(params, bf16)
     blocks = nn.cast_tree(params["blocks"], dt)
-    x = (nn.linear(params["in"], emb) + params["pos"][pos.long()]).to(dt)
+    x = _entry(nn.linear(params["in"], emb), params["pos"][pos.long()], dt)
     ks, vs = list(cache["k"]), list(cache["v"])
     for li, p in enumerate(blocks):
         x, ks[li], vs[li] = _block_step(p, x, ks[li], vs[li], pos, n_heads)
-    x = nn.layer_norm(params["ln_f"], x).float()
-    return nn.linear(params["out"], x), {"k": ks, "v": vs, "pos": pos + 1}
+    return (nn.linear(params["out"], final_ln(params["ln_f"], x, dt)),
+            {"k": ks, "v": vs, "pos": pos + 1})

@@ -9,8 +9,9 @@ rebuilt from the per-step tapes and walked back to token rows here.
 The route follows the device alone. In the JAX package the transformer's
 whole-scan kernel runs only under ``--hw.pallas_beam on``
 (``ops/beam.py:212-221`` there); in the port a CUDA tensor always takes
-the kernel (and raises outside its scope or in bf16), a CPU tensor the
-plain version.
+the kernel (and raises outside its scope), a CPU tensor the plain
+version. Both kernels run float32 and bfloat16 (``--hw.gen_dtype
+bfloat16``, and the transformer's ``T_args.bf16``).
 
 Semantics, as in the JAX package's ops/beam.py:
 
@@ -129,19 +130,17 @@ def _scan_tfm(model, params, z, c, K, T, n_best, min_length, plain):
     else:
         scan = tfm_beam_kernel.beam_scan_tfm
         if z.device.type == "cuda":
-            if dt != torch.float32:
-                raise NotImplementedError(
-                    f"the CUDA transformer beam kernel runs float32 only; "
-                    f"this model computes in {dt} (bf16 is queued in "
-                    f"ROADMAP.md; --device cpu runs it)")
             if not tfm_beam_kernel.applicable(model, K, dt):
                 raise ValueError(
                     "the CUDA transformer beam kernel's scope does not "
-                    "cover this model/beam (ops/tfm_beam_kernel.py "
+                    "cover this model/beam/dtype (ops/tfm_beam_kernel.py "
                     "applicable)")
     inputs, dims = tfm_scan_inputs(model, params, z, c)
     return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
                 n_best=n_best, **dims)
+
+
+_TFM_PRODUCTS = ("qkv", "attn_out", "ff1", "ff2")
 
 
 def tfm_scan_inputs(model, params, z, c):
@@ -157,8 +156,11 @@ def tfm_scan_inputs(model, params, z, c):
     tok_table = nn.canonical_zeros(nn.linear(
         dec["in"], nn.embedding_table(params["emb"])).to(dt))
     cache0 = model.init_decoder_hidden(params, z, c)
-    inputs = (tok_table, dec["pos"][:S].to(dt),
-              nn.cast_tree(dec["blocks"], dt), dec["ln_f"]["g"],
+    # the products' weights and biases in the compute type; LayerNorm keeps
+    # the tree's parameters (f32 math), as the JAX kernel takes them
+    layers = [{k: nn.cast_tree(v, dt) if k in _TFM_PRODUCTS else v
+               for k, v in blk.items()} for blk in dec["blocks"]]
+    inputs = (tok_table, dec["pos"][:S].to(dt), layers, dec["ln_f"]["g"],
               dec["ln_f"]["b"], dec["out"]["w"], dec["out"]["b"],
               [kl[:, 0, :] for kl in cache0["k"]],
               [vl[:, 0, :] for vl in cache0["v"]])

@@ -9,7 +9,10 @@ use into ``build/torch_kernels/`` and bound with ctypes.
 
 Dispatch: a CPU tensor goes to ``beam_scan_gru_reference`` (plain torch,
 the same arithmetic step by step); a CUDA tensor launches the kernel or
-raises. ``beam_scan_gru.launches`` counts kernel launches.
+raises. float32 inputs launch the entry ``beam_gru_f32``, bfloat16 inputs
+``beam_gru_bf16`` (the same kernel on bf16 storage, rounding where the JAX
+kernel rounds); any other type raises. ``beam_scan_gru.launches`` and
+``beam_scan_gru.launches_bf16`` count the two entries' launches.
 """
 
 import ctypes
@@ -20,7 +23,6 @@ import torch
 from ..data.vocab import PAD_IDX, START_IDX, EOS_IDX
 from . import nn
 from .cuda_build import compile_library
-from .gru import _gates
 
 NEG = -1e20
 _MAX_V = 128          # kernel scope, as the JAX kernel's `applicable`
@@ -54,9 +56,10 @@ def build():
             return _lib
         lib, build_log = compile_library("beam_gru.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.beam_gru_f32.argtypes = [p] * 13 + [i] * 7 + [p]
-        lib.beam_gru_f32.restype = i
-        lib.beam_gru_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        for entry in (lib.beam_gru_f32, lib.beam_gru_bf16):
+            entry.argtypes = [p] * 13 + [i] * 7 + [p]
+            entry.restype = i
+        lib.beam_gru_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.beam_gru_plan.restype = i
         lib.beam_gru_error_string.argtypes = [i]
         lib.beam_gru_error_string.restype = ctypes.c_char_p
@@ -70,12 +73,13 @@ def _check(lib, code, what):
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def launch_plan(B, K, V, H):
+def launch_plan(B, K, V, H, dtype=torch.float32):
     """(sentences per block, threads per block, weights in shared memory,
-    dynamic shared bytes) the kernel uses at these shapes."""
+    dynamic shared bytes) the kernel uses at these shapes and type."""
     lib = build()
     out = (ctypes.c_int * 4)()
-    _check(lib, lib.beam_gru_plan(B, K, V, H, out), "beam_gru_plan")
+    _check(lib, lib.beam_gru_plan(B, K, V, H, int(dtype == torch.bfloat16),
+                                  out), "beam_gru_plan")
     return tuple(out)
 
 
@@ -93,10 +97,10 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
                                        min_length=min_length, n_best=n_best)
     if tok_table.device.type != "cuda":
         raise ValueError(f"unsupported device {tok_table.device}")
-    if tok_table.dtype != torch.float32:
+    dt = tok_table.dtype
+    if dt not in _ENTRIES:
         raise NotImplementedError(
-            f"the CUDA beam kernel takes float32, got {tok_table.dtype} "
-            f"(bf16 is queued in ROADMAP.md)")
+            f"the CUDA beam kernel takes float32 or bfloat16, got {dt}")
     B = zc_gi.shape[0]
     if not (V <= _MAX_V and H <= _MAX_H and 1 < K <= V - 2
             and T * K <= _MAX_TK):
@@ -109,8 +113,8 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, "
                              f"expected {want[name]}")
-        if a.dtype != torch.float32 or a.device != tok_table.device:
-            raise ValueError(f"{name} must be float32 on {tok_table.device}")
+        if a.dtype != dt or a.device != tok_table.device:
+            raise ValueError(f"{name} must be {dt} on {tok_table.device}")
     args = tuple(a.contiguous() for a in args)
     dev = tok_table.device
     ys = torch.empty((B, T, K), dtype=torch.int32, device=dev)
@@ -122,18 +126,23 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
     if B == 0:
         return ys, ptr, sc, scores, adv, fin
     lib = build()
+    entry, counter = _ENTRIES[dt]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.beam_gru_f32(
+        code = getattr(lib, entry)(
             *(a.data_ptr() for a in args),
             *(o.data_ptr() for o in (ys, ptr, sc, scores, adv, fin)),
             B, T, K, V, H, int(min_length), int(n_best), stream)
-    _check(lib, code, "beam_gru_f32 launch")
-    beam_scan_gru.launches += 1
+    _check(lib, code, f"{entry} launch")
+    setattr(beam_scan_gru, counter, getattr(beam_scan_gru, counter) + 1)
     return ys, ptr, sc, scores, adv, fin
 
 
+# the kernel's entry and its launch counter per input type
+_ENTRIES = {torch.float32: ("beam_gru_f32", "launches"),
+            torch.bfloat16: ("beam_gru_bf16", "launches_bf16")}
 beam_scan_gru.launches = 0
+beam_scan_gru.launches_bf16 = 0
 
 
 def topk_lowest_index(x, k):
@@ -213,21 +222,43 @@ def scan_tapes(state, tapes):
             torch.stack(sc, 1), scores, adv, fin)
 
 
+def gru_cell_bf16_points(gi, h, wh, bh):
+    """One beam step's GRU cell at the JAX kernel's rounding points in the
+    compute type dt of gi and h (``pallas_beam.py:_kernel``, as XLA
+    evaluates it on the CPU in interpret mode): gh = h @ wh + bh
+    accumulated in f32 and rounded once; r and z the f32 sigmoid of the
+    f32 sum gi + gh, rounded (XLA drops the sum's rounding: it is cast
+    straight to f32); n the f32 tanh of gi_n plus the rounded r * gh_n;
+    the blend with each op rounded. In f32 these are the plain cell's
+    ops."""
+    dt = gi.dtype
+    gh = (h.float() @ wh.float() + bh.float()).to(dt)
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r.float() + h_r.float()).to(dt)
+    z = torch.sigmoid(i_z.float() + h_z.float()).to(dt)
+    n = torch.tanh(i_n.float() + (r * h_n).float()).to(dt)
+    return (1.0 - z) * n + z * h
+
+
 def beam_scan_gru_reference(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *,
                             T, K, V, H, min_length, n_best):
     """Plain torch version of beam_scan_gru: the same signature, outputs
-    and per-step arithmetic, in any dtype and on any device."""
+    and per-step arithmetic, in float32 or bfloat16, on any device. In
+    bf16 it rounds where the JAX package's kernel does in interpret mode
+    (``gru_cell_bf16_points``; the head accumulated in f32 with its bias
+    and rounded once; the log-softmax in f32), which its CPU tests hold
+    token-equal."""
     B = zc_gi.shape[0]
     dt = tok_table.dtype
     tok_table = nn.canonical_zeros(tok_table)
-    gru = {"wh": wh, "bh": bh}
     h = zc0.to(dt)[:, None, :].expand(B, K, H)
     state = scan_init(B, K, zc_gi.device)
     tapes = []
     for _ in range(T):
         gi = tok_table[state[1]] + zc_gi[:, None, :]          # [B, K, 3H]
-        h_new = _gates(gi, h @ gru["wh"] + gru["bh"], h)      # [B, K, H]
-        logits = h_new @ w_out + b_out                        # [B, K, V]
+        h_new = gru_cell_bf16_points(gi, h, wh, bh)           # [B, K, H]
+        logits = (h_new.float() @ w_out.float() + b_out.float()).to(dt)
         logp = torch.log_softmax(logits.float(), dim=-1)
         state, tape, prev_k = scan_step(logp, state, K=K, V=V,
                                         min_length=min_length, n_best=n_best)

@@ -18,8 +18,12 @@ k0s/v0s (one [B, D] per layer, from ``models/transformer.init_cache``).
 Dispatch: a CPU tensor goes to ``beam_scan_tfm_reference`` (plain torch,
 the generic reorder scan: each step runs ``_block_step`` of every layer on
 all B*K lanes and reorders the KV caches by backpointer); a CUDA tensor
-launches the kernel or raises. ``beam_scan_tfm.launches`` counts kernel
-launches.
+launches the kernel or raises. A float32 token table launches the entry
+``tfm_beam_f32``, a bfloat16 one ``tfm_beam_bf16`` (the tables, the
+products' weights and biases and the prefix rows in bf16; LayerNorm's
+parameters, the final LN and the head read in f32, as the JAX kernel
+takes them); any other type raises. ``beam_scan_tfm.launches`` and
+``beam_scan_tfm.launches_bf16`` count the two entries' launches.
 """
 
 import ctypes
@@ -46,7 +50,7 @@ def applicable(model, beam_size, dtype):
     """True when beam_search can route the transformer family through the
     kernel: the JAX kernel's scope (d_model 128, d_ff a multiple of 128,
     n_heads dividing 128, V <= 127, max_seq_len + 1 <= 32, 1 < K <= V - 2,
-    T*K <= 256) in float32 (bf16 is queued, ROADMAP.md)."""
+    T*K <= 256) in float32 or bfloat16."""
     if model.G_class != "transformer":
         return False
     t = model.dec_tfm_args
@@ -60,7 +64,7 @@ def applicable(model, beam_size, dtype):
     if model.max_seq_len * beam_size > _MAX_TK:
         return False
     return (model.n_vocab <= _MAX_V and 1 < beam_size <= model.n_vocab - 2
-            and dtype == torch.float32)
+            and dtype in (torch.float32, torch.bfloat16))
 
 
 def build():
@@ -73,7 +77,9 @@ def build():
         lib, build_log = compile_library("tfm_beam.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tfm_beam_f32.argtypes = [p] * 16 + [i] * 10 + [p]
-        lib.tfm_beam_f32.restype = i
+        lib.tfm_beam_bf16.argtypes = [p] * 17 + [i] * 10 + [p]
+        for entry in (lib.tfm_beam_f32, lib.tfm_beam_bf16):
+            entry.restype = i
         lib.tfm_beam_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.tfm_beam_plan.restype = i
         lib.tfm_beam_error_string.argtypes = [i]
@@ -109,6 +115,10 @@ def _layer_shapes(D, F):
             (D, F), (F,), (F, D), (D,))
 
 
+# the leaves the kernel reads in f32 whatever the storage type
+_F32_LEAVES = ("ln1", "ln2")
+
+
 def _aligned(a):
     """a contiguous, at a 16-byte boundary (the kernel's vector loads)."""
     a = a.contiguous()
@@ -129,10 +139,11 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
                                        lnf_b, w_out, b_out, k0s, v0s, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if tok_table.dtype != torch.float32:
+    dt = tok_table.dtype
+    if dt not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"the CUDA transformer beam kernel takes float32, got "
-            f"{tok_table.dtype} (bf16 is queued in ROADMAP.md)")
+            f"the CUDA transformer beam kernel takes float32 or bfloat16, "
+            f"got {dt}")
     B, L, D = k0s[0].shape[0], len(layers), _D
     if not (tok_table.shape[1] == D and F % D == 0 and F > 0 and H > 0
             and D % H == 0 and V <= _MAX_V and S <= _MAX_S and T + 1 <= S
@@ -141,28 +152,38 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
         raise ValueError(f"shape outside the kernel's scope: T={T} K={K} "
                          f"V={V} S={S} H={H} F={F} L={L} "
                          f"D={tok_table.shape[1]}")
-    named = {"tok_table": (tok_table, (V, D)), "pos_table": (pos_table,
-                                                              (S, D)),
-             "lnf_g": (lnf_g, (D,)), "lnf_b": (lnf_b, (D,)),
-             "w_out": (w_out, (D, V)), "b_out": (b_out, (V,))}
+    # (tensor, shape, stored in f32): in bf16 the LayerNorm parameters, the
+    # final LN and the head may come as f32 or bf16 and are read in f32
+    named = {"tok_table": (tok_table, (V, D), False),
+             "pos_table": (pos_table, (S, D), False),
+             "lnf_g": (lnf_g, (D,), True), "lnf_b": (lnf_b, (D,), True),
+             "w_out": (w_out, (D, V), True), "b_out": (b_out, (V,), True)}
     for l, lp in enumerate(layers):
         for (blk, leaf), shape in zip(_LAYER_LEAVES, _layer_shapes(D, F)):
-            named[f"layers[{l}].{blk}.{leaf}"] = (lp[blk][leaf], shape)
+            named[f"layers[{l}].{blk}.{leaf}"] = (lp[blk][leaf], shape,
+                                                  blk in _F32_LEAVES)
     for l in range(L):
-        named[f"k0s[{l}]"] = (k0s[l], (B, D))
-        named[f"v0s[{l}]"] = (v0s[l], (B, D))
-    for name, (a, shape) in named.items():
+        named[f"k0s[{l}]"] = (k0s[l], (B, D), False)
+        named[f"v0s[{l}]"] = (v0s[l], (B, D), False)
+    for name, (a, shape, f32) in named.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
                              f"{shape}")
-        if a.dtype != torch.float32 or a.device != dev:
-            raise ValueError(f"{name} must be float32 on {dev}")
-    wpack = torch.cat([lp[blk][leaf].reshape(-1) for lp in layers
-                       for blk, leaf in _LAYER_LEAVES])
+        ok = (a.dtype == dt or (f32 and a.dtype in (torch.float32,
+                                                     torch.bfloat16)))
+        if not ok or a.device != dev:
+            raise ValueError(f"{name} must be {dt} on {dev}")
+    # one pack per layer in the order of _LAYER_LEAVES, in the storage type;
+    # in bf16 a second, f32 pack of the same layout gives LayerNorm its
+    # parameters
+    pack = torch.cat([lp[blk][leaf].reshape(-1).float() for lp in layers
+                      for blk, leaf in _LAYER_LEAVES])
     k0 = torch.stack(list(k0s)).contiguous()                  # [L, B, D]
     v0 = torch.stack(list(v0s)).contiguous()
-    ins = tuple(_aligned(a) for a in (tok_table, pos_table, wpack, lnf_g,
-                                      lnf_b, w_out, b_out, k0, v0))
+    packs = (pack,) if dt == torch.float32 else (pack.to(dt), pack)
+    ins = tuple(_aligned(a) for a in (
+        tok_table, pos_table, *packs, lnf_g.float(), lnf_b.float(),
+        w_out.float(), b_out.float(), k0, v0))
     ys = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     ptr = torch.empty_like(ys)
     sc = torch.empty((B, T, K), dtype=torch.float32, device=dev)
@@ -172,21 +193,25 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
     if B == 0:
         return ys, ptr, sc, scores, adv, fin
     # every lane's own KV rows: [B, K, L, 2, S, D], written once per step
-    scratch = torch.empty((B, K, L, 2, S, D), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty((B, K, L, 2, S, D), dtype=dt, device=dev)
     lib = build()
+    entry, counter = _ENTRIES[dt]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.tfm_beam_f32(
+        code = getattr(lib, entry)(
             *(a.data_ptr() for a in ins), scratch.data_ptr(),
             *(o.data_ptr() for o in (ys, ptr, sc, scores, adv, fin)),
             B, T, K, V, S, L, H, F, int(min_length), int(n_best), stream)
-    _check(lib, code, "tfm_beam_f32 launch")
-    beam_scan_tfm.launches += 1
+    _check(lib, code, f"{entry} launch")
+    setattr(beam_scan_tfm, counter, getattr(beam_scan_tfm, counter) + 1)
     return ys, ptr, sc, scores, adv, fin
 
 
+# the kernel's entry and its launch counter per storage type
+_ENTRIES = {torch.float32: ("tfm_beam_f32", "launches"),
+            torch.bfloat16: ("tfm_beam_bf16", "launches_bf16")}
 beam_scan_tfm.launches = 0
+beam_scan_tfm.launches_bf16 = 0
 
 
 def beam_scan_tfm_reference(tok_table, pos_table, layers, lnf_g, lnf_b,
@@ -219,7 +244,7 @@ def beam_scan_tfm_reference(tok_table, pos_table, layers, lnf_g, lnf_b,
         for l, p in enumerate(layers):
             x, cks[l], cvs[l] = tfm._block_step(p, x, cks[l], cvs[l], pos, H,
                                                 write_pos=t + 1)
-        xf = nn.layer_norm(lnf, x).float()
+        xf = tfm.final_ln(lnf, x, dt)
         logp = torch.log_softmax(nn.linear(head, xf).float(), dim=-1)
         state, tape, prev_k = scan_step(logp.reshape(B, K, V), state, K=K,
                                         V=V, min_length=min_length,

@@ -12,7 +12,6 @@ Each round draws from its own torch.Generator seeded from (cfg.seed,
 round_ix), so the candidate stream does not depend on the schedule.
 """
 
-import csv
 import datetime
 import inspect
 import json
@@ -414,33 +413,37 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
 # output
 # ---------------------------------------------------------------------------
 
-def _save_csv_pkl(samples, fn, idx):
-    """Rows ``idx`` of ``samples`` as ``fn``.csv (no z column, an ``idx``
-    label, written with the csv module) and ``fn``.pkl (a pandas DataFrame
-    with every column; pandas is imported only here)."""
-    cols = {k: np.asarray(v)[idx] for k, v in samples.items()}
-    names = [k for k in cols if k != "z"]
-    with open(fn + ".csv", "w", newline="") as fh:
-        w = csv.writer(fh)
-        w.writerow(["idx"] + names)
-        w.writerows(zip(idx.tolist(), *(cols[k].tolist() for k in names)))
+def _samples_frame(samples):
+    """The samples as the JAX package's sampling loop hands them to its
+    save_samples: a pandas DataFrame of the same columns in the same order,
+    z as a column of row arrays (pandas is imported only here)."""
     import pandas as pd
-    cols["z"] = list(cols["z"])
-    pd.DataFrame(cols, index=idx).to_pickle(fn + ".pkl")
+    return pd.DataFrame({k: list(v) if k in ("peptide", "z") else v
+                         for k, v in samples.items()})
+
+
+def _save_csv_pkl(samples, fn):
+    """``fn``.csv (no z column, an ``idx`` label) and ``fn``.pkl, written
+    as the JAX package writes them (``pipeline.py:save_csv_pkl`` there)."""
+    samples.drop(columns="z").to_csv(fn + ".csv", index_label="idx")
+    samples.to_pickle(fn + ".pkl")
 
 
 def save_samples(samples, basedir, fn_prefix):
     """<prefix>_<date>.plain.txt / .csv / .pkl, and the accepted subset as
-    <prefix>_<date>.accepted.<n>.csv / .pkl. Returns the path stem."""
+    <prefix>_<date>.accepted.<n>.csv / .pkl, byte for byte as the JAX
+    package's ``save_samples`` writes the same samples. Returns the path
+    stem."""
+    samples = _samples_frame(samples)
     outfn = os.path.join(basedir, fn_prefix)
     outfn += "_{}".format(datetime.datetime.now().isoformat().split("T")[0])
     with open(outfn + ".plain.txt", "w") as fh:
-        fh.write("\n".join(samples["peptide"]))
-    _save_csv_pkl(samples, outfn, np.arange(len(samples["peptide"])))
+        fh.write(samples["peptide"].to_string(index=False))
+    _save_csv_pkl(samples, outfn)
     LOG.info("Full sample list written to %s.pkl/csv", outfn)
-    accepted = np.nonzero(samples["accept"])[0]
+    accepted = samples[samples.accept]
     accepted_fn = f"{outfn}.accepted.{len(accepted)}"
-    _save_csv_pkl(samples, accepted_fn, accepted)
+    _save_csv_pkl(accepted, accepted_fn)
     LOG.info("Accepted sample list written to %s.pkl/csv", accepted_fn)
     return outfn
 

@@ -86,7 +86,7 @@ def test_port_pipeline_end_to_end(run_dir):
     assert len(peps) == len(set(peps))
     assert sum(r["accept"] == "True" for r in rows) >= 20
     with open(stem + ".plain.txt") as fh:
-        assert fh.read().split("\n") == peps
+        assert [line.strip() for line in fh.read().split("\n")] == peps
 
     # the same run dir through the JAX pipeline: the same columns
     j_args = [("--QClass", dict(default="mogQ")),
@@ -104,6 +104,47 @@ def test_port_pipeline_end_to_end(run_dir):
     assert _header(stem + ".csv") == _header(j_stem + ".csv")
     j_acc = glob.glob(j_stem + ".accepted.*.csv")
     assert _header(acc[0]) == _header(j_acc[0])
+
+
+def test_sample_files_match_jax(tmp_path):
+    """The same samples through both packages' save_samples: .plain.txt,
+    .csv and .accepted.<n>.csv byte-equal (pandas writes both: the peptide
+    column right-justified, the float32 score columns with pandas' own
+    digits)."""
+    import pandas as pd
+    rng = np.random.default_rng(8)
+    n = 9
+    peps = ["K L", "K L L K A", "G", "W W R", "A", "L K K L L K A G W",
+            "R R", "C", "G L"]
+    samples = {"peptide": peps,
+               "z": rng.standard_normal((n, 4)).astype(np.float16),
+               "accept_z": rng.random(n) < 0.5}
+    samples["accept_z"][:2] = True
+    for k in ("clfZ_prob_accum", "clfZ_amp=1", "clfZ_tox=0"):
+        samples[k] = rng.random(n).astype(np.float32)
+    samples["clfZ_prob_accum"][0] = np.float32(1e-30)
+    for k in ("H", "uH", "charge"):
+        samples[k] = rng.standard_normal(n)
+    samples["accept"] = samples["accept_z"].copy()
+    # the JAX package's loop builds its frame so (pipeline.py:767-777)
+    frame = pd.DataFrame({
+        "peptide": peps, "z": list(samples["z"]),
+        "accept_z": samples["accept_z"],
+        **{k: samples[k] for k in ("clfZ_prob_accum", "clfZ_amp=1",
+                                   "clfZ_tox=0", "H", "uH", "charge")}})
+    frame["accept"] = frame["accept_z"]
+    stems = []
+    for d, save in (("torch", pipeline.save_samples),
+                    ("jax", j_pipeline.save_samples)):
+        os.makedirs(tmp_path / d)
+        stems.append(save(samples if d == "torch" else frame,
+                          str(tmp_path / d), "s"))
+    n_acc = int(samples["accept"].sum())
+    for ext in (".plain.txt", ".csv", f".accepted.{n_acc}.csv"):
+        got, want = (open(st + ext, "rb").read() for st in stems)
+        assert got == want, ext
+    with open(stems[0] + ".plain.txt") as fh:
+        assert fh.read().split("\n")[0] == "K L".rjust(max(map(len, peps)))
 
 
 def test_slice_limits_raise(run_dir):

@@ -97,12 +97,12 @@ def test_plain_route_and_kernel_route_agree_on_cpu(models):
 
 
 def test_applicability_gate():
-    """The JAX kernel's scope, fp32 only on CUDA (mirrors
+    """The JAX kernel's scope, fp32 and bf16 (mirrors
     tests/test_pallas_tfm_beam.py's gate test)."""
     cfg = _small(TC)
     model = t_build(cfg.model, n_vocab=26, max_seq_len=25)
     assert tfm_beam_kernel.applicable(model, 5, torch.float32)
-    assert not tfm_beam_kernel.applicable(model, 5, torch.bfloat16)
+    assert tfm_beam_kernel.applicable(model, 5, torch.bfloat16)
     assert not tfm_beam_kernel.applicable(model, 5, torch.float16)
     assert not tfm_beam_kernel.applicable(model, 1, torch.float32)   # K<=1
     assert not tfm_beam_kernel.applicable(model, 25, torch.float32)  # K>V-2
