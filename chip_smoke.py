@@ -38,6 +38,13 @@ Phases, each raising on failure (the script then exits non-zero):
    the plain version; (d) at T 25 >= 70% identical rows; (e) unique
    decodes of the kernel over the plain version's at B 5000 within
    [0.99, 1.01];
+3s. where the beams' time goes: B1 and B3, f32 and bf16, at B 5000 and
+   2500 through their stamp entries (the same kernels compiled with phase
+   clocks, tools/beam_split.py; measurement only, never on the main path):
+   the share of block 0's and the last block's clock cycles per phase, the
+   wave each ran in, and the stamp entry's tapes bitwise equal to the
+   production entry's; ptxas' registers and spills of every production
+   and stamp instantiation;
 4. the GRU recurrence kernels (forward, backward, weight gradient) vs
    their plain versions at the encoder and decoder widths (in 150, H 80;
    in 252, H 102), T 25, B in B2_BATCHES, and at the scope edges
@@ -198,30 +205,6 @@ def log(msg):
         fh.flush()
 
 
-def cuda_ms(fn, reps):
-    """Device ms per call of fn by CUDA events. A spin kernel holds the
-    stream while the host queues the reps, so the card runs them back to
-    back and the host's launch overhead enters the reading only where the
-    host needs longer per call than the card (the plain versions)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # cycles at up to 2 GHz for 1.5x the host's time to queue the reps
-    torch.cuda._sleep(int(2e9 * min(1.5 * reps * host_s + 1e-3, 2.0)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound_ms(B, bf16=False):
     """Least time for the beam scan at batch B: the FLOP of the GRU and
     head products over the fp32 peak (bf16: the bf16 tensor-core peak),
@@ -343,7 +326,6 @@ def main():
     from controlled_peptide_generation_tpu_torch.api import (
         load_trained_model, load_vocab)
     from controlled_peptide_generation_tpu_torch.latent import fused
-    from controlled_peptide_generation_tpu_torch.models import decoder
     from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
         build_model)
     from controlled_peptide_generation_tpu_torch import main as train_main
@@ -360,8 +342,11 @@ def main():
     from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
     from controlled_peptide_generation_tpu_torch.train import checkpoints
     from controlled_peptide_generation_tpu_torch.train import opt as train_opt
+    from controlled_peptide_generation_tpu_torch.tools import beam_split
     from controlled_peptide_generation_tpu_torch.train import train_vae
     from controlled_peptide_generation_tpu_torch.utils import runtime
+
+    cuda_ms = runtime.cuda_ms
 
     # ---- 1. device ------------------------------------------------------
     dev = runtime.setup("cuda")
@@ -404,6 +389,12 @@ def main():
     if spilled or not any(k.startswith("gru_wgrad") for k in usage):
         raise AssertionError(f"csrc/gru_seq.cu: spills {spilled} or no "
                              f"ptxas report ({sorted(usage)})")
+    # the beams: each production instantiation beside its stamp one
+    for kernel, src in ((beam_kernel, "beam_gru.cu"),
+                        (tfm_beam_kernel, "tfm_beam.cu")):
+        for name, (regs, st, ld) in sorted(kernel.ptxas_report().items()):
+            log(f"[2] csrc/{src} {name}: {regs} registers, spill stores "
+                f"{st} B, spill loads {ld} B")
 
     # ---- run dir: seeded full-width checkpoint + amp vocab ----------------
     run_top = os.path.join(ROOT, "build", "chip_smoke_run")
@@ -443,19 +434,7 @@ def main():
     z_all = torch.randn((n_max, model.z_dim), generator=g, device=dev)
     c_all = model.sample_c_prior(g, n_max, device=dev)
 
-    def decode_inputs(m, p, z_, c_):
-        """The beam kernel's inputs of family m for latents z_, c_ cast to
-        the weight tree's type, as the round casts them (B1: the step
-        tables, B3: the folded decoder), and their dims."""
-        wdt = p["dec"]["out"]["w"].dtype
-        z_, c_ = z_.to(wdt), c_.to(wdt)
-        if m.G_class == "transformer":
-            return beam.tfm_scan_inputs(m, p, z_, c_)
-        tok, zc_gi = decoder.step_tables(p["dec"], p["emb"], z_, c_)
-        d_ = p["dec"]
-        return (tok, zc_gi, d_["gru"]["wh"], d_["gru"]["bh"], d_["out"]["w"],
-                d_["out"]["b"], m.init_decoder_hidden(p, z_, c_)), {
-                    "H": m.h_dec}
+    decode_inputs = beam.decode_inputs
 
     def scan_inputs(B):
         return decode_inputs(model, params, z_all[:B], c_all[:B])[0]
@@ -797,6 +776,26 @@ def main():
                 cuda_ms(lambda: kern["ref_scan"](*ins, **kwb), 3),
                 bound(B, bf16=True))
     mark("3-bf16 timings")
+
+    # ---- 3s. the beams' phase split, through their stamp entries ---------
+    for tag, m, kern, stamped, zz, cc in (
+            ("B1", model, beam_kernel.beam_scan_gru,
+             beam_kernel.beam_scan_gru_stamped, z_all, c_all),
+            ("B3", model_t3, tfm_beam_kernel.beam_scan_tfm,
+             tfm_beam_kernel.beam_scan_tfm_stamped, z3, c3)):
+        p32 = params if tag == "B1" else params_t3
+        for dname, p_ in (("f32", p32), ("bf16", nn.cast_tree(p32, BF))):
+            for B in (5000, 2500):
+                ins, dims = decode_inputs(m, p_, zz[:B], cc[:B])
+                kwb = dict(T=T, K=K, V=V, min_length=1, n_best=1, **dims)
+                lines, _ = beam_split.split_lines(
+                    f"{tag} {dname} B {B}", kern, stamped, ins, kwb)
+                if B == 5000:
+                    lines += beam_split.host_lines(f"{tag} {dname} B {B}",
+                                                   ins, kwb)
+                for line in lines:
+                    log(f"[3s] {line} ({card})")
+    mark("3s beam phase split")
 
     # ---- 4. B2: the GRU recurrence kernels vs their plain versions -------
     gb = torch.Generator(device=dev).manual_seed(2)

@@ -10,74 +10,117 @@
 // positions 0..t+1 with the latent prefix at 0, the out product and the
 // residual, LN2, ff1, tanh GELU, ff2 and the residual); the final LN, the
 // head and an fp32 log-softmax; then the GRU beam's bookkeeping
-// (csrc/beam_gru.cu, unchanged): START blocked, EOS blocked below
-// min_length, children of EOS rows blocked, the first step from beam 0
-// only, signed zeros canonicalized, an iterated top-K with ties to the
-// lowest flat index k*V+v, the done-gated tapes. It emits ys/ptr/sc
-// [B,T,K] and scores [B,K], adv [B], fin_cnt [B]; ops/beam.py turns them
-// into hypotheses.
+// (csrc/beam_gru.cu): START blocked, EOS blocked below min_length,
+// children of EOS rows blocked, the first step from beam 0 only, signed
+// zeros canonicalized, an iterated top-K with ties to the lowest flat
+// index k*V+v, the done-gated tapes. It emits ys/ptr/sc [B,T,K] and
+// scores [B,K], adv [B], fin_cnt [B]; ops/beam.py turns them into
+// hypotheses.
 //
-// What bounds it on the H100: operations. Per beam-token the products
-// cost 2*L*(D*3D + D*D + 2*D*F) + 2*D*V FLOP plus attention's
-// 4*D*(t+2) per layer, 544 kFLOP on average at the shipped width (D 128,
-// L 2, F 256, V 24, T 25): 340 GFLOP for a round of 5,000 sentences at
-// beam 5, 5.08 ms at the fp32 rate of the CUDA cores (67 TFLOP/s). The
-// bytes the function must move are the 1.07 MB of weights and the tapes.
+// What bounds it on the H100. Per beam-token the products cost
+// 2*L*(D*3D + D*D + 2*D*F) + 2*D*V FLOP plus attention's 4*D*(t+2) per
+// layer, 544 kFLOP on average at the shipped width (D 128, L 2, F 256,
+// V 24, T 25): 340 GFLOP for a round of 5,000 sentences at beam 5, 5.08 ms
+// at the fp32 rate of the CUDA cores (67 TFLOP/s). The bytes the function
+// must move are the 1.07 MB of weights and the tapes. The attention's KV
+// reads are not in that bound: each lane reads its K and V history,
+// sum_t B*K*(t+2)*D*L*2 values, 17.9 GB (fp32) / 9.0 GB (bf16) a round at
+// B 5,000, 5.35 / 2.68 ms at HBM's 3.35 TB/s; one sentence's fp32 caches
+// (260 KB) exceed a block's 227 KB, and the 1.3 GB scratch does not stay
+// in the 50 MB L2.
 //
-// Design (right first, not yet fast):
-// * One block holds a tile of sentences whose beam lanes, M = sentences*K
-//   rows (40 at K 5), advance together through all T steps; nothing
-//   carries between blocks, so every sentence's result is independent of
-//   the batch and of the tiling (bitwise batch invariance).
-// * Activations live in shared memory in fp32: the residual stream and the
-//   LN/attention output [40, 128] each, and one [40, 384] buffer for qkv
-//   or a 384-column chunk of ff1 (d_ff above 384 runs in chunks; ff2 then
-//   sums the chunks into a fifth [40, 128] buffer in the same k order).
-//   Lanes beyond 40 (large K) run in chunks of 40 rows: a step's rows
-//   only meet again at the candidate selection.
-// * Weights stay in device memory, where the 50 MB L2 holds them for every
-//   block. The products are fp32 FMAs on the CUDA cores (no TF32): thread
-//   (row group g, column c) keeps 20 rows x RN columns of sums in
-//   registers, reads each weight once per row group through L1/L2 (the
-//   next four k ahead), and the activation rows as broadcast 16-byte
-//   shared loads. Each output is one sequential sum over k.
-// * The KV caches do not fit on chip: one sentence's fp32 caches at the
-//   shipped width are K*L*2*S*D*4 = 260 KB, above a block's 227 KB. They
-//   live in a scratch tensor [B, K, L, 2, S, D] that the wrapper
-//   allocates; each lane writes only its own row at t+1. The beam reorder
-//   permutes a [sentences, K, S] ancestry map in shared memory instead of
-//   the caches (the JAX package's no-reorder arm, ops/beam.py:388): lane
-//   k's history row at position s is the row lane anc[k][s] wrote, so
-//   attention reads the same values in the same order as a reordered
-//   cache. Position 0, the latent prefix, is the same for every lane and
-//   is stored once, in lane 0.
-// * Attention: one warp per (lane, head); lane s of the warp scores
-//   position s (S <= 32), positions above t+1 are skipped (their masked
-//   -1e30 logits contribute exact zeros); the value sum runs over
-//   positions in order, lanes over the head's dims.
-// * LayerNorm and the softmaxes are f32 with one warp per row; eps 1e-6
-//   inside the square root; GELU is the tanh form.
-// Sums are taken in another order than cuBLAS or the CPU, so near-tie
-// rows may pick another token than the plain version; chip_smoke.py
-// bounds that share.
+// Where the time went (the stamp entries, tools/beam_split.py, B 5,000):
+// the previous design spent 48.7% of a block-step in the four products (bf16
+// 53.5%), each row group of 20 rows reading every weight through L1/L2,
+// and 42.4% (37.0%) in attention, each task a chain of device-memory loads
+// one position at a time; 625 blocks of 8 sentences on 264 slots, 2.37
+// waves. (Those stamp builds held their clocks in registers and ran
+// 15-18% longer than the production entry, so the two shares are within
+// that distortion; the clocks now keep their state in shared memory and
+// match the production entry's time within 3%.) What this design does
+// about each:
+// * The products stay fp32 FMAs on the CUDA cores, in both entries, each
+//   output one sequential chain over k in order. The plain version
+//   computes a bf16 product as an f32 SGEMM, which accumulates in that
+//   order. The bf16 products on the tensor cores (gemm_mma: mma.sync
+//   m16n8k16, f32 accumulators, the same rounding points) are kept as the
+//   measurement entry tfm_beam_bf16_mma (tools/tfm_beam_mma.py): 1.39x /
+//   1.58x faster at B 5,000 / 2,500, but their decodes keep 19% of rows
+//   identical to the plain version's at T 25 under T_args.bf16, 47% at the
+//   S 32 scope edge and 49% at T*K 256, against chip_smoke.py's gate (d)
+//   of 70% (the sequential chain: 92%, 84%, 92%); against a plain version
+//   whose products are summed in FP64 they agree less than the chain too
+//   (19% against 85%, 51% against 64%), so the production entry gives up
+//   the tensor cores to keep the gates. What the products
+//   change: the eight warps split the columns, so every weight is read
+//   once per block-step (not once per row group); lane (rg, cg) keeps 10
+//   rows x 2 columns in registers, reads its 8 weights of a 4-k step as
+//   one or two 16-byte loads from a copy the wrapper pre-tiles in that
+//   order (ops/tfm_beam_kernel.py:weight_tiles), one step ahead, and the
+//   rows as 16-byte loads. Wider register tiles spilled at the 128
+//   registers two blocks an SM leave, and one block an SM halves the warps
+//   that hide attention's memory latency; both measured slower. Not done:
+//   a ring of weight tiles in shared memory filled by cp.async or TMA (the
+//   110 KB two blocks an SM leave each hold the activations), and named
+//   barriers between warp roles.
+// * Attention: one warp per (lane, head) as before and the same sums in
+//   the same order, but all of a task's loads go out at once, before the
+//   softmax needs them: lane s its position's K row (16-byte loads), lane
+//   d the V values of dim d at every position <= t+1 (32 predicated loads,
+//   unrolled). A task waits for one device-memory latency, not one per
+//   position. Holding the caches on chip across a cluster (distributed
+//   shared memory, as the JAX kernel holds them in VMEM) needs 130 KB a
+//   bf16 sentence: a cluster of 8 blocks would hold about 13 sentences,
+//   3x fewer rows per block than the products need; not taken.
+//   Not done: staging a task's K and V rows in shared memory by cp.async
+//   or TMA; the loads go straight to registers, all issued before the
+//   softmax.
+// * Waves: the plan picks sentences per block (at most 8, 40 lanes) from B
+//   and the card's resident blocks, minimising waves x (sentences + 2), so
+//   that the last wave is not a short one (B 5,000: 7 a block, 715 blocks
+//   on 264 slots; B 2,500: 5 a block).
+// Each output is one fixed-order sum whatever the tiling, so every
+// sentence's result is independent of the batch and of the plan: bitwise
+// batch invariance. Sums are taken in another order than cuBLAS or the
+// CPU, so near-tie rows may pick another token than the plain version;
+// chip_smoke.py bounds that share.
+//
+// Layout: a block holds a tile of sentences whose lanes, M = sentences*K
+// rows, advance together through all T steps; lanes beyond 40 (large K)
+// run in chunks of 40 rows. Activations in shared memory: the residual
+// stream and the LN/attention output [40, D] each, one [40, 384] buffer
+// for qkv or a 384-column chunk of ff1 (d_ff above 384 runs in chunks;
+// ff2 then sums the chunks into a fifth [40, D] buffer in the same k
+// order). The KV caches live in a scratch tensor [B, K, L, 2, S, D]; each
+// lane writes only its own row at t+1. The beam reorder permutes a
+// [sentences, K, S] ancestry map instead of the caches (the JAX package's
+// no-reorder arm, ops/beam.py:388): lane k's history row at position s is
+// the row lane anc[k][s] wrote, so attention reads the same values in the
+// same order as a reordered cache. Position 0, the latent prefix, is the
+// same for every lane and is stored once, in lane 0. LayerNorm and the
+// softmaxes are f32 with one warp per row; eps 1e-6 inside the square
+// root; GELU is the tanh form.
 //
 // bf16 (entry tfm_beam_bf16): the same kernel instantiated on bf16 storage
 // for the tables, the products' weights and biases, the prefix rows and
 // the KV caches (53 KB a sentence at the shipped width, 266 MB at
 // B 5,000, half of fp32's); LayerNorm's parameters, the final LN and the
 // head stay f32, as the JAX kernel keeps them (pallas_tfm_beam.py:406).
-// Activations stay f32 in shared memory and the math is fp32 FMAs,
-// rounded to bf16 (round to nearest even) where the JAX kernel rounds in
-// interpret mode (models/transformer.py:_block_step): the entry
-// tok_table[prev] + pos_table[t+1]; each product accumulated in f32 and
-// rounded, then its bias added and the sum rounded (qkv, out, ff2); the
-// attention probabilities before the value sum and that sum once; the
-// LayerNorms and the GELU in f32, their outputs rounded. LayerNorm reads
-// the residual stream's f32 sum before its rounding and the GELU the f32
-// sum of ff1's rounded product and bias, while the residual adds take the
-// rounded values: the stream is kept unrounded in shared memory and
-// rounded where a residual add reads it. The fp32 instantiation's
-// rounding is the identity: the fp32 kernel's arithmetic is unchanged.
+// Activations stay f32 in shared memory, rounded to bf16 (round to nearest
+// even) where the JAX kernel rounds in interpret mode
+// (models/transformer.py:_block_step): the entry tok_table[prev] +
+// pos_table[t+1]; each product accumulated in f32 and rounded, then its
+// bias added and the sum rounded (qkv, out, ff2); the attention
+// probabilities before the value sum and that sum once; the LayerNorms
+// and the GELU in f32, their outputs rounded. LayerNorm reads the residual
+// stream's f32 sum before its rounding and the GELU the f32 sum of ff1's
+// rounded product and bias, while the residual adds take the rounded
+// values: the stream is kept unrounded in shared memory and rounded where
+// a residual add reads it. The fp32 instantiation's rounding is the
+// identity.
+//
+// Stamps: the kStamp instantiations (entries *_stamp, measurement only)
+// clock the phases; the production entries compile them away.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,67 +136,12 @@ constexpr float NEG = -1e20f;
 constexpr int D = 128;           // d_model: the kernel's scope
 constexpr int NT = 256;          // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int RM = 20;           // rows per thread in the products
-constexpr int CH = 2 * RM;       // rows per chunk: two row groups
+constexpr int CH = 40;           // rows per chunk: at most 8 sentences at K 5
 constexpr int FC = 3 * D;        // widest product: qkv, or a chunk of ff1
-constexpr int MAX_ROWS = 40;     // beam lanes per block aimed at
 
 struct Dims {
   int B, T, K, V, S, L, H, F, min_length, n_best, n_sent;
 };
-
-// offsets (in floats) of one layer's parameters in the packed weights, in
-// the order of ops/tfm_beam_kernel.py:_LAYER_LEAVES
-struct LayerOff {
-  int ln1g, ln1b, qkvw, qkvb, aow, aob, ln2g, ln2b, ff1w, ff1b, ff2w, ff2b,
-      size;
-};
-
-__host__ __device__ inline LayerOff layer_off(int F) {
-  LayerOff o;
-  int x = 0;
-  o.ln1g = x; x += D;
-  o.ln1b = x; x += D;
-  o.qkvw = x; x += D * 3 * D;
-  o.qkvb = x; x += 3 * D;
-  o.aow = x;  x += D * D;
-  o.aob = x;  x += D;
-  o.ln2g = x; x += D;
-  o.ln2b = x; x += D;
-  o.ff1w = x; x += D * F;
-  o.ff1b = x; x += F;
-  o.ff2w = x; x += F * D;
-  o.ff2b = x; x += D;
-  o.size = x;
-  return o;
-}
-
-// per-block shared-memory layout, in 4-byte words (anc in bytes after)
-struct Smem {
-  int xs, hs, big, acc2, cand, scores, best, prev, nexty, pk, misc, words;
-  int anc_bytes;
-};
-
-__host__ __device__ inline Smem make_smem(int n_sent, int K, int V, int S,
-                                          int F) {
-  Smem m;
-  const int M = n_sent * K;
-  int o = 0;
-  m.xs = o;     o += CH * D;
-  m.hs = o;     o += CH * D;
-  m.big = o;    o += CH * FC;
-  m.acc2 = o;   o += (F > FC) ? CH * D : 0;
-  m.cand = o;   o += M * V;
-  m.scores = o; o += M;
-  m.best = o;   o += M;
-  m.prev = o;   o += M;
-  m.nexty = o;  o += M;
-  m.pk = o;     o += M;
-  m.misc = o;   o += 3 * n_sent;   // adv, eos_top, fin_cnt
-  m.words = (o + 3) & ~3;
-  m.anc_bytes = 2 * M * S;         // two maps: this step's and the next
-  return m;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -226,93 +214,292 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
-enum Epi { EPI_BIAS, EPI_GELU, EPI_RESID, EPI_PARTIAL };
+// ---- the products ----------------------------------------------------------
+// Row strides (floats) of the [rows, D] and [rows, FC] activation buffers:
+// the four row groups of a warp's A loads (rows 10 apart) hit distinct
+// banks.
+constexpr int LDX = D + 4, LDB = FC + 4;
 
-// C[r][n] for r < rows, n < RN*128: the product of the shared rows A
-// [rows, Kd] (row stride LDA) and the device-memory W [Kd, ldw] (columns
-// from W's first, ldw its row stride), each output one sequential sum over
-// k. Sums start from Cin (stride D) when given, else 0. Epilogues, with
-// P = rnd(sum) + b (the rounded product plus the bias, unrounded):
-// BIAS C = rnd(P); GELU C = rnd(gelu(P)); RESID C = rnd(C) + rnd(P), the
-// residual stream's unrounded sum; PARTIAL C = sum. Thread (g = tid / 128,
-// c = tid % 128) owns rows g*RM.. of columns c + 128*q. Rows at and above
-// `rows` read whatever the buffer holds and are not stored.
-template <int RN, int EPI, int LDA, typename T>
-__device__ __forceinline__ void gemm(const float* A, int Kd,
-                                     const T* __restrict__ W, int ldw,
-                                     const T* __restrict__ bias,
-                                     float* C, int ldc, const float* Cin,
-                                     int rows) {
-  const int c = threadIdx.x & 127;
-  const int g = threadIdx.x >> 7;
-  const int rbase = g * RM;
-  const float* a0 = A + rbase * LDA;
-  float acc[RM][RN];
+// a lane's 8 weights of one 4-k step (2 columns x 4 k, contiguous)
+// widened to f32
+__device__ __forceinline__ void ld8(const float* p, float (&w)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&w)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t x[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int q = 0; q < RN; ++q)
-      acc[i][q] = (Cin != nullptr && rbase + i < rows)
-                      ? Cin[(rbase + i) * D + c + 128 * q] : 0.0f;
-  float w[4][RN], wn[4][RN];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int q = 0; q < RN; ++q) w[kk][q] = ldg(W + kk * ldw + c + 128 * q);
-  for (int k = 0; k < Kd; k += 4) {
-    if (k + 4 < Kd) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int q = 0; q < RN; ++q)
-          wn[kk][q] = ldg(W + (k + 4 + kk) * ldw + c + 128 * q);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(a0 + i * LDA + k);
-#pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        float s = acc[i][q];
-        s = fmaf(a.x, w[0][q], s);
-        s = fmaf(a.y, w[1][q], s);
-        s = fmaf(a.z, w[2][q], s);
-        s = fmaf(a.w, w[3][q], s);
-        acc[i][q] = s;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int q = 0; q < RN; ++q) w[kk][q] = wn[kk][q];
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = rbase + i;
-    if (r < rows) {
-#pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        const int n = c + 128 * q;
-        float* out = C + r * ldc + n;
-        if (EPI == EPI_PARTIAL) {
-          *out = acc[i][q];
-        } else {
-          const float pb = rnd<T>(acc[i][q]) + ldg(bias + n);
-          if (EPI == EPI_BIAS) {
-            *out = rnd<T>(pb);
-          } else if (EPI == EPI_GELU) {
-            *out = rnd<T>(gelu_tanh(pb));
-          } else {
-            *out = rnd<T>(*out) + rnd<T>(pb);
-          }
-        }
-      }
-    }
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = __uint_as_float(x[i] << 16);
+    w[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
   }
 }
 
+// offsets (in elements of T) of one layer's parameters in the packed
+// weights, in the order of ops/tfm_beam_kernel.py:pack_layers: the four
+// matrices pre-tiled (weight_tiles), then the four biases
+struct LayerOff {
+  size_t qkvw, aow, ff1w, ff2w, qkvb, aob, ff1b, ff2b, size;
+};
+
+__host__ __device__ inline LayerOff layer_off(int F) {
+  LayerOff o;
+  size_t x = 0;
+  o.qkvw = x; x += (size_t)D * 3 * D;
+  o.aow = x;  x += (size_t)D * D;
+  o.ff1w = x; x += (size_t)D * F;
+  o.ff2w = x; x += (size_t)F * D;
+  o.qkvb = x; x += 3 * D;
+  o.aob = x;  x += D;
+  o.ff1b = x; x += F;
+  o.ff2b = x; x += D;
+  o.size = x;
+  return o;
+}
+
+// LayerNorm's f32 parameters per layer: ln1 g, b, ln2 g, b
+constexpr int LN_WORDS = 4 * D;
+
+// per-block shared-memory layout, in 4-byte words (anc in bytes after)
+struct Smem {
+  int big, hs, xs, acc2, cand, scores, best, prev, nexty, pk, misc, words;
+  int anc_bytes;
+};
+
+__host__ __device__ inline Smem make_smem(int n_sent, int K, int V, int S,
+                                          int F) {
+  Smem m;
+  const int M = n_sent * K;
+  int o = 0;
+  m.big = o;    o += CH * LDB;
+  m.hs = o;     o += CH * LDX;
+  m.xs = o;     o += CH * LDX;
+  m.acc2 = o;   o += (F > FC) ? CH * LDX : 0;
+  m.cand = o;   o += M * V;
+  m.scores = o; o += M;
+  m.best = o;   o += M;
+  m.prev = o;   o += M;
+  m.nexty = o;  o += M;
+  m.pk = o;     o += M;
+  m.misc = o;   o += 3 * n_sent;   // adv, eos_top, fin_cnt
+  m.words = (o + 3) & ~3;
+  // two maps (this step's and the next), and 32 bytes that a warp's
+  // predicated reads of positions above S may touch
+  m.anc_bytes = 2 * M * S + 32;
+  return m;
+}
+
+enum Epi { EPI_BIAS, EPI_GELU, EPI_RESID, EPI_PARTIAL };
+
+// C[r][n] for r < rows and the call's N columns (a multiple of 128): the
+// product of the shared f32 rows A [rows, Kd] (stride LDA) and a weight
+// matrix pre-tiled by weight_tiles (kq4 4-k steps in all; this call takes
+// the k steps from kk0), each output one sequential FMA chain over k in
+// order, as an f32 SGEMM accumulates, so that bf16 roundings of the sums
+// fall where the plain version's do. Sums start from Cin (stride LDX)
+// when given, else 0. Epilogues, with P = rnd(sum) + b (the rounded
+// product plus the bias, unrounded): BIAS C = rnd(P); GELU C =
+// rnd(gelu(P)); RESID C = rnd(C) + rnd(P), the residual stream's
+// unrounded sum; PARTIAL C = sum. The columns go in chunks of 128; in each,
+// warp w owns columns 16w..16w+15, so every weight is read once per
+// block-step, and lane (rg, cg) = (lane / 8, lane % 8) keeps rows
+// 10rg..10rg+9 x columns 16w + 2cg, +1 in registers: per 4 k ten 16-byte
+// A loads (one address per quarter-warp) and its 8 weights (from L2, one
+// step ahead) for 80 FMAs. Rows at and above `rows` hold whatever the
+// buffer holds and are not stored.
+template <typename T, int EPI, int LDA>
+__device__ __forceinline__ void gemm(const float* A, int Kd,
+                                     const T* __restrict__ Wt, int kq4,
+                                     int kk0, int N,
+                                     const T* __restrict__ bias, float* C,
+                                     int ldc, const float* Cin, int rows) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int KT = Kd >> 2;
+  const float* a0 = A + 10 * rg * LDA;
+  for (int n_c = 0; n_c < N; n_c += 128) {
+    const int n0 = n_c + 16 * warp + 2 * cg;
+    float acc[10][2];
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 10 * rg + i;
+        acc[i][c] = (Cin != nullptr && r < rows) ? Cin[r * LDX + n0 + c]
+                                                 : 0.0f;
+      }
+    // this chunk's tiles: [8 warps][kq4][8 cg][2][4]
+    const T* wp = Wt + (size_t)n_c * 4 * kq4 +
+                  (((size_t)warp * kq4 + kk0) * 8 + cg) * 8;
+    float w[8], wn[8];
+    ld8(wp, w);
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk + 1 < KT) ld8(wp + (size_t)(kk + 1) * 64, wn);
+#pragma unroll
+      for (int i = 0; i < 10; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(a0 + i * LDA + 4 * kk);
+        float s0 = acc[i][0], s1 = acc[i][1];
+        s0 = fmaf(a.x, w[0], s0);
+        s0 = fmaf(a.y, w[1], s0);
+        s0 = fmaf(a.z, w[2], s0);
+        s0 = fmaf(a.w, w[3], s0);
+        s1 = fmaf(a.x, w[4], s1);
+        s1 = fmaf(a.y, w[5], s1);
+        s1 = fmaf(a.z, w[6], s1);
+        s1 = fmaf(a.w, w[7], s1);
+        acc[i][0] = s0;
+        acc[i][1] = s1;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) w[q] = wn[q];
+    }
+#pragma unroll
+    for (int i = 0; i < 10; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 10 * rg + i;
+        const int n = n0 + c;
+        if (r < rows) {
+          float* out = C + r * ldc + n;
+          const float v = acc[i][c];
+          if (EPI == EPI_PARTIAL) {
+            *out = v;
+          } else {
+            const float pb = rnd<T>(v) + ldg(bias + n);
+            if (EPI == EPI_BIAS) {
+              *out = rnd<T>(pb);
+            } else if (EPI == EPI_GELU) {
+              *out = rnd<T>(gelu_tanh(pb));
+            } else {
+              *out = rnd<T>(*out) + rnd<T>(pb);
+            }
+          }
+        }
+      }
+  }
+}
+
+// Two f32 values that hold bf16 values as one bf16x2 register (exact),
+// the lower index in the low half, as mma.sync's fragments take them.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The same product and epilogues as gemm, for bf16 weights on the tensor
+// cores (mma.sync m16n8k16, bf16 inputs, f32 accumulators): per chunk of
+// 128 columns warp w owns columns 16w..16w+15 (two n8 tiles) x all rows
+// (three m16 tiles, 40 rows padded to 48); the B fragments read the
+// pre-tiled weights (one 4-byte load each: two consecutive k of one
+// column), the A fragments the shared f32 rows packed to bf16 (exact:
+// the rows hold bf16 values). The sums are the tensor cores', not one
+// sequential chain.
+template <int EPI, int LDA>
+__device__ __forceinline__ void gemm_mma(
+    const float* A, int Kd, const __nv_bfloat16* __restrict__ Wt, int kq4,
+    int kk0, int N, const __nv_bfloat16* __restrict__ bias, float* C, int ldc,
+    const float* Cin, int rows) {
+  typedef __nv_bfloat16 T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r4 = lane >> 2, c2 = 2 * (lane & 3);
+  const int n_mt = (rows + 15) / 16;
+  for (int n_c = 0; n_c < N; n_c += 128) {
+    float acc[3][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * mt + r4 + 8 * (e >> 1);
+          const int n = n_c + 16 * warp + 8 * nt + c2 + (e & 1);
+          acc[mt][nt][e] = (Cin != nullptr && r < rows) ? Cin[r * LDX + n]
+                                                        : 0.0f;
+        }
+    // this warp's tiles: [kq4][8 cg][2][4]; lane's column 8nt + r4 is
+    // cg 4nt + r4/2, c r4%2; its k pair 2(lane%4) of a 4-k step
+    const unsigned* wq = reinterpret_cast<const unsigned*>(
+        Wt + (size_t)n_c * 4 * kq4 +
+        (((size_t)warp * kq4 + kk0) * 8 + (r4 >> 1)) * 8 + (r4 & 1) * 4 +
+        2 * (lane & 1));
+    for (int k0 = 0; k0 < Kd; k0 += 16) {
+      const int kk = (k0 >> 2) + ((lane & 3) >> 1);
+      uint32_t b[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          b[nt][hh] = __ldg(wq + ((size_t)(kk + 2 * hh) * 8 + 4 * nt) * 4);
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt) {
+        if (mt >= n_mt) break;
+        uint32_t a[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = min(16 * mt + r4 + 8 * (q & 1), CH - 1);
+          const float2 v = *reinterpret_cast<const float2*>(
+              A + r * LDA + k0 + c2 + 8 * (q >> 1));
+          a[q] = pack_bf16(v.x, v.y);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          asm volatile(
+              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+              : "+f"(acc[mt][nt][0]), "+f"(acc[mt][nt][1]),
+                "+f"(acc[mt][nt][2]), "+f"(acc[mt][nt][3])
+              : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[nt][0]),
+                "r"(b[nt][1]));
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * mt + r4 + 8 * (e >> 1);
+          const int n = n_c + 16 * warp + 8 * nt + c2 + (e & 1);
+          if (r < rows) {
+            float* out = C + r * ldc + n;
+            const float v = acc[mt][nt][e];
+            if (EPI == EPI_PARTIAL) {
+              *out = v;
+            } else {
+              const float pb = rnd<T>(v) + ldg(bias + n);
+              if (EPI == EPI_BIAS) {
+                *out = rnd<T>(pb);
+              } else if (EPI == EPI_GELU) {
+                *out = rnd<T>(gelu_tanh(pb));
+              } else {
+                *out = rnd<T>(*out) + rnd<T>(pb);
+              }
+            }
+          }
+        }
+  }
+}
+
+// gemm on the CUDA cores, or gemm_mma where kMma (bf16 only)
+template <typename T, bool kMma, int EPI, int LDA>
+__device__ __forceinline__ void product(const float* A, int Kd,
+                                        const T* __restrict__ Wt, int kq4,
+                                        int kk0, int N,
+                                        const T* __restrict__ bias, float* C,
+                                        int ldc, const float* Cin, int rows) {
+  if constexpr (kMma)
+    gemm_mma<EPI, LDA>(A, Kd, Wt, kq4, kk0, N, bias, C, ldc, Cin, rows);
+  else
+    gemm<T, EPI, LDA>(A, Kd, Wt, kq4, kk0, N, bias, C, ldc, Cin, rows);
+}
+
 // Y[r] = LayerNorm(X[r]) * g + b over D = 128 values, one warp per row,
-// rounded to T's precision
-template <typename T>
+// rounded to T's precision; rows at stride LD
+template <typename T, int LD>
 __device__ __forceinline__ void layer_norm(const float* X, float* Y, int rows,
                                            const float* __restrict__ g,
                                            const float* __restrict__ b) {
@@ -321,7 +508,7 @@ __device__ __forceinline__ void layer_norm(const float* X, float* Y, int rows,
   const float4 gv = __ldg(reinterpret_cast<const float4*>(g) + lane);
   const float4 bv = __ldg(reinterpret_cast<const float4*>(b) + lane);
   for (int r = warp; r < rows; r += NWARPS) {
-    const float4 v = reinterpret_cast<const float4*>(X + r * D)[lane];
+    const float4 v = reinterpret_cast<const float4*>(X + r * LD)[lane];
     const float mu = warp_sum((v.x + v.y) + (v.z + v.w)) / D;
     const float dx = v.x - mu, dy = v.y - mu, dz = v.z - mu, dw = v.w - mu;
     const float var =
@@ -332,16 +519,89 @@ __device__ __forceinline__ void layer_norm(const float* X, float* Y, int rows,
     y.y = rnd<T>((dy * inv) * gv.y + bv.y);
     y.z = rnd<T>((dz * inv) * gv.z + bv.z);
     y.w = rnd<T>((dw * inv) * gv.w + bv.w);
-    reinterpret_cast<float4*>(Y + r * D)[lane] = y;
+    reinterpret_cast<float4*>(Y + r * LD)[lane] = y;
   }
 }
 
-template <typename T>
+// Phase stamps, compiled only into the kStamp instantiations (entries
+// *_stamp, for measurement): thread 0 of block 0 and of the grid's last
+// block adds up the SM clock cycles of each phase (from one block barrier
+// to the next), and every block writes its start and end on the global
+// timer, from which the caller reads the wave each block ran in. Buffer
+// (int64): [2] recorded block ids, then per record [total cycles, NPH
+// phase cycles], then [grid][start ns, end ns].
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// static shared bytes the stamp instantiations' clocks take; the plans
+// leave them free in every instantiation, so that both plan alike
+constexpr int STAMP_SMEM = 256;
+
+template <bool kStamp, int NPH>
+struct PhaseClock {
+  __device__ __forceinline__ explicit PhaseClock(long long*) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void done() {}
+};
+
+template <int NPH>
+struct PhaseClock<true, NPH> {
+  static_assert(8 * (NPH + 3) <= STAMP_SMEM, "the clocks' shared state");
+  bool on;   // thread 0 of a recorded block
+  // the state in shared memory, so that the clocks hold no registers of
+  // the kernel's: NPH phase cycles, the last mark, the start, the buffer
+  __device__ static long long* state() {
+    __shared__ long long s[NPH + 3];
+    return s;
+  }
+  __device__ explicit PhaseClock(long long* b) {
+    on = threadIdx.x == 0 && (blockIdx.x == 0 || blockIdx.x == gridDim.x - 1);
+    if (threadIdx.x == 0) {
+      b[2 + 2 * (NPH + 1) + 2 * blockIdx.x] = global_ns();
+      long long* s = state();
+      for (int i = 0; i < NPH; ++i) s[i] = 0;
+      s[NPH + 2] = reinterpret_cast<long long>(b);
+      s[NPH] = s[NPH + 1] = clock64();
+    }
+  }
+  __device__ __forceinline__ void mark(int ph) {
+    if (on) {
+      long long* s = state();
+      const long long now = clock64();
+      s[ph] += now - s[NPH];
+      s[NPH] = now;
+    }
+  }
+  __device__ void done() {
+    if (threadIdx.x == 0) {
+      long long* s = state();
+      long long* buf = reinterpret_cast<long long*>(s[NPH + 2]);
+      buf[2 + 2 * (NPH + 1) + 2 * blockIdx.x + 1] = global_ns();
+      if (on) {
+        const int rec = blockIdx.x == 0 ? 0 : 1;
+        buf[rec] = blockIdx.x;
+        long long* o = buf + 2 + rec * (NPH + 1);
+        o[0] = s[NPH] - s[NPH + 1];
+        for (int i = 0; i < NPH; ++i) o[1 + i] = s[i];
+      }
+    }
+  }
+};
+
+// phases of the stamp instantiation, in the order of
+// ops/tfm_beam_kernel.py:STAMP_PHASES (layers summed)
+enum Phase { PH_EMBED, PH_LN1, PH_QKV, PH_KVW, PH_ATTN, PH_OUT, PH_LN2, PH_FF1,
+             PH_FF2, PH_HEAD, PH_SELECT, PH_REORDER, NPH };
+
+template <typename T, bool kMma, bool kStamp>
 __global__ void __launch_bounds__(NT, 2)
 tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
                 const T* __restrict__ pos,          // [S, D]
-                const T* __restrict__ wpack,        // L x LayerOff.size
-                const float* __restrict__ lnpack,   // L x LayerOff.size
+                const T* __restrict__ wpack,        // L x layer_off(F).size
+                const float* __restrict__ lnpack,   // L x LN_WORDS
                 const float* __restrict__ lnf_g,    // [D]
                 const float* __restrict__ lnf_b,    // [D]
                 const float* __restrict__ wout,     // [D, V]
@@ -355,7 +615,9 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
                 float* __restrict__ scores_out,     // [B, K]
                 int* __restrict__ adv_out,          // [B]
                 int* __restrict__ fin_out,          // [B]
+                long long* stamps,                  // kStamp only
                 Dims d) {
+  PhaseClock<kStamp, NPH> clk(stamps);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
@@ -387,6 +649,7 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
     return scratch + ((((size_t)(s0 + sent) * K + kl) * L + l) * 2 + kv) *
                          (size_t)S * D;
   };
+  const size_t lane_stride = (size_t)L * 2 * S * D;   // kl -> kl + 1
 
   // ---- initial state: position 0 (the latent prefix) in lane 0 -------
   for (int i = tid; i < M; i += NT) {
@@ -411,45 +674,61 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
     const int p = t + 1;                 // this step's position
     for (int i = tid; i < M; i += NT) anc[i * S + p] = (uint8_t)(i % K);
     __syncthreads();
+    clk.mark(PH_REORDER);
 
     for (int r0 = 0; r0 < M; r0 += CH) {
       const int rows = min(CH, M - r0);
       // ---- x = tok_table[prev] + pos_table[t+1] -------------------------
       for (int i = tid; i < rows * D; i += NT) {
         const int r = i / D, c = i - r * D;
-        xs[i] = rnd<T>(ldg(tok + prev[r0 + r] * D + c) + ldg(pos + p * D + c));
+        xs[r * LDX + c] =
+            rnd<T>(ldg(tok + prev[r0 + r] * D + c) + ldg(pos + p * D + c));
       }
       __syncthreads();
+      clk.mark(PH_EMBED);
 
       for (int l = 0; l < L; ++l) {
         const T* W = wpack + (size_t)l * lo.size;
-        const float* Wln = lnpack + (size_t)l * lo.size;
-        layer_norm<T>(xs, hs, rows, Wln + lo.ln1g, Wln + lo.ln1b);
+        const float* Wln = lnpack + (size_t)l * LN_WORDS;
+        layer_norm<T, LDX>(xs, hs, rows, Wln, Wln + D);
         __syncthreads();
-        gemm<3, EPI_BIAS, D>(hs, D, W + lo.qkvw, 3 * D, W + lo.qkvb, big, FC,
-                             nullptr, rows);
+        clk.mark(PH_LN1);
+        product<T, kMma, EPI_BIAS, LDX>(hs, D, W + lo.qkvw, D / 4, 0, 3 * D,
+                                        W + lo.qkvb, big, LDB, nullptr, rows);
         __syncthreads();
+        clk.mark(PH_QKV);
         // each lane writes its own k and v rows at position p
         for (int i = tid; i < rows * D; i += NT) {
           const int r = i / D, c = i - r * D;
           const int row = r0 + r, hh = c / Dh, dd = c - hh * Dh;
-          const float* q = big + r * FC + hh * 3 * Dh + dd;
+          const float* q = big + r * LDB + hh * 3 * Dh + dd;
           st(kv_rows(row / K, row % K, l, 0) + p * D + c, q[Dh]);
           st(kv_rows(row / K, row % K, l, 1) + p * D + c, q[2 * Dh]);
         }
         __syncthreads();
+        clk.mark(PH_KVW);
         // ---- attention: one warp per (lane, head) -> hs ----------------
+        // a task's loads all go out before its softmax: lane s the K row
+        // of position s, lane d the V values of dim d at every position
         for (int pr = warp; pr < rows * H; pr += NWARPS) {
           const int r = pr / H, hh = pr - r * H;
           const int row = r0 + r, sent = row / K;
           const uint8_t* an = anc + row * S;
-          const float* q = big + r * FC + hh * 3 * Dh;
+          const float* q = big + r * LDB + hh * 3 * Dh;
+          const T* kb = kv_rows(sent, 0, l, 0) + hh * Dh;  // + kl, s
+          const T* vb = kv_rows(sent, 0, l, 1) + hh * Dh;
+          float vv[32];
+#pragma unroll
+          for (int s = 0; s < 32; ++s)
+            vv[s] = (s <= p && lane < Dh)
+                        ? ld(vb + an[s] * lane_stride + s * D + lane)
+                        : 0.0f;
           float score = -INFINITY;
           if (lane <= p) {
-            const T* kr = kv_rows(sent, an[lane], l, 0) + lane * D +
-                          hh * Dh;
+            const T* kr = kb + an[lane] * lane_stride + lane * D;
             float dot = 0.0f;
             if ((Dh & 3) == 0) {
+#pragma unroll 8
               for (int dd = 0; dd < Dh; dd += 4) {
                 const float4 qv = *reinterpret_cast<const float4*>(q + dd);
                 const float4 kv = ld4(kr + dd);
@@ -467,60 +746,74 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
           const float m = warp_max(score);
           const float e = (lane <= p) ? expf(score - m) : 0.0f;
           const float prob = rnd<T>(e / warp_sum(e));
-          for (int d0 = 0; d0 < Dh; d0 += 32) {
-            const int dd = d0 + lane;
+          for (int d0 = 0;;) {
             float acc = 0.0f;
-            for (int s = 0; s <= p; ++s) {
+#pragma unroll
+            for (int s = 0; s < 32; ++s) {
               const float ps = __shfl_sync(0xffffffffu, prob, s);
-              if (dd < Dh)
-                acc = fmaf(ps,
-                           ld(kv_rows(sent, an[s], l, 1) + s * D + hh * Dh + dd),
-                           acc);
+              if (s <= p) acc = fmaf(ps, vv[s], acc);
             }
-            if (dd < Dh) hs[r * D + hh * Dh + dd] = rnd<T>(acc);
+            if (d0 + lane < Dh)
+              hs[r * LDX + hh * Dh + d0 + lane] = rnd<T>(acc);
+            d0 += 32;
+            if (d0 >= Dh) break;
+#pragma unroll
+            for (int s = 0; s < 32; ++s)
+              vv[s] = (s <= p && d0 + lane < Dh)
+                          ? ld(vb + an[s] * lane_stride + s * D + d0 + lane)
+                          : 0.0f;
           }
         }
         __syncthreads();
-        gemm<1, EPI_RESID, D>(hs, D, W + lo.aow, D, W + lo.aob, xs, D,
-                              nullptr, rows);
+        clk.mark(PH_ATTN);
+        product<T, kMma, EPI_RESID, LDX>(hs, D, W + lo.aow, D / 4, 0, D,
+                                         W + lo.aob, xs, LDX, nullptr, rows);
         __syncthreads();
-        layer_norm<T>(xs, hs, rows, Wln + lo.ln2g, Wln + lo.ln2b);
+        clk.mark(PH_OUT);
+        layer_norm<T, LDX>(xs, hs, rows, Wln + 2 * D, Wln + 3 * D);
         __syncthreads();
+        clk.mark(PH_LN2);
         // ---- feed-forward in chunks of up to 384 columns of d_ff --------
         for (int f0 = 0; f0 < F; f0 += FC) {
           const int wdt = min(FC, F - f0);
-          const T* w1 = W + lo.ff1w + f0;
-          const T* b1 = W + lo.ff1b + f0;
-          if (wdt == 3 * 128)
-            gemm<3, EPI_GELU, D>(hs, D, w1, F, b1, big, FC, nullptr, rows);
-          else if (wdt == 2 * 128)
-            gemm<2, EPI_GELU, D>(hs, D, w1, F, b1, big, FC, nullptr, rows);
-          else
-            gemm<1, EPI_GELU, D>(hs, D, w1, F, b1, big, FC, nullptr, rows);
+          // columns f0.. of ff1: its 128-column chunks from f0 / 128 on
+          product<T, kMma, EPI_GELU, LDX>(
+              hs, D, W + lo.ff1w + (size_t)f0 * D, D / 4, 0, wdt,
+              W + lo.ff1b + f0, big, LDB, nullptr, rows);
           __syncthreads();
-          const T* w2 = W + lo.ff2w + (size_t)f0 * D;
+          clk.mark(PH_FF1);
           const float* from = (f0 == 0) ? nullptr : acc2;
           if (f0 + wdt >= F)
-            gemm<1, EPI_RESID, FC>(big, wdt, w2, D, W + lo.ff2b, xs, D, from,
-                                   rows);
+            product<T, kMma, EPI_RESID, LDB>(big, wdt, W + lo.ff2w, F / 4,
+                                             f0 / 4, D, W + lo.ff2b, xs, LDX,
+                                             from, rows);
           else
-            gemm<1, EPI_PARTIAL, FC>(big, wdt, w2, D, (const T*)nullptr, acc2,
-                                     D, from, rows);
+            product<T, kMma, EPI_PARTIAL, LDB>(big, wdt, W + lo.ff2w, F / 4,
+                                               f0 / 4, D, (const T*)nullptr,
+                                               acc2, LDX, from, rows);
           __syncthreads();
+          clk.mark(PH_FF2);
         }
       }
       // ---- final LN and head -> candidate rows ----------------------------
-      layer_norm<T>(xs, hs, rows, lnf_g, lnf_b);
+      layer_norm<T, LDX>(xs, hs, rows, lnf_g, lnf_b);
       __syncthreads();
       for (int i = tid; i < rows * V; i += NT) {
         const int r = i / V, v = i - r * V;
-        const float* h = hs + r * D;
+        const float* h = hs + r * LDX;
         float acc = 0.0f;
-        for (int k = 0; k < D; ++k) acc = fmaf(h[k], __ldg(wout + k * V + v),
-                                               acc);
+#pragma unroll 8
+        for (int k = 0; k < D; k += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(h + k);
+          acc = fmaf(hv.x, __ldg(wout + k * V + v), acc);
+          acc = fmaf(hv.y, __ldg(wout + (k + 1) * V + v), acc);
+          acc = fmaf(hv.z, __ldg(wout + (k + 2) * V + v), acc);
+          acc = fmaf(hv.w, __ldg(wout + (k + 3) * V + v), acc);
+        }
         cand[(r0 + r) * V + v] = acc + __ldg(bout + v);
       }
       __syncthreads();
+      clk.mark(PH_HEAD);
     }
 
     // ---- one warp per sentence: log-softmax, candidates, top-K ----------
@@ -607,6 +900,7 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
       __syncwarp();
     }
     __syncthreads();
+    clk.mark(PH_SELECT);
 
     // ---- the beam reorder: permute the ancestry map, not the caches ------
     for (int i = tid; i < M * (p + 1); i += NT) {
@@ -615,6 +909,7 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
       anc_nxt[row * S + s] = anc[src * S + s];
     }
     __syncthreads();
+    clk.mark(PH_REORDER);
     uint8_t* tmp = anc;
     anc = anc_nxt;
     anc_nxt = tmp;
@@ -625,55 +920,91 @@ tfm_beam_kernel(const T* __restrict__ tok,          // [V, D]
     adv_out[s0 + s] = misc[3 * s];
     fin_out[s0 + s] = misc[3 * s + 2];
   }
+  clk.done();
 }
 
 struct Plan {
-  int n_sent, threads;
+  int n_sent, threads, slots;
   size_t smem;
 };
 
+size_t smem_bytes(int n, int K, int V, int S, int F) {
+  const Smem m = make_smem(n, K, V, S, F);
+  return (size_t)m.words * 4 + (size_t)((m.anc_bytes + 15) & ~15);
+}
+
+// Sentences per block: at most CH / K (at least 1), chosen from B and the
+// blocks the card holds at once (slots) so that the waves come out full:
+// the n that minimises waves(n) * (n + 2), the 2 standing for a block's
+// fixed cost (its weight reads, the selection's latency) in sentences;
+// ties go to the larger n.
+template <typename T>
 int make_plan(int B, int K, int V, int S, int F, Plan* plan) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  int max_smem = 0;
+  int max_smem = 0, n_sm = 0;
   e = cudaDeviceGetAttribute(&max_smem,
                              cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  max_smem -= STAMP_SMEM;      // the stamp instantiations' static clocks
   if (K < 1 || K > 255 || S > 32 || F < 128 || F % 128)
     return (int)cudaErrorInvalidValue;
-  int n = MAX_ROWS / K > 0 ? MAX_ROWS / K : 1;
-  n = n < B ? n : (B > 0 ? B : 1);
-  const Smem m = make_smem(n, K, V, S, F);
-  plan->n_sent = n;
+  const int n_max = CH / K > 0 ? CH / K : 1;
+  const size_t smem_max = smem_bytes(n_max, K, V, S, F);
+  if (smem_max > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
+  e = cudaFuncSetAttribute(tfm_beam_kernel<T, false, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_max);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tfm_beam_kernel<T, false, false>, NT, smem_max);
+  if (e != cudaSuccess) return (int)e;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * n_sm;
+  const int Bp = B > 0 ? B : 1;
+  int best_n = 1;
+  long long best_cost = -1;
+  for (int n = 1; n <= n_max && n <= Bp; ++n) {
+    const long long blocks = (Bp + n - 1) / n;
+    const long long cost = ((blocks + slots - 1) / slots) * (n + 2);
+    if (best_cost < 0 || cost <= best_cost) {
+      best_cost = cost;
+      best_n = n;
+    }
+  }
+  plan->n_sent = best_n;
   plan->threads = NT;
-  plan->smem = (size_t)m.words * 4 + (size_t)((m.anc_bytes + 15) & ~15);
-  if (plan->smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
+  plan->slots = (int)slots;
+  plan->smem = smem_bytes(best_n, K, V, S, F);
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kMma, bool kStamp>
 int launch(const T* tok, const T* pos, const T* wpack, const float* lnpack,
            const float* lnf_g, const float* lnf_b, const float* wout,
            const float* bout, const T* k0, const T* v0, T* scratch, int* ys,
            int* ptr, float* sc, float* scores, int* adv, int* fin, int B,
            int T_, int K, int V, int S, int L, int H, int F, int min_length,
-           int n_best, void* stream) {
+           int n_best, long long* stamps, void* stream) {
   if (B <= 0) return 0;
   if (H <= 0 || D % H || T_ + 1 > S || V > 127 || K > V - 2 || L < 1)
     return (int)cudaErrorInvalidValue;
   Plan p;
-  int e = make_plan(B, K, V, S, F, &p);
+  int e = make_plan<T>(B, K, V, S, F, &p);
   if (e) return e;
   cudaError_t ce = cudaFuncSetAttribute(
-      tfm_beam_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem);
+      tfm_beam_kernel<T, kMma, kStamp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (ce != cudaSuccess) return (int)ce;
   Dims d{B, T_, K, V, S, L, H, F, min_length, n_best, p.n_sent};
   const int grid = (B + p.n_sent - 1) / p.n_sent;
-  tfm_beam_kernel<T><<<grid, p.threads, p.smem, (cudaStream_t)stream>>>(
+  tfm_beam_kernel<T, kMma, kStamp><<<grid, p.threads, p.smem,
+                                     (cudaStream_t)stream>>>(
       tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
-      ptr, sc, scores, adv, fin, d);
+      ptr, sc, scores, adv, fin, stamps, d);
   return (int)cudaGetLastError();
 }
 
@@ -681,36 +1012,42 @@ int launch(const T* tok, const T* pos, const T* wpack, const float* lnpack,
 
 extern "C" {
 
-// The launch plan for these shapes: sentences per block, threads per
-// block, dynamic shared bytes (the same for both types).
-int tfm_beam_plan(int B, int K, int V, int S, int F, int* out3) {
+// The launch plan for these shapes and type (bf16 != 0: the bf16
+// instantiation): sentences per block, threads per block, dynamic shared
+// bytes, blocks resident on the card at once.
+int tfm_beam_plan(int B, int K, int V, int S, int F, int bf16, int* out4) {
   Plan p;
-  int e = make_plan(B, K, V, S, F, &p);
+  int e = bf16 ? make_plan<__nv_bfloat16>(B, K, V, S, F, &p)
+               : make_plan<float>(B, K, V, S, F, &p);
   if (e) return e;
-  out3[0] = p.n_sent;
-  out3[1] = p.threads;
-  out3[2] = (int)p.smem;
+  out4[0] = p.n_sent;
+  out4[1] = p.threads;
+  out4[2] = (int)p.smem;
+  out4[3] = p.slots;
   return 0;
 }
 
 // Launch the beam on `stream`; returns the CUDA error of the launch (0 on
 // success). Does not synchronise and allocates nothing: `scratch` is the
-// caller's [B, K, L, 2, S, 128] float buffer for the lanes' KV rows.
+// caller's [B, K, L, 2, S, 128] buffer for the lanes' KV rows. wpack holds
+// per layer the four matrices pre-tiled (weight_tiles) and the four
+// biases; lnpack per layer LayerNorm's ln1 g, b, ln2 g, b (f32).
 int tfm_beam_f32(const float* tok, const float* pos, const float* wpack,
-                 const float* lnf_g, const float* lnf_b, const float* wout,
-                 const float* bout, const float* k0, const float* v0,
-                 float* scratch, int* ys, int* ptr, float* sc, float* scores,
-                 int* adv, int* fin, int B, int T, int K, int V, int S,
-                 int L, int H, int F, int min_length, int n_best,
-                 void* stream) {
-  return launch<float>(tok, pos, wpack, wpack, lnf_g, lnf_b, wout, bout, k0,
-                       v0, scratch, ys, ptr, sc, scores, adv, fin, B, T, K, V,
-                       S, L, H, F, min_length, n_best, stream);
+                 const float* lnpack, const float* lnf_g, const float* lnf_b,
+                 const float* wout, const float* bout, const float* k0,
+                 const float* v0, float* scratch, int* ys, int* ptr,
+                 float* sc, float* scores, int* adv, int* fin, int B, int T,
+                 int K, int V, int S, int L, int H, int F, int min_length,
+                 int n_best, void* stream) {
+  return launch<float, false, false>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, B, T, K, V, S, L, H, F, min_length, n_best,
+      nullptr, stream);
 }
 
 // The same on bf16 tables, products' weights and biases (wpack), prefix
-// rows and KV scratch; LayerNorm's parameters come from the f32 pack
-// lnpack (laid out as wpack), the final LN and the head are f32.
+// rows and KV scratch; LayerNorm's parameters, the final LN and the head
+// are f32.
 int tfm_beam_bf16(const __nv_bfloat16* tok, const __nv_bfloat16* pos,
                   const __nv_bfloat16* wpack, const float* lnpack,
                   const float* lnf_g, const float* lnf_b, const float* wout,
@@ -719,11 +1056,65 @@ int tfm_beam_bf16(const __nv_bfloat16* tok, const __nv_bfloat16* pos,
                   int* ptr, float* sc, float* scores, int* adv, int* fin,
                   int B, int T, int K, int V, int S, int L, int H, int F,
                   int min_length, int n_best, void* stream) {
-  return launch<__nv_bfloat16>(tok, pos, wpack, lnpack, lnf_g, lnf_b, wout,
-                               bout, k0, v0, scratch, ys, ptr, sc, scores,
-                               adv, fin, B, T, K, V, S, L, H, F, min_length,
-                               n_best, stream);
+  return launch<__nv_bfloat16, false, false>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, B, T, K, V, S, L, H, F, min_length, n_best,
+      nullptr, stream);
 }
+
+// Measurement only: the stamp instantiations of the two entries, the
+// same arguments and one more, the zeroed int64 buffer of
+// tfm_beam_stamp_words(grid) words the phase clocks write (PhaseClock).
+int tfm_beam_f32_stamp(const float* tok, const float* pos, const float* wpack,
+                       const float* lnpack, const float* lnf_g,
+                       const float* lnf_b, const float* wout,
+                       const float* bout, const float* k0, const float* v0,
+                       float* scratch, int* ys, int* ptr, float* sc,
+                       float* scores, int* adv, int* fin, int B, int T, int K,
+                       int V, int S, int L, int H, int F, int min_length,
+                       int n_best, long long* stamps, void* stream) {
+  return launch<float, false, true>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, B, T, K, V, S, L, H, F, min_length, n_best,
+      stamps, stream);
+}
+
+int tfm_beam_bf16_stamp(const __nv_bfloat16* tok, const __nv_bfloat16* pos,
+                        const __nv_bfloat16* wpack, const float* lnpack,
+                        const float* lnf_g, const float* lnf_b,
+                        const float* wout, const float* bout,
+                        const __nv_bfloat16* k0, const __nv_bfloat16* v0,
+                        __nv_bfloat16* scratch, int* ys, int* ptr, float* sc,
+                        float* scores, int* adv, int* fin, int B, int T,
+                        int K, int V, int S, int L, int H, int F,
+                        int min_length, int n_best, long long* stamps,
+                        void* stream) {
+  return launch<__nv_bfloat16, false, true>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, B, T, K, V, S, L, H, F, min_length, n_best,
+      stamps, stream);
+}
+
+// Measurement only: the bf16 entry with its products on the tensor cores
+// (gemm_mma), the same arguments as tfm_beam_bf16.
+int tfm_beam_bf16_mma(const __nv_bfloat16* tok, const __nv_bfloat16* pos,
+                      const __nv_bfloat16* wpack, const float* lnpack,
+                      const float* lnf_g, const float* lnf_b,
+                      const float* wout, const float* bout,
+                      const __nv_bfloat16* k0, const __nv_bfloat16* v0,
+                      __nv_bfloat16* scratch, int* ys, int* ptr, float* sc,
+                      float* scores, int* adv, int* fin, int B, int T, int K,
+                      int V, int S, int L, int H, int F, int min_length,
+                      int n_best, void* stream) {
+  return launch<__nv_bfloat16, true, false>(
+      tok, pos, wpack, lnpack, lnf_g, lnf_b, wout, bout, k0, v0, scratch, ys,
+      ptr, sc, scores, adv, fin, B, T, K, V, S, L, H, F, min_length, n_best,
+      nullptr, stream);
+}
+
+// Words of the stamp buffer for a grid of `grid` blocks; the phase count.
+int tfm_beam_stamp_words(int grid) { return 2 + 2 * (NPH + 1) + 2 * grid; }
+int tfm_beam_stamp_phases() { return NPH; }
 
 const char* tfm_beam_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

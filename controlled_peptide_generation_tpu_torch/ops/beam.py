@@ -113,13 +113,9 @@ def _scan_gru(model, params, z, c, K, T, n_best, min_length, plain):
             raise ValueError("the CUDA beam kernel's scope does not cover "
                              "this model/beam/dtype (ops/beam_kernel.py "
                              "applicable)")
-    dec = params["dec"]
-    tok_table, zc_gi = decoder.step_tables(dec, params["emb"], z, c)
-    zc0 = model.init_decoder_hidden(params, z, c)
-    return scan(tok_table, zc_gi, dec["gru"]["wh"], dec["gru"]["bh"],
-                dec["out"]["w"], dec["out"]["b"], zc0, T=T, K=K,
-                V=model.n_vocab, H=model.h_dec, min_length=min_length,
-                n_best=n_best)
+    inputs, dims = decode_inputs(model, params, z, c)
+    return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
+                n_best=n_best, **dims)
 
 
 def _scan_tfm(model, params, z, c, K, T, n_best, min_length, plain):
@@ -166,6 +162,23 @@ def tfm_scan_inputs(model, params, z, c):
               [vl[:, 0, :] for vl in cache0["v"]])
     return inputs, {"S": S, "H": t_args.get("n_heads", 4),
                     "F": t_args.get("d_ff", 4 * t_args.get("d_model", 128))}
+
+
+def decode_inputs(model, params, z, c):
+    """The beam kernel's inputs of ``model``'s family for latents z, c cast
+    to the weight tree's type, as the round casts them (GRU: the step
+    tables, the recurrent and head weights and the initial hidden state,
+    the inputs of ``beam_kernel.beam_scan_gru``; transformer:
+    ``tfm_scan_inputs``), and their dims ({"H"}, or {"S", "H", "F"})."""
+    wdt = params["dec"]["out"]["w"].dtype
+    z, c = z.to(wdt), c.to(wdt)
+    if model.G_class == "transformer":
+        return tfm_scan_inputs(model, params, z, c)
+    tok, zc_gi = decoder.step_tables(params["dec"], params["emb"], z, c)
+    d = params["dec"]
+    return (tok, zc_gi, d["gru"]["wh"], d["gru"]["bh"], d["out"]["w"],
+            d["out"]["b"], model.init_decoder_hidden(params, z, c)), {
+                "H": model.h_dec}
 
 
 def hyps_from_tapes(tapes, n_best):

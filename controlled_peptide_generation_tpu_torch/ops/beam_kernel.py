@@ -10,9 +10,12 @@ use into ``build/torch_kernels/`` and bound with ctypes.
 Dispatch: a CPU tensor goes to ``beam_scan_gru_reference`` (plain torch,
 the same arithmetic step by step); a CUDA tensor launches the kernel or
 raises. float32 inputs launch the entry ``beam_gru_f32``, bfloat16 inputs
-``beam_gru_bf16`` (the same kernel on bf16 storage, rounding where the JAX
-kernel rounds); any other type raises. ``beam_scan_gru.launches`` and
-``beam_scan_gru.launches_bf16`` count the two entries' launches.
+``beam_gru_bf16`` (bf16 storage, the cell's and the head's products on
+the tensor cores, rounding where the JAX kernel rounds); any other type
+raises. The wrapper hands the kernel wh and w_out transposed and padded
+(``weight_layout`` in f32, ``mma_layout`` in bf16).
+``beam_scan_gru.launches`` and ``beam_scan_gru.launches_bf16`` count the
+two entries' launches.
 """
 
 import ctypes
@@ -22,12 +25,15 @@ import torch
 
 from ..data.vocab import PAD_IDX, START_IDX, EOS_IDX
 from . import nn
-from .cuda_build import compile_library
+from .cuda_build import (beam_kernel_name, compile_library, ptxas_usage,
+                         read_stamps)
 
 NEG = -1e20
 _MAX_V = 128          # kernel scope, as the JAX kernel's `applicable`
 _MAX_H = 127
 _MAX_TK = 256
+# the phases the stamp entries clock, in the kernel's enum Phase order
+STAMP_PHASES = ("gru cell", "head", "selection", "reorder")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,6 +65,12 @@ def build():
         for entry in (lib.beam_gru_f32, lib.beam_gru_bf16):
             entry.argtypes = [p] * 13 + [i] * 7 + [p]
             entry.restype = i
+        for entry in (lib.beam_gru_f32_stamp, lib.beam_gru_bf16_stamp):
+            entry.argtypes = [p] * 13 + [i] * 7 + [p, p]
+            entry.restype = i
+        lib.beam_gru_stamp_words.argtypes = [i]
+        for fn in (lib.beam_gru_stamp_words, lib.beam_gru_stamp_phases):
+            fn.restype = i
         lib.beam_gru_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.beam_gru_plan.restype = i
         lib.beam_gru_error_string.argtypes = [i]
@@ -67,17 +79,62 @@ def build():
         return lib
 
 
+def ptxas_report(log=None):
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} of csrc/beam_gru.cu, read from ptxas' -v output in the build log
+    (``build_log`` by default), named ``<kernel><type, production |
+    stamp[, weights via L2]>`` (``cuda_build.beam_kernel_name``)."""
+    return ptxas_usage(build_log if log is None else log, beam_kernel_name)
+
+
 def _check(lib, code, what):
     if code != 0:
         msg = lib.beam_gru_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def weight_layout(wh, w_out):
+    """The f32 kernel's transposed, padded copies of wh [H, 3H] and w_out
+    [H, V], in their own type: whT [3, HL, LDW]
+    with whT[g, j, k] = wh[k, g*H + j] and woT [VP, LDW] with
+    woT[v, k] = w_out[k, v], zero elsewhere; HL = 4 NL for
+    NL = ceil(H / 4) lanes of 4 units, LDW = 4 (NL | 1) (4 x an odd number,
+    so that a quarter-warp's 16-byte loads of consecutive rows hit distinct
+    banks), VP = V rounded up to 32. As csrc/beam_gru.cu:make_geo."""
+    H, V = w_out.shape
+    NL = -(-H // 4)
+    HL, LDW, VP = 4 * NL, 4 * (NL | 1), 32 * -(-V // 32)
+    whT = wh.new_zeros((3, HL, LDW))
+    whT[:, :H, :H] = wh.reshape(H, 3, H).permute(1, 2, 0)
+    woT = w_out.new_zeros((VP, LDW))
+    woT[:V, :H] = w_out.T
+    return whT, woT
+
+
+def mma_layout(wh, w_out):
+    """The bf16 kernel's copies of wh [H, 3H] and w_out [H, V] for its
+    tensor-core products, in their own type: whT [3, MU, LDK] with
+    whT[g, j, k] = wh[k, g*H + j] and woT [VM, LDK] with woT[v, k] =
+    w_out[k, v], zero elsewhere; KP = MU = H rounded up to 16 (one
+    m16n8k16 tile), LDK = KP + 8 (LDK / 2 words = 4 mod 8, so that
+    ldmatrix's eight 16-byte rows of a phase hit distinct banks), VM = V
+    rounded up to 16. As csrc/beam_gru.cu:make_mgeo."""
+    H, V = w_out.shape
+    KP = 16 * -(-H // 16)
+    LDK, VM = KP + 8, 16 * -(-V // 16)
+    whT = wh.new_zeros((3, KP, LDK))
+    whT[:, :H, :H] = wh.reshape(H, 3, H).permute(1, 2, 0)
+    woT = w_out.new_zeros((VM, LDK))
+    woT[:V, :H] = w_out.T
+    return whT, woT
+
+
 def launch_plan(B, K, V, H, dtype=torch.float32):
-    """(sentences per block, threads per block, weights in shared memory,
-    dynamic shared bytes) the kernel uses at these shapes and type."""
+    """(sentences (warps) per block, threads per block, weights in shared
+    memory, dynamic shared bytes, grid) the kernel uses at these shapes and
+    type."""
     lib = build()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     _check(lib, lib.beam_gru_plan(B, K, V, H, int(dtype == torch.bfloat16),
                                   out), "beam_gru_plan")
     return tuple(out)
@@ -95,13 +152,39 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
     if tok_table.device.type == "cpu":
         return beam_scan_gru_reference(*args, T=T, K=K, V=V, H=H,
                                        min_length=min_length, n_best=n_best)
+    return _launch(args, T=T, K=K, V=V, H=H, min_length=min_length,
+                   n_best=n_best, stamps=None)
+
+
+def beam_scan_gru_stamped(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T,
+                          K, V, H, min_length, n_best):
+    """Measurement only (chip_smoke.py, the card tests): the same launch
+    through the stamp entry (``beam_gru_*_stamp``), which records each
+    phase's clock cycles in two blocks and every block's start and end.
+    Returns (the six outputs of ``beam_scan_gru``, the stamps as
+    ``cuda_build.read_stamps`` gives them). Counts no launch."""
+    lib = build()
+    B = zc_gi.shape[0]
+    grid = launch_plan(B, K, V, H, tok_table.dtype)[4]
+    buf = torch.zeros(lib.beam_gru_stamp_words(grid), dtype=torch.int64,
+                      device=tok_table.device)
+    out = _launch((tok_table, zc_gi, wh, bh, w_out, b_out, zc0), T=T, K=K,
+                  V=V, H=H, min_length=min_length, n_best=n_best,
+                  stamps=buf)
+    return out, read_stamps(buf, STAMP_PHASES, lib.beam_gru_stamp_phases())
+
+
+def _launch(args, *, T, K, V, H, min_length, n_best, stamps):
+    """Check the CUDA inputs and launch the production entry (stamps None,
+    counted) or its stamp instantiation (stamps the int64 buffer)."""
+    tok_table = args[0]
     if tok_table.device.type != "cuda":
         raise ValueError(f"unsupported device {tok_table.device}")
     dt = tok_table.dtype
     if dt not in _ENTRIES:
         raise NotImplementedError(
             f"the CUDA beam kernel takes float32 or bfloat16, got {dt}")
-    B = zc_gi.shape[0]
+    B = args[1].shape[0]
     if not (V <= _MAX_V and H <= _MAX_H and 1 < K <= V - 2
             and T * K <= _MAX_TK):
         raise ValueError(f"shape outside the kernel's scope: T={T} K={K} "
@@ -115,7 +198,10 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
                              f"expected {want[name]}")
         if a.dtype != dt or a.device != tok_table.device:
             raise ValueError(f"{name} must be {dt} on {tok_table.device}")
-    args = tuple(a.contiguous() for a in args)
+    tok, zc_gi, wh, bh, w_out, b_out, zc0 = (a.contiguous() for a in args)
+    whT, woT = (weight_layout if dt == torch.float32 else mma_layout)(
+        wh, w_out)
+    args = (tok, zc_gi, whT, bh, woT, b_out, zc0)
     dev = tok_table.device
     ys = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     ptr = torch.empty_like(ys)
@@ -127,14 +213,16 @@ def beam_scan_gru(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *, T, K, V,
         return ys, ptr, sc, scores, adv, fin
     lib = build()
     entry, counter = _ENTRIES[dt]
+    extra = () if stamps is None else (stamps.data_ptr(),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
+        code = getattr(lib, entry if stamps is None else entry + "_stamp")(
             *(a.data_ptr() for a in args),
             *(o.data_ptr() for o in (ys, ptr, sc, scores, adv, fin)),
-            B, T, K, V, H, int(min_length), int(n_best), stream)
+            B, T, K, V, H, int(min_length), int(n_best), *extra, stream)
     _check(lib, code, f"{entry} launch")
-    setattr(beam_scan_gru, counter, getattr(beam_scan_gru, counter) + 1)
+    if stamps is None:
+        setattr(beam_scan_gru, counter, getattr(beam_scan_gru, counter) + 1)
     return ys, ptr, sc, scores, adv, fin
 
 

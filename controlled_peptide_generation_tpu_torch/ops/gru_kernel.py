@@ -30,7 +30,7 @@ import threading
 
 import torch
 
-from .cuda_build import compile_library, in_plain
+from .cuda_build import compile_library, in_plain, ptxas_usage
 from .gru import _gates
 
 MAX_H = 128           # the kernels' scope: wh [H, 3H] on one SM
@@ -97,11 +97,14 @@ def wgrad_plan(T, B, H):
     return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows"), out))
 
 
-_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_REGS = re.compile(r"Used (\d+) registers")
 _SCAN = re.compile(r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
 _WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E")
+
+
+def _kernel_name(entry):
+    scan, wgrad = _SCAN.search(entry), _WGRAD.search(entry)
+    return (f"gru_scan_kernel<{', '.join(scan.groups())}>" if scan
+            else f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad else None)
 
 
 def ptxas_report(log=None):
@@ -111,27 +114,7 @@ def ptxas_report(log=None):
     ``gru_scan_kernel<KS, S, R>`` (k values per lane, lanes per unit, rows
     per block), weight-gradient kernels ``gru_wgrad_kernel<V>`` (floats per
     copy)."""
-    report, name = {}, None
-    for line in (build_log if log is None else log).splitlines():
-        m = _ENTRY.search(line)
-        if m:
-            scan, wgrad = _SCAN.search(m.group(1)), _WGRAD.search(m.group(1))
-            name = (f"gru_scan_kernel<{', '.join(scan.groups())}>" if scan
-                    else f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad
-                    else None)
-            if name:
-                report[name] = [0, 0, 0]
-            continue
-        if name is None:
-            continue
-        m = _SPILL.search(line)
-        if m:
-            report[name][1:] = [int(m.group(1)), int(m.group(2))]
-        m = _REGS.search(line)
-        if m:
-            report[name][0] = int(m.group(1))
-            name = None
-    return {k: tuple(v) for k, v in report.items()}
+    return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 
 def _validate(named, T, B, H):

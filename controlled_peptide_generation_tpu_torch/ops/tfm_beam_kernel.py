@@ -23,7 +23,11 @@ launches the kernel or raises. A float32 token table launches the entry
 products' weights and biases and the prefix rows in bf16; LayerNorm's
 parameters, the final LN and the head read in f32, as the JAX kernel
 takes them); any other type raises. ``beam_scan_tfm.launches`` and
-``beam_scan_tfm.launches_bf16`` count the two entries' launches.
+``beam_scan_tfm.launches_bf16`` count the two entries' launches. The
+wrapper hands the kernel the products' matrices pre-tiled in the order
+its products read them (``weight_tiles``) and LayerNorm's parameters in a
+pack of their own (``pack_layers``). ``beam_scan_tfm_stamped`` launches
+the same kernel compiled with its phase clocks, for measurement only.
 """
 
 import ctypes
@@ -34,12 +38,17 @@ import torch
 from ..models import transformer as tfm
 from . import nn
 from .beam_kernel import scan_init, scan_step, scan_tapes
-from .cuda_build import compile_library
+from .cuda_build import (beam_kernel_name, compile_library, ptxas_usage,
+                         read_stamps)
 
 _D = 128              # kernel scope, as the JAX kernel's `applicable`
 _MAX_V = 127
 _MAX_S = 32
 _MAX_TK = 256
+# the phases the stamp entries clock, in the kernel's enum Phase order
+# (each layer phase summed over the layers)
+STAMP_PHASES = ("embed", "ln1", "qkv", "kv write", "attention", "out", "ln2",
+                "ff1", "ff2", "final ln + head", "selection", "reorder")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -76,16 +85,31 @@ def build():
             return _lib
         lib, build_log = compile_library("tfm_beam.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tfm_beam_f32.argtypes = [p] * 16 + [i] * 10 + [p]
-        lib.tfm_beam_bf16.argtypes = [p] * 17 + [i] * 10 + [p]
-        for entry in (lib.tfm_beam_f32, lib.tfm_beam_bf16):
+        for entry in (lib.tfm_beam_f32, lib.tfm_beam_bf16,
+                      lib.tfm_beam_bf16_mma):
+            entry.argtypes = [p] * 17 + [i] * 10 + [p]
+        for entry in (lib.tfm_beam_f32_stamp, lib.tfm_beam_bf16_stamp):
+            entry.argtypes = [p] * 17 + [i] * 10 + [p, p]
+        lib.tfm_beam_stamp_words.argtypes = [i]
+        for entry in (lib.tfm_beam_f32, lib.tfm_beam_bf16,
+                      lib.tfm_beam_bf16_mma, lib.tfm_beam_f32_stamp,
+                      lib.tfm_beam_bf16_stamp,
+                      lib.tfm_beam_stamp_words, lib.tfm_beam_stamp_phases):
             entry.restype = i
-        lib.tfm_beam_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.tfm_beam_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
         lib.tfm_beam_plan.restype = i
         lib.tfm_beam_error_string.argtypes = [i]
         lib.tfm_beam_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def ptxas_report(log=None):
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} of csrc/tfm_beam.cu, read from ptxas' -v output in the build log
+    (``build_log`` by default), named ``<kernel><type, production |
+    stamp[, weights via L2]>`` (``cuda_build.beam_kernel_name``)."""
+    return ptxas_usage(build_log if log is None else log, beam_kernel_name)
 
 
 def _check(lib, code, what):
@@ -94,16 +118,18 @@ def _check(lib, code, what):
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def launch_plan(B, K, V, S, F):
-    """(sentences per block, threads per block, dynamic shared bytes) the
-    kernel uses at these shapes."""
+def launch_plan(B, K, V, S, F, dtype=torch.float32):
+    """(sentences per block, threads per block, dynamic shared bytes,
+    blocks resident on the card at once) the kernel uses at these shapes
+    and type."""
     lib = build()
-    out = (ctypes.c_int * 3)()
-    _check(lib, lib.tfm_beam_plan(B, K, V, S, F, out), "tfm_beam_plan")
+    out = (ctypes.c_int * 4)()
+    _check(lib, lib.tfm_beam_plan(B, K, V, S, F, int(dtype == torch.bfloat16),
+                                  out), "tfm_beam_plan")
     return tuple(out)
 
 
-# per-layer order of the packed weights the kernel reads
+# each layer's leaves, as the wrapper checks them
 _LAYER_LEAVES = (("ln1", "g"), ("ln1", "b"), ("qkv", "w"), ("qkv", "b"),
                  ("attn_out", "w"), ("attn_out", "b"), ("ln2", "g"),
                  ("ln2", "b"), ("ff1", "w"), ("ff1", "b"), ("ff2", "w"),
@@ -117,6 +143,40 @@ def _layer_shapes(D, F):
 
 # the leaves the kernel reads in f32 whatever the storage type
 _F32_LEAVES = ("ln1", "ln2")
+# the kernel's packs, per layer: the products' matrices pre-tiled, then
+# their biases (storage type); LayerNorm's parameters (f32)
+_PRODUCTS = ("qkv", "attn_out", "ff1", "ff2")
+_LN_LEAVES = (("ln1", "g"), ("ln1", "b"), ("ln2", "g"), ("ln2", "b"))
+
+
+def weight_tiles(w, dtype):
+    """A weight matrix w [Kd, N] (x @ w; N a multiple of 128) in the order
+    the kernel's products read it: per chunk of 128 columns, [8 warps]
+    [Kd/4 k steps][8 column pairs][2 columns][4 k], so that lane (rg, cg)
+    of warp w reads the 8 weights of its columns 16w + 2cg, +1 at one 4-k
+    step as 8 contiguous values. Returns a flat tensor of ``dtype``."""
+    Kd, N = w.shape
+    t = w.to(dtype).reshape(Kd // 4, 4, N // 128, 8, 8, 2)  # kk kq n w cg c
+    return t.permute(2, 3, 0, 4, 5, 1).reshape(-1)
+
+
+def weight_untile(tiles, Kd, N):
+    """The matrix [Kd, N] that ``weight_tiles`` tiled."""
+    t = tiles.reshape(N // 128, 8, Kd // 4, 8, 2, 4)        # n w kk cg c kq
+    return t.permute(2, 5, 0, 1, 3, 4).reshape(Kd, N)
+
+
+def pack_layers(layers, dtype):
+    """The kernel's two packs of the blocks' parameters: per layer the four
+    products' matrices (``weight_tiles``), then their biases, in ``dtype``;
+    and LayerNorm's ln1 g, b, ln2 g, b per layer in f32."""
+    wpack = torch.cat([
+        part for lp in layers for part in (
+            *(weight_tiles(lp[blk]["w"], dtype) for blk in _PRODUCTS),
+            *(lp[blk]["b"].reshape(-1).to(dtype) for blk in _PRODUCTS))])
+    lnpack = torch.cat([lp[blk][leaf].reshape(-1).float() for lp in layers
+                        for blk, leaf in _LN_LEAVES])
+    return wpack, lnpack
 
 
 def _aligned(a):
@@ -133,10 +193,56 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
     int32)."""
     kw = dict(T=T, K=K, V=V, S=S, H=H, F=F, min_length=min_length,
               n_best=n_best)
+    args = (tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out, k0s,
+            v0s)
+    if tok_table.device.type == "cpu":
+        return beam_scan_tfm_reference(*args, **kw)
+    return _launch(*args, **kw, stamps=None)
+
+
+def beam_scan_tfm_stamped(tok_table, pos_table, layers, lnf_g, lnf_b, w_out,
+                          b_out, k0s, v0s, *, T, K, V, S, H, F, min_length,
+                          n_best):
+    """Measurement only (chip_smoke.py, the card tests): the same launch
+    through the stamp entry (``tfm_beam_*_stamp``), which records each
+    phase's clock cycles in two blocks and every block's start and end.
+    Returns (the six outputs of ``beam_scan_tfm``, the stamps as
+    ``cuda_build.read_stamps`` gives them). Counts no launch."""
+    lib = build()
+    B = k0s[0].shape[0]
+    grid = -(-B // launch_plan(B, K, V, S, F, tok_table.dtype)[0])
+    buf = torch.zeros(lib.tfm_beam_stamp_words(grid), dtype=torch.int64,
+                      device=tok_table.device)
+    out = _launch(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
+                  k0s, v0s, T=T, K=K, V=V, S=S, H=H, F=F,
+                  min_length=min_length, n_best=n_best, stamps=buf)
+    return out, read_stamps(buf, STAMP_PHASES, lib.tfm_beam_stamp_phases())
+
+
+def beam_scan_tfm_mma(tok_table, pos_table, layers, lnf_g, lnf_b, w_out,
+                      b_out, k0s, v0s, *, T, K, V, S, H, F, min_length,
+                      n_best):
+    """Measurement only (``tools/tfm_beam_mma.py``): the bf16 kernel with
+    its four products on the tensor cores (entry ``tfm_beam_bf16_mma``,
+    csrc/tfm_beam.cu:gemm_mma), the alternative the production entry does
+    not take because its decodes miss chip_smoke.py's bf16 gate (d). The
+    same inputs and outputs as ``beam_scan_tfm`` on bf16 inputs. Counts no
+    launch."""
+    if tok_table.dtype != torch.bfloat16:
+        raise NotImplementedError("the tensor-core variant is bf16 only")
+    return _launch(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
+                   k0s, v0s, T=T, K=K, V=V, S=S, H=H, F=F,
+                   min_length=min_length, n_best=n_best, stamps=None,
+                   entry="tfm_beam_bf16_mma")
+
+
+def _launch(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out, k0s,
+            v0s, *, T, K, V, S, H, F, min_length, n_best, stamps,
+            entry=None):
+    """Check the CUDA inputs, pack them and launch the production entry
+    (stamps None, counted), its stamp instantiation (stamps the int64
+    buffer) or the named measurement ``entry`` (not counted)."""
     dev = tok_table.device
-    if dev.type == "cpu":
-        return beam_scan_tfm_reference(tok_table, pos_table, layers, lnf_g,
-                                       lnf_b, w_out, b_out, k0s, v0s, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     dt = tok_table.dtype
@@ -173,17 +279,11 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
                                                      torch.bfloat16)))
         if not ok or a.device != dev:
             raise ValueError(f"{name} must be {dt} on {dev}")
-    # one pack per layer in the order of _LAYER_LEAVES, in the storage type;
-    # in bf16 a second, f32 pack of the same layout gives LayerNorm its
-    # parameters
-    pack = torch.cat([lp[blk][leaf].reshape(-1).float() for lp in layers
-                      for blk, leaf in _LAYER_LEAVES])
     k0 = torch.stack(list(k0s)).contiguous()                  # [L, B, D]
     v0 = torch.stack(list(v0s)).contiguous()
-    packs = (pack,) if dt == torch.float32 else (pack.to(dt), pack)
     ins = tuple(_aligned(a) for a in (
-        tok_table, pos_table, *packs, lnf_g.float(), lnf_b.float(),
-        w_out.float(), b_out.float(), k0, v0))
+        tok_table, pos_table, *pack_layers(layers, dt), lnf_g.float(),
+        lnf_b.float(), w_out.float(), b_out.float(), k0, v0))
     ys = torch.empty((B, T, K), dtype=torch.int32, device=dev)
     ptr = torch.empty_like(ys)
     sc = torch.empty((B, T, K), dtype=torch.float32, device=dev)
@@ -195,15 +295,21 @@ def beam_scan_tfm(tok_table, pos_table, layers, lnf_g, lnf_b, w_out, b_out,
     # every lane's own KV rows: [B, K, L, 2, S, D], written once per step
     scratch = torch.empty((B, K, L, 2, S, D), dtype=dt, device=dev)
     lib = build()
-    entry, counter = _ENTRIES[dt]
+    counted = stamps is None and entry is None
+    if entry is None:
+        entry, counter = _ENTRIES[dt]
+        entry = entry if stamps is None else entry + "_stamp"
+    extra = () if stamps is None else (stamps.data_ptr(),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, entry)(
             *(a.data_ptr() for a in ins), scratch.data_ptr(),
             *(o.data_ptr() for o in (ys, ptr, sc, scores, adv, fin)),
-            B, T, K, V, S, L, H, F, int(min_length), int(n_best), stream)
+            B, T, K, V, S, L, H, F, int(min_length), int(n_best), *extra,
+            stream)
     _check(lib, code, f"{entry} launch")
-    setattr(beam_scan_tfm, counter, getattr(beam_scan_tfm, counter) + 1)
+    if counted:
+        setattr(beam_scan_tfm, counter, getattr(beam_scan_tfm, counter) + 1)
     return ys, ptr, sc, scores, adv, fin
 
 

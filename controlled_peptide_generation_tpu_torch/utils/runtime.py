@@ -49,3 +49,28 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Device ms per call of fn by CUDA events, after one warm-up call. A
+    spin kernel holds the stream while the host queues the reps, so the
+    card runs them back to back and the host's launch overhead enters the
+    reading only where the host needs longer per call than the card (the
+    plain versions)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz for 1.5x the host's time to queue the reps
+    torch.cuda._sleep(int(2e9 * min(1.5 * reps * host_s + 1e-3, 2.0)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

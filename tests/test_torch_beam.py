@@ -26,6 +26,7 @@ from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
     build_model as t_build)
 from controlled_peptide_generation_tpu_torch.ops import beam as t_beam
 from controlled_peptide_generation_tpu_torch.ops import beam_kernel
+from controlled_peptide_generation_tpu_torch.ops import cuda_build
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 
 B = 37
@@ -116,3 +117,108 @@ def test_beam_routes(models):
     assert beam_kernel.applicable(tm, 5, torch.float32)
     assert not beam_kernel.applicable(tm, 12, torch.float32)
     assert not beam_kernel.applicable(tm, 5, torch.float16)
+
+
+@pytest.mark.parametrize("H,V", [(102, 24), (14, 13), (127, 128), (1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_layout_transposes_and_pads(H, V, dtype):
+    """The GRU beam kernel's transposed weights (csrc/beam_gru.cu:make_geo):
+    whT[g, j, k] = wh[k, g*H + j] and woT[v, k] = w_out[k, v], zeros
+    elsewhere; NL = ceil(H/4) lanes of 4 units, rows padded to HL = 4 NL
+    and to LDW = 4 x an odd number >= HL, so that the 16-byte loads of 8
+    consecutive rows (a quarter-warp) fall on 8 distinct 16-byte bank
+    groups; the head's columns padded to a multiple of 32."""
+    g = torch.Generator().manual_seed(H * V)
+    wh = torch.randn((H, 3 * H), generator=g).to(dtype)
+    wo = torch.randn((H, V), generator=g).to(dtype)
+    whT, woT = beam_kernel.weight_layout(wh, wo)
+    NL = -(-H // 4)
+    HL, LDW = 4 * NL, whT.shape[2]
+    assert whT.shape == (3, HL, LDW) and woT.shape[1] == LDW
+    assert LDW >= HL and LDW % 4 == 0 and (LDW // 4) % 2 == 1
+    assert woT.shape[0] % 32 == 0 and woT.shape[0] >= V
+    assert {(r * LDW // 4) % 8 for r in range(8)} == set(range(8))
+    assert torch.equal(whT[:, :H, :H],
+                       wh.reshape(H, 3, H).permute(1, 2, 0))
+    assert torch.equal(woT[:V, :H], wo.T)
+    assert whT[:, H:].abs().sum() == 0 and whT[:, :, H:].abs().sum() == 0
+    assert woT[V:].abs().sum() == 0 and woT[:, H:].abs().sum() == 0
+
+
+@pytest.mark.parametrize("H,V", [(102, 24), (14, 13), (127, 128), (1, 5)])
+def test_mma_layout_transposes_and_pads_for_the_tensor_cores(H, V):
+    """The bf16 kernel's tensor-core weights (csrc/beam_gru.cu:make_mgeo),
+    bf16 in and out: whT[g, j, k] = wh[k, g*H + j] and woT[v, k] =
+    w_out[k, v], zeros elsewhere; units and k padded to KP = 16 ceil(H/16),
+    the vocabulary to 16 rows, rows LDK = KP + 8 long, so that ldmatrix's
+    eight 16-byte row reads (rows LDK / 2 words apart) fall on 8 distinct
+    16-byte bank groups."""
+    g = torch.Generator().manual_seed(H * V)
+    wh = torch.randn((H, 3 * H), generator=g).to(torch.bfloat16)
+    wo = torch.randn((H, V), generator=g).to(torch.bfloat16)
+    whT, woT = beam_kernel.mma_layout(wh, wo)
+    KP = 16 * -(-H // 16)
+    LDK = whT.shape[2]
+    assert whT.dtype == woT.dtype == torch.bfloat16
+    assert whT.shape == (3, KP, KP + 8) and woT.shape == (16 * -(-V // 16),
+                                                          LDK)
+    assert {(r * LDK // 2 // 4) % 8 for r in range(8)} == set(range(8))
+    assert torch.equal(whT[:, :H, :H],
+                       wh.reshape(H, 3, H).permute(1, 2, 0))
+    assert torch.equal(woT[:V, :H], wo.T)
+    assert whT[:, H:].abs().sum() == 0 and whT[:, :, H:].abs().sum() == 0
+    assert woT[V:].abs().sum() == 0 and woT[:, H:].abs().sum() == 0
+
+
+def test_read_stamps_splits_cycles_and_waves():
+    """cuda_build.read_stamps on a stamp buffer as the kernels write it:
+    [2] recorded block ids, per record [total cycles, phase cycles], then
+    per block [start ns, end ns]; the blocks that start before the first
+    one ends are the resident ones, and a block's wave is its start's rank
+    over them."""
+    n_ph = len(beam_kernel.STAMP_PHASES)
+    recs = [[0, 1000, 500, 100, 300, 100], [4, 800, 400, 100, 200, 100]]
+    # 5 blocks, 2 resident at once: waves 0, 0, 1, 1, 2
+    times = [0, 10, 1, 11, 10, 20, 11, 21, 20, 30]
+    buf = torch.tensor([0, 4] + recs[0][1:] + recs[1][1:] + times,
+                       dtype=torch.int64)
+    st = cuda_build.read_stamps(buf, beam_kernel.STAMP_PHASES, n_ph)
+    assert (st["grid"], st["slots"], st["span_ns"]) == (5, 2, 30)
+    assert st["waves"] == 2.5
+    assert [(b["block"], b["wave"], b["cycles"]) for b in st["blocks"]] == [
+        (0, 0, 1000), (4, 2, 800)]
+    assert st["blocks"][0]["share"] == dict(zip(
+        beam_kernel.STAMP_PHASES, (0.5, 0.1, 0.3, 0.1)))
+    with pytest.raises(ValueError):
+        cuda_build.read_stamps(buf, beam_kernel.STAMP_PHASES[:3], n_ph)
+
+
+def test_beam_split_names_each_instantiation():
+    """The beam modules' ptxas_report (cuda_build.beam_kernel_name) names
+    the beam kernels' instantiations from ptxas' -v output, as
+    tools/beam_split.py prints them: the type, production or stamp (the
+    last template flag), B1's weights read through L2 (its first flag 0)
+    and B3's products on the tensor cores (its first flag 1)."""
+    from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+    pre = "_ZN44_GLOBAL__N__4128ba18_11_cu_75e952b915"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{pre}{kern}I{typ}{flags}"
+        f"EEvPKT_' for 'sm_90a'\n    0 bytes stack frame, {st} bytes spill "
+        f"stores, {ld} bytes spill loads\nptxas info    : Used {regs} "
+        f"registers, used 1 barriers"
+        for kern, typ, flags, regs, st, ld in (
+            ("beam_gru_mma_kernel", "13__nv_bfloat16", "Lb1ELb0E", 121, 0,
+             0),
+            ("beam_gru_mma_kernel", "13__nv_bfloat16", "Lb0ELb0E", 128, 40,
+             108),
+            ("beam_gru_kernel", "f", "Lb0ELb1E", 200, 4, 8),
+            ("tfm_beam_kernel", "f", "Lb0ELb1E", 128, 32, 80),
+            ("tfm_beam_kernel", "13__nv_bfloat16", "Lb1ELb0E", 128, 12, 12)))
+    assert beam_kernel.ptxas_report(log) == tfm_beam_kernel.ptxas_report(
+        log) == {
+        "beam_gru_mma_kernel<bf16, production>": (121, 0, 0),
+        "beam_gru_mma_kernel<bf16, production, weights via L2>": (128, 40,
+                                                                  108),
+        "beam_gru_kernel<f32, stamp, weights via L2>": (200, 4, 8),
+        "tfm_beam_kernel<f32, stamp>": (128, 32, 80),
+        "tfm_beam_kernel<bf16, production, tensor cores>": (128, 12, 12)}

@@ -225,3 +225,134 @@ def test_mmd_kernels_match_plain_versions_on_the_card():
         assert torch.isnan(v) and torch.isnan(ga).all()
     assert mmd_kernel.mmd_full_fwd.launches >= 9
     assert mmd_kernel.mmd_full_bwd.launches >= 15
+
+
+def _beam_cases(dev):
+    """(tag, scan, stamped, plain, inputs of batch B, dims) of B1 and B3 at
+    the shipped widths, seeded random weights, f32 and bf16 (the weight
+    tree cast as --hw.gen_dtype bfloat16 casts it)."""
+    from controlled_peptide_generation_tpu_torch import config as C
+    from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
+        build_model)
+    from controlled_peptide_generation_tpu_torch.ops import beam
+    from controlled_peptide_generation_tpu_torch.ops import beam_kernel
+    from controlled_peptide_generation_tpu_torch.ops import nn
+    from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+    tfm = ["--model.E_args.E_class", "transformer", "--model.G_args.G_class",
+           "transformer"]
+    for fam, flags in (("B1", []), ("B3", tfm)):
+        cfg, _, _ = C.parse_and_finalize(flags)
+        model = build_model(cfg.model, 24, 25)
+        g = torch.Generator(device=dev).manual_seed(0)
+        params = model.init_params(g, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            p = params if dt == torch.float32 else nn.cast_tree(params, dt)
+
+            def inputs(B, model=model, p=p):
+                gz = torch.Generator(device=dev).manual_seed(1)
+                z = torch.randn((B, model.z_dim), generator=gz, device=dev)
+                c = model.sample_c_prior(gz, B, device=dev)
+                return beam.decode_inputs(model, p, z, c)
+
+            kern = (tfm_beam_kernel if fam == "B3" else beam_kernel)
+            scan = (kern.beam_scan_tfm if fam == "B3"
+                    else kern.beam_scan_gru)
+            stamped = (kern.beam_scan_tfm_stamped if fam == "B3"
+                       else kern.beam_scan_gru_stamped)
+            plain = (kern.beam_scan_tfm_reference if fam == "B3"
+                     else kern.beam_scan_gru_reference)
+            yield f"{fam} {dt}", scan, stamped, plain, inputs, dt
+
+
+@pytest.mark.cuda
+def test_beam_kernels_at_partial_waves_and_uneven_batches_on_the_card():
+    """On the card: B1 and B3, f32 and bf16, against their plain versions
+    at batches that leave the last wave or round of the grid partial
+    (1,500 and 2,500) and that are no multiple of the sentences per block
+    (37, 1,001): f32 >= 99% identical token rows with final scores within
+    1e-3 on them, bf16 >= 70% identical rows at T 25 (chip_smoke.py's
+    gates); and every batch's rows equal the first rows of the largest
+    bitwise (batch invariance across plans)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for tag, scan, _, plain, inputs, dt in _beam_cases(dev):
+        outs = {}
+        for B in (2500, 1500, 1001, 37):
+            ins, dims = inputs(B)
+            kw = dict(T=25, K=5, V=24, min_length=1, n_best=1, **dims)
+            got = scan(*ins, **kw)
+            ref = plain(*ins, **kw)
+            torch.cuda.synchronize()
+            same = ((got[0] == ref[0]).all(dim=(1, 2))
+                    & (got[1] == ref[1]).all(dim=(1, 2)))
+            if dt == torch.float32:
+                assert same.float().mean().item() >= 0.99, (tag, B)
+                assert (got[3] - ref[3]).abs()[same].max().item() <= 1e-3
+            else:
+                assert same.float().mean().item() >= 0.70, (tag, B)
+            outs[B] = got
+        for B in (1500, 1001, 37):
+            assert all(torch.equal(a[:B], b) for a, b in
+                       zip(outs[2500], outs[B])), (tag, B)
+
+
+@pytest.mark.cuda
+def test_stamp_entries_give_the_production_tapes_on_the_card():
+    """On the card: the stamp entries (the kernels compiled with their
+    phase clocks, for measurement only) give the production entries' tapes
+    bitwise, count no launch, and report a share for every phase that sums
+    to at most 1 for each recorded block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    dev = torch.device("cuda")
+    for tag, scan, stamped, _, inputs, _ in _beam_cases(dev):
+        ins, dims = inputs(1001)
+        kw = dict(T=25, K=5, V=24, min_length=1, n_best=1, **dims)
+        counts = (scan.launches, scan.launches_bf16)
+        got, st = stamped(*ins, **kw)
+        assert (scan.launches, scan.launches_bf16) == counts
+        want = scan(*ins, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), tag
+        assert st["blocks"] and st["grid"] >= 1
+        for b in st["blocks"]:
+            assert 0.99 <= sum(b["share"].values()) <= 1.0 + 1e-9, tag
+
+
+@pytest.mark.cuda
+def test_tfm_tensor_core_variant_runs_uncounted_on_the_card():
+    """On the card: the measurement entry of B3 with its bf16 products on
+    the tensor cores (tfm_beam_bf16_mma, tools/tfm_beam_mma.py) decodes the
+    shipped width, counts no launch, agrees with the plain version at T 1
+    on >= 99% of rows (bf16 gate (b)), gives the rows of a smaller batch
+    bitwise, and raises on f32 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+    dev = torch.device("cuda")
+    cases = {tag: (plain, inputs) for tag, _, _, plain, inputs, _ in
+             _beam_cases(dev)}
+    plain, inputs = cases[f"B3 {torch.bfloat16}"]
+    counts = (tfm_beam_kernel.beam_scan_tfm.launches,
+              tfm_beam_kernel.beam_scan_tfm.launches_bf16)
+    outs = {}
+    for B in (1001, 37):
+        ins, dims = inputs(B)
+        kw = dict(T=1, K=5, V=24, min_length=1, n_best=1, **dims)
+        got = tfm_beam_kernel.beam_scan_tfm_mma(*ins, **kw)
+        ref = plain(*ins, **kw)
+        torch.cuda.synchronize()
+        same = ((got[0] == ref[0]).all(dim=(1, 2))
+                & (got[1] == ref[1]).all(dim=(1, 2)))
+        assert same.float().mean().item() >= 0.99, B
+        assert torch.isfinite(got[3]).all()
+        outs[B] = got
+    assert all(torch.equal(a[:37], b) for a, b in zip(outs[1001], outs[37]))
+    assert (tfm_beam_kernel.beam_scan_tfm.launches,
+            tfm_beam_kernel.beam_scan_tfm.launches_bf16) == counts
+    ins32, dims32 = cases[f"B3 {torch.float32}"][1](37)
+    with pytest.raises(NotImplementedError):
+        tfm_beam_kernel.beam_scan_tfm_mma(*ins32, T=1, K=5, V=24,
+                                          min_length=1, n_best=1, **dims32)

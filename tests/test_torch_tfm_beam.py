@@ -131,3 +131,69 @@ def test_kernel_route_takes_cpu_or_cuda_tensors_only():
             torch.empty((13, 128), device=meta), None, [], None, None, None,
             None, rows, rows, T=10, K=5, V=13, S=11, H=4, F=256,
             min_length=1, n_best=1)
+
+
+@pytest.mark.parametrize("Kd,N", [(128, 384), (128, 128), (256, 128),
+                                  (128, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_tiles_unpack_to_the_matrix(Kd, N, dtype):
+    """The kernel's pre-tiled products' matrices hold the checkpoint's
+    values: untiling gives the matrix back, and the value lane (rg, cg)
+    of warp w reads at 4-k step kk of a 128-column chunk is
+    w[4kk + kq, 128n + 16w + 2cg + c] (csrc/tfm_beam.cu:gemm)."""
+    g = torch.Generator().manual_seed(Kd + N)
+    w = torch.randn((Kd, N), generator=g)
+    tiles = tfm_beam_kernel.weight_tiles(w, dtype)
+    assert tiles.dtype == dtype and tiles.numel() == Kd * N
+    assert torch.equal(tfm_beam_kernel.weight_untile(tiles, Kd, N),
+                       w.to(dtype))
+    t = tiles.reshape(N // 128, 8, Kd // 4, 8, 2, 4)
+    for n, wp, kk, cg, c, kq in ((0, 0, 0, 0, 0, 0),
+                                 (N // 128 - 1, 7, Kd // 4 - 1, 7, 1, 3),
+                                 (0, 3, 5, 2, 1, 2)):
+        assert t[n, wp, kk, cg, c, kq] == w[4 * kk + kq,
+                                            128 * n + 16 * wp + 2 * cg + c
+                                            ].to(dtype)
+
+
+@pytest.mark.parametrize("F", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_layers_unpacks_to_the_leaves(F, dtype):
+    """pack_layers: per layer the four products' matrices tiled, then
+    their biases, at the kernel's layer_off offsets (in elements); the
+    LayerNorm pack ln1 g, b, ln2 g, b per layer in f32."""
+    D = 128
+    g = torch.Generator().manual_seed(F)
+    shapes = {"qkv": (D, 3 * D), "attn_out": (D, D), "ff1": (D, F),
+              "ff2": (F, D)}
+    layers = [{blk: {"w": torch.randn(s, generator=g),
+                     "b": torch.randn((s[1],), generator=g)}
+               for blk, s in shapes.items()} for _ in range(2)]
+    for lp in layers:
+        for ln in ("ln1", "ln2"):
+            lp[ln] = {"g": torch.randn((D,), generator=g),
+                      "b": torch.randn((D,), generator=g)}
+    wpack, lnpack = tfm_beam_kernel.pack_layers(layers, dtype)
+    size = sum(a * b for a, b in shapes.values()) + 3 * D + D + F + D
+    assert wpack.dtype == dtype and wpack.numel() == 2 * size
+    assert lnpack.dtype == torch.float32 and lnpack.numel() == 2 * 4 * D
+    for l, lp in enumerate(layers):
+        off = l * size
+        for blk, (kd, n) in shapes.items():
+            got = tfm_beam_kernel.weight_untile(wpack[off:off + kd * n], kd,
+                                                n)
+            assert torch.equal(got, lp[blk]["w"].to(dtype)), blk
+            off += kd * n
+        for blk, (_, n) in shapes.items():
+            assert torch.equal(wpack[off:off + n], lp[blk]["b"].to(dtype))
+            off += n
+        ln = torch.cat([lp[b][x] for b, x in tfm_beam_kernel._LN_LEAVES])
+        assert torch.equal(lnpack[l * 4 * D:(l + 1) * 4 * D], ln)
+
+
+def test_stamp_phases_name_the_kernel_phases():
+    """The phase names the stamp report uses, in the kernel's enum order
+    (embed, the eight per-layer phases, head, selection, reorder)."""
+    assert tfm_beam_kernel.STAMP_PHASES == (
+        "embed", "ln1", "qkv", "kv write", "attention", "out", "ln2", "ff1",
+        "ff2", "final ln + head", "selection", "reorder")
