@@ -12,8 +12,10 @@ Phases, each raising on failure (the script then exits non-zero):
    the WAE-MMD kernels (csrc/mmd_full.cu) with nvcc, one process per
    source, started together before torch is imported, so the imports and
    the device's start-up run meanwhile; prints ptxas' registers and spills,
-   and for the GRU scan's instantiations at H 80, 102 and 128 and the
-   weight-gradient kernel (from gru_kernel.build_log) fails on any spill;
+   and for the GRU scan's instantiations (forward-only and the training
+   forward's with residual stores), the backward's at H 80, 102 and 128
+   and the weight-gradient kernel (from gru_kernel.build_log) fails on any
+   spill;
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -45,26 +47,33 @@ Phases, each raising on failure (the script then exits non-zero):
    wave each ran in, and the stamp entry's tapes bitwise equal to the
    production entry's; ptxas' registers and spills of every production
    and stamp instantiation;
-4. the GRU recurrence kernels (forward, backward, weight gradient) vs
-   their plain versions at the encoder and decoder widths (in 150, H 80;
-   in 252, H 102), T 25, B in B2_BATCHES, and at the scope edges
-   (B2_SCOPE_CASES): hs within 1e-4, each gradient within 1e-3 of its
-   largest entry, the backward bitwise repeatable; at B 32 of each width,
-   gru_scan through autograd in both directions against the same scan
-   inside cuda_build.plain(), all six gradients; at B 32 and 1,024 of the
-   decoder width, two weight-gradient runs bitwise equal and within 1e-3
-   of one torch.mm's largest entry;
+4. the GRU recurrence kernels (the training forward with its residual
+   tape, the backward, the weight gradient) vs their plain versions at the
+   encoder and decoder widths (in 150, H 80; in 252, H 102), T 25, B in
+   B2_BATCHES, and at the scope edges (B2_SCOPE_CASES): hs and the
+   residuals within 1e-4, each gradient within 1e-3 of its largest entry
+   against both plain versions of the backward (the chain given the
+   kernel forward's residuals, and the full recompute), the backward
+   bitwise repeatable; at B 32 of each width, gru_scan through autograd in
+   both directions against the same scan inside cuda_build.plain(), all
+   six gradients; at B 32 and 1,024 of both widths, two weight-gradient
+   runs bitwise equal and within 1e-3 of one torch.mm's largest entry;
 4b. the forward-only scan (B4) vs its plain version at both widths, T 25,
    both directions, B in B4_BATCHES (the tape a strided view, as gru_scan
    passes it) and at the scope edges: hs and h_T within 1e-4; B 20000's
-   first B rows equal every smaller B bitwise (1 to 8 rows per block); B2's forward (the same scan
-   kernel through its training entry) equal to B4's hs bitwise at B 32;
+   first B rows equal every smaller B bitwise (1 to 8 rows per block);
+   B2's forward (the same scan through its training entry, with and
+   without its residual stores) equal to B4's hs bitwise at B 32;
 4m. the WAE-MMD kernels (B5, value and gradient) vs their plain versions
    for the gaussian, laplace and energy forms at N in B5_NS, D 100, and at
    D 1 and the scope's largest D 256: the value within 1e-5, both
    gradients within 1e-4 of their largest entry, bitwise repeatable; at
    N 1 (a batch of one row) the value and both gradients NaN, as the plain
-   versions give;
+   versions give; 200 value calls interleaving N in B5_LOOP_NS (one block
+   and many), each N's values bitwise equal call to call (the completion
+   counter resets); one call at N 32 and one at 4096 captured in a CUDA
+   graph hold one kernel node each (no finish launch, no memset), and ten
+   replays give the eager value's bits and leave the counter at 0;
 5. the CLaSS main path: the pipeline (pipeline.run_from_states, what
    sample_pipeline runs after its file reads) on a run dir holding a
    seeded full-width checkpoint written by the port's saver, with a
@@ -108,12 +117,14 @@ Phases, each raising on failure (the script then exits non-zero):
    run (the states dump from memory: the card has no h5py): B4 twice per
    encode batch, the bf16 B1 entry launched, accepted samples written;
 7. prints times beside the card's name and power limit (kernels, their
-   plain versions and bounds, cuDNN's GRU, the cuBLAS product that the
-   weight-gradient kernel computes, each GRU kernel's ratio to its library
-   call and the scans' us per step, B4 and B5, train steps/s of both
-   families, the transformer beam and round times, the bf16 kernels and
-   rounds, seconds per phase), a
-   `kernels` JSON line, and as the last line {"ok": true, "device":
+   plain versions and bounds; B2's training forward with and without its
+   residual stores, backward and weight gradient at B 32 and 1,024 at
+   both widths, beside cuDNN's GRU forward, whole backward and data
+   backward (input and h0 only) and the cuBLAS product that the
+   weight-gradient kernel computes, and B2's launches x (time - bound) a
+   GRU step; B4 and B5; train steps/s of both families, the transformer
+   beam and round times, the bf16 kernels and rounds, seconds per phase),
+   a `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
 """
 
@@ -168,6 +179,10 @@ B4_BATCHES = (1, 5, 32, 37, 1024, 4096, 20000)
 B5_NS = (2, 5, 32, 37, 256, 1024, 4096)
 B5_EDGES = ((2, 1), (37, 1), (1024, 1), (2, 256), (37, 256), (1024, 256))
 B5_FORMS = ("gaussian", "laplace", "energy")
+# the value's completion counter: calls interleaving one-block and many-
+# block N, each N's values bitwise equal call to call
+B5_LOOP_NS = (32, 37, 1024, 2)
+B5_LOOP_CALLS = 200
 MAX_MMD_DELTA = 1e-5     # fp64-accumulated pair sums against torch's fp32
 MAX_MMD_GRAD_REL = 1e-4  # of each gradient's largest entry
 MMD_ITERS = 50           # the short --vae.z_regu_loss mmd run (B5 backward)
@@ -243,17 +258,18 @@ def b2_bound_ms(kind, T_, B, H):
     """Least time of a B2 kernel at these shapes: the larger of its fp32
     FMAs over the fp32 peak and its inputs read once plus outputs written
     once over the HBM rate. fwd: the recurrent product per step (2 B 3H^2
-    FLOP), gi/wh/bh/h0 in, hs out; bwd: the gate recompute and
-    dgh @ wh^T (twice the forward's), gi/wh/bh/h0/hs/dhs in, dgi/dghn/dh0
-    out; wgrad: h_{t-1}^T dgh over T*B rows, h0/hs/dgi/dghn in, dwh/dbh
-    out."""
+    FLOP), gi/wh/bh/h0 in, hs and the residual tape [T, B, H, 4] out (the
+    tape is not in the JAX forward's function: it moves work from the
+    backward, so the pair fwd + bwd is the fair yardstick); bwd: dgh @
+    wh^T per step (as many FLOP), wh/h0/hs/res/dhs in, dgi/dghn/dh0 out;
+    wgrad: h_{t-1}^T dgh over T*B rows, h0/hs/dgi/dghn in, dwh/dbh out."""
     tb, g3 = T_ * B, 3 * H
     if kind == "fwd":
         flops = 2 * tb * H * g3
-        words = tb * g3 + H * g3 + g3 + B * H + tb * H
+        words = tb * g3 + H * g3 + g3 + B * H + tb * H + tb * 4 * H
     elif kind == "bwd":
-        flops = 4 * tb * H * g3
-        words = (tb * g3 + H * g3 + g3 + B * H + 2 * tb * H
+        flops = 2 * tb * H * g3
+        words = (H * g3 + B * H + tb * H + tb * 4 * H + tb * H
                  + tb * g3 + tb * H + B * H)
     else:
         flops = 2 * tb * (H + 1) * g3
@@ -372,16 +388,24 @@ def main():
             if "Compiling entry" in line or "registers" in line or (
                     "spill" in line):
                 log(f"    ptxas: {line.strip()}")
-    # the GRU scan's instantiations at each plan width and the weight
-    # gradient's: the scan keeps wh in registers, so no spill is allowed
+    # the GRU scan's instantiations at each plan width (forward-only and
+    # the training forward's, with residual stores), the backward's and the
+    # weight gradient's: the scan and the backward keep wh in registers, so
+    # no spill is allowed
     usage = gru_kernel.ptxas_report()
     spilled = {k: v for k, v in usage.items() if v[1] or v[2]}
     for H_ in PTXAS_WIDTHS:
         sp = gru_kernel.launch_plan(1, H_)["scan"]
-        for name, (regs, st, ld) in usage.items():
-            if name.startswith(f"gru_scan_kernel<{sp['KS']}, {sp['S']},"):
-                log(f"[2] H {H_}: {name} (KS, S, R) {regs} registers, spill "
-                    f"stores {st} B, spill loads {ld} B")
+        prefix = f"{sp['KS']}, {sp['S']},"
+        found = [n for n in usage if n.startswith((
+            f"gru_scan_kernel<{prefix}", f"gru_bwd_kernel<{prefix}"))]
+        if not any(n.startswith("gru_bwd") for n in found):
+            raise AssertionError(f"no ptxas report of the backward at H "
+                                 f"{H_} ({sorted(usage)})")
+        for name in sorted(found):
+            regs, st, ld = usage[name]
+            log(f"[2] H {H_}: {name} (KS, S, R) {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
     for name, (regs, st, ld) in usage.items():
         if name.startswith("gru_wgrad_kernel"):
             log(f"[2] {name} (floats per copy) {regs} registers, spill "
@@ -806,41 +830,62 @@ def main():
         return ((got - want).abs().max()
                 / want.abs().max().clamp_min(1e-30)).item()
 
+    def plan_line(B, H):
+        """The recurrence kernels' shared plan and each one's grid."""
+        pl = gru_kernel.launch_plan(B, H)
+        sp = pl["bwd"]
+        return (f"S {sp['S']} KS {sp['KS']} R {sp['rows']}, {sp['threads']} "
+                f"threads, {sp['tiles']} tiles, grids (scan, training "
+                f"forward, backward) {pl['scan']['grid']}, "
+                f"{pl['train_fwd']['grid']}, {sp['grid']}")
+
     def b2_case(I, H, B, T_, what, scan=False):
-        """Forward, backward and weight-gradient kernels against their plain
-        versions on the same inputs, the backward twice (bitwise equal);
-        with ``scan``, gru_scan through autograd too, both directions,
-        kernels against cuda_build.plain()."""
+        """The training forward (hs and its residual tape), the backward
+        and the weight gradient against their plain versions on the same
+        inputs: the backward against both, the chain given the kernel
+        forward's residuals and the full recompute; the backward twice
+        (bitwise equal); with ``scan``, gru_scan through autograd too, both
+        directions, kernels against cuda_build.plain()."""
         p = gru_ops.init_gru_params(gb, I, H, dev)
         xs = torch.randn((B, T_, I), generator=gb, device=dev)
         h0 = 0.5 * torch.randn((B, H), generator=gb, device=dev)
         gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1).contiguous()
-        hs = gru_kernel.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
-        hs_ref = gru_kernel.gru_seq_reference(p["wh"], p["bh"], gi, h0)
+        hs, res = gru_kernel.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
+        hs_ref, res_ref = gru_kernel.gru_seq_res_reference(p["wh"], p["bh"],
+                                                           gi, h0)
         dhs = torch.randn(hs.shape, generator=gb, device=dev)
         runs = []
         for _ in range(2):
-            dgi, dghn, dh0 = gru_kernel.gru_seq_bwd(p["wh"], p["bh"], gi, h0,
-                                                    hs, dhs)
+            dgi, dghn, dh0 = gru_kernel.gru_seq_bwd(p["wh"], h0, hs, res,
+                                                    dhs)
             runs.append(gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
                         + (dgi, dh0))
-        ref = gru_kernel.gru_seq_bwd_reference(p["wh"], p["bh"], gi, h0, hs,
-                                               dhs)
+        dgi_c, dghn_c, dh0_c = gru_kernel._bwd_chain_reference(
+            p["wh"], h0, hs, res, dhs)
+        refs = {"chain": gru_kernel._wgrad_reference(h0, hs, dgi_c, dghn_c)
+                + (dgi_c, dh0_c),
+                "recompute": gru_kernel.gru_seq_bwd_reference(
+                    p["wh"], p["bh"], gi, h0, hs, dhs)}
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(*runs))
-        e_hs = (hs - hs_ref).abs().max().item()
-        errs = {n: rel_err(a, b) for n, a, b in zip(
-            ("dwh", "dbh", "dgi", "dh0"), runs[0], ref)}
+        e_hs = max((hs - hs_ref).abs().max().item(),
+                   (res - res_ref).abs().max().item())
+        errs = {f"{n} vs {kind}": rel_err(a, b) for kind, ref in refs.items()
+                for n, a, b in zip(("dwh", "dbh", "dgi", "dh0"), runs[0],
+                                   ref)}
         b2_err["fwd"] = max(b2_err["fwd"], e_hs)
-        b2_err["wgrad"] = max(b2_err["wgrad"], *(
-            (a - b).abs().max().item() for a, b in zip(runs[0][:2], ref[:2])))
-        b2_err["bwd"] = max(b2_err["bwd"], *(
-            (a - b).abs().max().item() for a, b in zip(runs[0][2:], ref[2:])))
+        for ref in refs.values():
+            b2_err["wgrad"] = max(b2_err["wgrad"], *(
+                (a - b).abs().max().item()
+                for a, b in zip(runs[0][:2], ref[:2])))
+            b2_err["bwd"] = max(b2_err["bwd"], *(
+                (a - b).abs().max().item()
+                for a, b in zip(runs[0][2:], ref[2:])))
         w = torch.randn((B, T_, H), generator=gb, device=dev)
         w_last = torch.randn((B, H), generator=gb, device=dev)
         scan_errs = {}
         for reverse in (False, True) if scan else ():
-            res = []
+            outs = []
             for plain in (False, True):
                 leaves = [p[k].detach().requires_grad_() for k in grad_names[:4]]
                 x = xs.detach().requires_grad_()
@@ -850,10 +895,10 @@ def main():
                     out, last = gru_ops.gru_scan(
                         dict(zip(grad_names, leaves)), x, h, reverse=reverse)
                     loss = (out * w).sum() + (last * w_last).sum()
-                    res.append((out.detach(), torch.autograd.grad(
+                    outs.append((out.detach(), torch.autograd.grad(
                         loss, leaves + [x, h])))
-            e_scan = (res[0][0] - res[1][0]).abs().max().item()
-            g_errs = [rel_err(a, b) for a, b in zip(res[0][1], res[1][1])]
+            e_scan = (outs[0][0] - outs[1][0]).abs().max().item()
+            g_errs = [rel_err(a, b) for a, b in zip(outs[0][1], outs[1][1])]
             scan_errs["reverse" if reverse else "forward"] = (e_scan,
                                                               max(g_errs))
             if e_scan > MAX_HS_DELTA or max(g_errs) > MAX_GRAD_REL:
@@ -861,20 +906,22 @@ def main():
                     f"gru_scan kernels vs cuda_build.plain() disagree "
                     f"({what}, reverse={reverse}): hs {e_scan:.3e}, grads "
                     f"{dict(zip(grad_names, g_errs))}")
-        log(f"[4] {what}: |hs delta| {e_hs:.3e}; backward rel errors "
+        log(f"[4] {what}: max |hs, residual delta| {e_hs:.3e}; backward "
+            f"rel errors "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f"; backward bitwise repeatable {bitwise}"
             + ("; gru_scan vs cuda_build.plain() (|hs delta|, max grad rel "
                "error): " + ", ".join(f"{k} {a:.3e} {b:.3e}" for k, (a, b)
                                        in scan_errs.items())
                if scan else "")
-            + f"; plans {gru_kernel.launch_plan(B, H)}, wgrad "
+            + f"; plan {plan_line(B, H)}, wgrad "
             f"{gru_kernel.wgrad_plan(T_, B, H)}")
         if (e_hs > MAX_HS_DELTA or max(errs.values()) > MAX_GRAD_REL
                 or not bitwise):
             raise AssertionError(
                 f"B2 kernels disagree with their plain versions ({what}): "
-                f"hs {e_hs:.3e} (limit {MAX_HS_DELTA}), grads {errs} (limit "
+                f"hs and residuals {e_hs:.3e} (limit {MAX_HS_DELTA}), grads "
+                f"{errs} (limit "
                 f"{MAX_GRAD_REL} of each tensor's max), bitwise {bitwise}")
 
     for I, H_ in B2_WIDTHS:
@@ -885,17 +932,18 @@ def main():
         b2_case(I, H_, B, T_, f"B2 scope in {I} H {H_} T {T_} B {B}")
     mark("4a B2 kernels vs plain")
 
-    b2_times = {}
-    for B in (32, 1024):
-        I, H_ = B2_WIDTHS[1]
+    def b2_timing(I, H_, B):
+        """Times of B2's kernels (the training forward with its residual
+        stores, beside B4, the same scan without them, on the same tape; the
+        backward; the weight gradient), their plain versions and bounds, and
+        of the library calls beside them, at one width and batch, T 25."""
         p = gru_ops.init_gru_params(gb, I, H_, dev)
         xs = torch.randn((B, T, I), generator=gb, device=dev)
         h0 = 0.5 * torch.randn((B, H_), generator=gb, device=dev)
         gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1).contiguous()
-        hs = gru_kernel.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
+        hs, res = gru_kernel.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
         dhs = torch.randn(hs.shape, generator=gb, device=dev)
-        dgi, dghn, _ = gru_kernel.gru_seq_bwd(p["wh"], p["bh"], gi, h0, hs,
-                                              dhs)
+        dgi, dghn, _ = gru_kernel.gru_seq_bwd(p["wh"], h0, hs, res, dhs)
         args = (p["wh"], p["bh"], gi, h0)
         # the weight gradient as one cuBLAS product: [h_{t-1} | 1]^T dgh
         # gives dwh and, in its last row, dbh
@@ -919,10 +967,14 @@ def main():
                                  f"{w_rel:.3e} of torch.mm's largest entry")
         kern = {
             "fwd": (lambda: gru_kernel.gru_seq_fwd(*args),
-                    lambda: gru_kernel.gru_seq_reference(*args)),
-            "bwd": (lambda: gru_kernel.gru_seq_bwd(*args, hs, dhs),
-                    lambda: gru_kernel._bwd_recurrence_reference(*args, hs,
-                                                                 dhs)),
+                    lambda: gru_kernel.gru_seq_res_reference(*args)),
+            # the same scan without residual stores: B4, on the same tape
+            "fwd_nores": (lambda: gru_fwd_kernel.gru_fwd(*args),
+                          lambda: gru_fwd_kernel.gru_fwd_reference(*args)),
+            "bwd": (lambda: gru_kernel.gru_seq_bwd(p["wh"], h0, hs, res,
+                                                   dhs),
+                    lambda: gru_kernel._bwd_chain_reference(p["wh"], h0, hs,
+                                                            res, dhs)),
             "wgrad": (lambda: gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn),
                       lambda: gru_kernel._wgrad_reference(h0, hs, dgi,
                                                           dghn)),
@@ -942,6 +994,14 @@ def main():
         lib_delta = (lib_out - scan_out).abs().max().item()
         xg = xs.detach().requires_grad_()
         lib_loss = (cudnn(xg, h0[None])[0] * dhs.transpose(0, 1)).sum()
+        # cuDNN's data gradient alone: the input and h0 only, the weights
+        # not requiring grad (what gru_bwd_kernel computes, with the input
+        # projection's backward beside it)
+        cudnn_d = torch.nn.GRU(I, H_, batch_first=True).to(dev)
+        cudnn_d.load_state_dict(cudnn.state_dict())
+        cudnn_d.requires_grad_(False)
+        h0g = h0[None].detach().requires_grad_()
+        data_loss = (cudnn_d(xg, h0g)[0] * dhs.transpose(0, 1)).sum()
         leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
         scan_loss = (gru_ops.gru_scan(leaves, xg, h0)[0]
                      * dhs.transpose(0, 1)).sum()
@@ -958,14 +1018,17 @@ def main():
                     fn()
             return run
 
-        b2_times[B] = {
-            k: (cuda_ms(a, 50), cuda_ms(b, 5), b2_bound_ms(k, T, B, H_))
-            for k, (a, b) in kern.items()}
-        b2_times[B]["library"] = {
+        times = {k: (cuda_ms(a, 50), cuda_ms(b, 5),
+                     b4_bound_ms(T, B, H_) if k == "fwd_nores"
+                     else b2_bound_ms(k, T, B, H_))
+                 for k, (a, b) in kern.items()}
+        times["library"] = {
             "cudnn_fwd": cuda_ms(no_grad(lambda: cudnn(xs, h0[None])), 20),
             "cudnn_bwd": cuda_ms(lambda: torch.autograd.grad(
                 lib_loss, [xg] + list(cudnn.parameters()),
                 retain_graph=True), 20),
+            "cudnn_bwd_data": cuda_ms(lambda: torch.autograd.grad(
+                data_loss, [xg, h0g], retain_graph=True), 20),
             "cudnn_fwd_bwd": cuda_ms(fwd_bwd(
                 lambda: cudnn(xg, h0[None])[0],
                 [xg] + list(cudnn.parameters())), 20),
@@ -980,6 +1043,12 @@ def main():
             "cudnn_vs_scan_delta": lib_delta,
             "wgrad_mm": cuda_ms(lambda: torch.mm(hprev1.T, dgh), 50),
             "wgrad_mm_delta": wgrad_delta}
+        return times
+
+    b2_times = {}
+    for I, H_ in B2_WIDTHS:
+        for B in (32, 1024):
+            b2_times[H_, B] = b2_timing(I, H_, B)
     mark("4a B2 timings")
 
     # ---- 4b. B4: the forward-only scan vs its plain version ---------------
@@ -1035,12 +1104,14 @@ def main():
                                      f"{H_} reverse {reverse}): B {off} "
                                      f"differ from B {big}'s first rows")
             if not reverse:
-                # B2's forward is the same scan kernel on a contiguous tape
-                hs2 = gru_kernel.gru_seq_fwd(p["wh"], p["bh"],
-                                             gi_all[:, :32].contiguous(),
-                                             h0[:32])
+                # B2's training forward is the same scan on a contiguous
+                # tape, with its residual stores
+                hs2, _ = gru_kernel.gru_seq_fwd(p["wh"], p["bh"],
+                                                gi_all[:, :32].contiguous(),
+                                                h0[:32])
                 same = torch.equal(hs2, outs4[32][0])
-                log(f"[4b] B2's forward == B4's hs at B 32, bitwise {same}")
+                log(f"[4b] B2's training forward (with its residual stores) "
+                    f"== B4's hs at B 32, bitwise {same}")
                 if not same:
                     raise AssertionError("B2's forward and B4 differ on the "
                                          "same tape")
@@ -1114,6 +1185,57 @@ def main():
         log(f"[4m] B5 {form} (N x D: |value delta|, max gradient error of "
             f"its max), every case bitwise repeatable: " + "; ".join(res))
     mark("4m B5 vs plain")
+
+    # the value is one launch whose last block resets the completion
+    # counter: calls at interleaved N (one block and many) give each N's
+    # bits every time, and a call puts one kernel and no memset on the card
+    pairs = {N: (0.8 * torch.randn((N, 100), generator=gb, device=dev) + 0.1,
+                 torch.randn((N, 100), generator=gb, device=dev))
+             for N in B5_LOOP_NS}
+    vals = {N: [] for N in B5_LOOP_NS}
+    for _ in range(B5_LOOP_CALLS // len(B5_LOOP_NS)):
+        for N, (z1, z2) in pairs.items():
+            vals[N].append(mmd_kernel.mmd_full_fwd(z1, z2, 7.0))
+    vals = {N: torch.stack(v) for N, v in vals.items()}
+    loop_same = all(bool((v == v[0]).all()) for v in vals.values())
+    loop_err = max(abs(vals[N][0].item() - mmd_kernel.mmd_full_reference(
+        *pairs[N], 7.0).item()) for N in B5_LOOP_NS)
+    # one call captured in a CUDA graph (its stream's counter made first):
+    # the graph must hold one kernel node and no memset or copy, and its
+    # replays must give the eager value's bits and leave the counter at 0
+    big = [torch.randn((4096, 100), generator=gb, device=dev)
+           for _ in range(2)]
+    graph_lines, graph_ok = [], True
+    for z1, z2 in (pairs[32], big):
+        want = mmd_kernel.mmd_full_fwd(z1, z2, 7.0)
+        side = torch.cuda.Stream(z1.device)
+        count = mmd_kernel._counter(z1.device, side.cuda_stream)
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=side):
+            got = mmd_kernel.mmd_full_fwd(z1, z2, 7.0)
+        kinds = runtime.graph_node_kinds(graph.raw_cuda_graph())
+        graph.instantiate()
+        replays = []
+        for _ in range(10):
+            graph.replay()
+            replays.append(got.clone())
+        torch.cuda.synchronize()
+        same = all(torch.equal(r, want) for r in replays)
+        graph_ok &= (kinds == ["kernel"] and same and count.item() == 0)
+        graph_lines.append(f"N {z1.shape[0]}: graph nodes {kinds}, 10 "
+                           f"replays == the eager value bitwise {same}, "
+                           f"counter after {count.item()}")
+    log(f"[4m] B5 value, {sum(len(v) for v in vals.values())} calls "
+        f"interleaving N {B5_LOOP_NS}: each N's values bitwise equal call to "
+        f"call {loop_same}, max |delta| against the plain version "
+        f"{loop_err:.3e}; one call captured in a CUDA graph: "
+        + "; ".join(graph_lines))
+    if not loop_same or loop_err > MAX_MMD_DELTA or not graph_ok:
+        raise AssertionError(f"B5's one-launch value: bitwise {loop_same}, "
+                             f"error {loop_err:.3e}, graphs {graph_lines} "
+                             f"(want one kernel node a call)")
+    mark("4m-b B5 value: counter loop, one launch")
 
     # ---- 5. main path: the CLaSS round ------------------------------------
     rng = np.random.default_rng(4)
@@ -1622,37 +1744,59 @@ def main():
                 f"{st['seconds']:.4f} s over {st['rounds']} consumed "
                 f"round(s), {st['rounds_launched']} launched: too short a "
                 f"window for an accepted-samples/s metric")
-    for B, t in b2_times.items():
+    for (H_, B), t in b2_times.items():
         lib = t["library"]
+        I = dict((h, i) for i, h in B2_WIDTHS)[H_]
         # each kernel against its yardstick in this call: cuDNN's forward
-        # (with the projection), cuDNN's backward, one torch.mm
+        # (with the projection), cuDNN's data gradient (input and h0 only),
+        # one torch.mm
         yard = {"fwd": ("cuDNN forward", lib["cudnn_fwd"]),
-                "bwd": ("cuDNN backward", lib["cudnn_bwd"]),
+                "fwd_nores": ("cuDNN forward", lib["cudnn_fwd"]),
+                "bwd": ("cuDNN's data backward", lib["cudnn_bwd_data"]),
                 "wgrad": ("torch.mm", lib["wgrad_mm"])}
-        for k in ("fwd", "bwd", "wgrad"):
+        what = {"fwd": "training forward (with its residual stores)",
+                "fwd_nores": "B4, the scan without residual stores",
+                "bwd": "backward recurrence", "wgrad": "weight gradient"}
+        per_step = 2 if H_ == B2_WIDTHS[0][1] else 1
+        for k in ("fwd", "fwd_nores", "bwd", "wgrad"):
             k_ms, p_ms, (b_ms, b_by) = t[k]
             y_name, y_ms = yard[k]
-            log(f"[7] B2 {k} at B {B}, T {T}, H {B2_WIDTHS[1][1]}: kernel "
+            log(f"[7] B2 {k}, {what[k]}, at B {B}, T {T}, H {H_}: kernel "
                 f"{k_ms:.4f} ms"
                 + (f" ({1e3 * k_ms / T:.3f} us per step)" if k != "wgrad"
                    else "")
                 + f", plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
-                f"{k_ms / y_ms:.3f}x {y_name} ({y_ms:.4f} ms), launches per "
-                f"train step 3 ({card})")
-        log(f"[7] B2 at B {B}, in {B2_WIDTHS[1][0]}, H {B2_WIDTHS[1][1]}, "
-            f"T {T}, with the input projection: torch.nn.GRU (cuDNN) "
-            f"forward {lib['cudnn_fwd']:.4f} ms, backward "
-            f"{lib['cudnn_bwd']:.4f} ms, forward+backward "
+                f"{k_ms / y_ms:.3f}x {y_name} ({y_ms:.4f} ms); launches per "
+                f"GRU train step at this width "
+                f"{0 if k == 'fwd_nores' else per_step} ({card})")
+        log(f"[7] B2 fwd + bwd pair at B {B}, T {T}, H {H_}: kernels "
+            f"{t['fwd'][0] + t['bwd'][0]:.4f} ms, bound "
+            f"{t['fwd'][2][0] + t['bwd'][2][0]:.6f} ms (the forward's bound "
+            f"counts its residual stores, the backward's no gate "
+            f"recompute) ({card})")
+        log(f"[7] B2 at B {B}, in {I}, H {H_}, T {T}, with the input "
+            f"projection: torch.nn.GRU (cuDNN) forward "
+            f"{lib['cudnn_fwd']:.4f} ms, backward (input and all weights) "
+            f"{lib['cudnn_bwd']:.4f} ms, data backward (input and h0 only) "
+            f"{lib['cudnn_bwd_data']:.4f} ms, forward+backward "
             f"{lib['cudnn_fwd_bwd']:.4f} ms; the port's gru_scan forward "
             f"{lib['scan_fwd']:.4f} ms, backward {lib['scan_bwd']:.4f} ms, "
             f"forward+backward {lib['scan_fwd_bwd']:.4f} ms; max |hs delta| "
             f"cuDNN vs gru_scan {lib['cudnn_vs_scan_delta']:.3e} ({card})")
-        log(f"[7] B2 wgrad at B {B} as one cuBLAS product, torch.mm of "
-            f"[h_(t-1) | 1]^T [{T * B}, {B2_WIDTHS[1][1] + 1}] by dgh "
-            f"[{T * B}, {3 * B2_WIDTHS[1][1]}] on prebuilt operands: "
+        log(f"[7] B2 wgrad at B {B}, H {H_} as one cuBLAS product, torch.mm "
+            f"of [h_(t-1) | 1]^T [{T * B}, {H_ + 1}] by dgh "
+            f"[{T * B}, {3 * H_}] on prebuilt operands: "
             f"{lib['wgrad_mm']:.4f} ms (the kernel {t['wgrad'][0]:.4f} ms "
             f"also gathers its operands); max |delta| against the kernel "
             f"{lib['wgrad_mm_delta']:.3e} ({card})")
+    # launches x (time - bound) of a GRU train step at batch 32: the
+    # encoder's two directions at H 80, the decoder at H 102
+    loss_us = {k: sum(n * (b2_times[h, 32][k][0] - b2_times[h, 32][k][2][0])
+                      for h, n in ((B2_WIDTHS[0][1], 2), (B2_WIDTHS[1][1], 1)))
+               * 1e3 for k in ("fwd", "bwd", "wgrad")}
+    log("[7] B2 per GRU train step at batch 32, launches x (time - bound), "
+        "two launches at H 80 and one at H 102: " + ", ".join(
+            f"{k} {v:.2f} us" for k, v in loss_us.items()) + f" ({card})")
     for B, t in b4_times.items():
         b_ms, b_by = t["bound"]
         log(f"[7] B4 forward-only scan at B {B}, T {T}, H {H_}: kernel "
@@ -1687,12 +1831,12 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
-    lib32 = b2_times[32]["library"]
+    t32 = b2_times[B2_WIDTHS[1][1], 32]
     for k, replaces, lib_ms in (
-            ("fwd", "pallas_gru.py:283", lib32["cudnn_fwd"]),
-            ("bwd", "pallas_gru.py:312", lib32["cudnn_bwd"]),
-            ("wgrad", "pallas_gru.py:206", lib32["wgrad_mm"])):
-        k_ms, p_ms, (b_ms, b_by) = b2_times[32][k]
+            ("fwd", "pallas_gru.py:283", t32["library"]["cudnn_fwd"]),
+            ("bwd", "pallas_gru.py:312", t32["library"]["cudnn_bwd_data"]),
+            ("wgrad", "pallas_gru.py:206", t32["library"]["wgrad_mm"])):
+        k_ms, p_ms, (b_ms, b_by) = t32[k]
         entries.append({
             "name": f"gru_seq_{k}", "route": "cuda",
             "source": "controlled_peptide_generation_tpu_torch/csrc/"

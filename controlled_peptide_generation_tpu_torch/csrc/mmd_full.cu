@@ -32,30 +32,49 @@
 // gradient (12 N^2 D FLOP), against 2 N D inputs read once; at the train
 // step's N 32, D 100 either is a few microseconds of work, so there the
 // launch and the dependent reduction steps are what is paid. The design
-// keeps every reuse on chip: the value kernel stages a 32-row tile of each
+// keeps every reuse on chip: the value kernel stages a tile of rows of each
 // argument per side in shared memory, DC feature columns per pass (any D),
-// so each loaded value feeds 32 pairs; the gradient kernel keeps BR rows of
-// the differentiated argument and a BJ-row tile of both arguments in shared
-// memory, one thread per feature column for the weighted sums.
+// so each loaded value feeds a tile's row of pairs: 32 x 32 pairs a block,
+// 4 a thread, in general; up to N 64, 16 x 16 pairs a block, one a thread,
+// so the train step's N 32 runs on four SMs, not one (a block's serial
+// pair work, not the launch, set the single 32 x 32 block's time). The
+// gradient kernel keeps BR rows of the differentiated argument and a
+// BJ-row tile of both arguments in shared memory, one thread per feature
+// column for the weighted sums.
 //
 // Cancellation and order: the sum over N^2 terms of H cancels (the value is
 // a small difference of O(1) sums), so each thread accumulates its pairs'
-// H in fp64, the block reduces in fp64 in a fixed tree and writes one
-// partial, and one final block sums the partials in a fixed order before
-// the single rounding to fp32; the gradient's weighted sums run in fp64
-// FMAs, sequential in j. No atomics: two runs give the same bits, and the
-// value does not depend on how the pairs were tiled.
+// H in fp64 and the block reduces in fp64 in a fixed tree. The value is one
+// launch: where one block holds every pair (N <= 16) it writes the value;
+// otherwise every block writes its partial, makes it visible
+// (__threadfence) and counts itself done on a device-scope counter, and
+// the block that counts last sums the partials in block-index order
+// (thread t: blocks t, t + 256, ..., then the same tree) and rounds once
+// to fp32. It then resets the counter, so the next launch needs no memset
+// and a CUDA graph can replay the launch; the wrapper keeps one counter per
+// device and stream, so two launches in flight never share one. Which
+// block finishes last varies from run to run, not what it sums or in which
+// order: the value's bits depend on N alone (the tiling is a function of
+// N), not on the run, and no float is added atomically. The gradient's weighted sums run in fp64 FMAs,
+// sequential in j.
+//
+// The earlier design summed the partials in a second launch; at the train
+// step's N 32 that was two launch latencies for one 32 x 32 tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
-constexpr int TILE = 32;            // value: pairs per block, TILE x TILE
-constexpr int TY = 8;               // value: thread rows (TILE / TY pairs each)
-constexpr int PER = TILE / TY;
+// value: a block owns TL x TL pairs in TL x TY threads (TL / TY pairs
+// each): 32 x 32 pairs (4 a thread) in general, 16 x 16 (one a thread) up
+// to N 64, so a train-size batch spreads over several SMs
+constexpr int THREADS = 256;        // value: threads a block, either tiling
+constexpr int SMALL_N = 64;         // value: the largest N of the 16 x 16 tiles
 constexpr int DC = 32;              // value: feature columns per staged pass
-constexpr int FIN = 256;            // threads of the final reduction
+constexpr int FIN = THREADS;        // threads of the final reduction
 constexpr int BR = 8;               // gradient: rows a per block
 constexpr int BJ = 32;              // gradient: rows j per pass
 constexpr int BT = BR * BJ;         // gradient: threads (one pair each)
@@ -77,30 +96,56 @@ __device__ __forceinline__ float dphi(float d, float s2, int form) {
   return -0.25f * powf(d + s2, -1.25f);
 }
 
-// One block per TILE x TILE pairs (i of the rows, j of the columns); part
-// gets the block's (sum of H, sum of H on the diagonal i == j) in fp64.
-__global__ void __launch_bounds__(TILE * TY)
+__device__ __forceinline__ float mmd_value(double all, double diag, int N) {
+  const double n = (double)N;
+  return (float)((all - n * diag) / (n * (n - 1.0)));
+}
+
+// One block per TL x TL pairs (i of the rows, j of the columns): the
+// block's (sum of H, sum of H on the diagonal i == j) in fp64 go to part,
+// and the last block to finish (count) sums every block's into out[0].
+template <int TL, int TY>
+__global__ void __launch_bounds__(THREADS)
 mmd_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
-               int N, int D, float s2, int form, double* __restrict__ part) {
-  __shared__ float a1[TILE][DC + 1], a2[TILE][DC + 1];   // rows i
-  __shared__ float b1[TILE][DC + 1], b2[TILE][DC + 1];   // rows j
-  __shared__ double red[2][TILE * TY];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TILE + tx;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+               int N, int D, float s2, int form, double* __restrict__ part,
+               unsigned int* __restrict__ count, float* __restrict__ out) {
+  static_assert(TL * TY == THREADS, "one block size for both tilings");
+  constexpr int PER = TL / TY;         // pairs per thread
+  constexpr int LD = TL * DC / THREADS;   // staged values per thread, array
+  __shared__ float a1[TL][DC + 1], a2[TL][DC + 1];   // rows i
+  __shared__ float b1[TL][DC + 1], b2[TL][DC + 1];   // rows j
+  __shared__ double red[2][THREADS];
+  __shared__ bool last;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TL + tx;
+  const int i0 = blockIdx.y * TL, j0 = blockIdx.x * TL;
   // pair p of this thread: (i0 + ty + TY p, j0 + tx)
   float d11[PER], d22[PER], d12[PER];
 #pragma unroll
   for (int p = 0; p < PER; ++p) d11[p] = d22[p] = d12[p] = 0.f;
   for (int c0 = 0; c0 < D; c0 += DC) {
-    for (int e = tid; e < TILE * DC; e += TILE * TY) {
-      const int r = e / DC, c = e - r * DC, d = c0 + c;
+    // DC feature columns of the tile's rows: a thread's LD loads of each
+    // array are issued together, then stored
+    float v[4][LD];
+#pragma unroll
+    for (int u = 0; u < LD; ++u) {
+      const int e = tid + u * THREADS;
+      const int r = e / DC, d = c0 + e - r * DC;
       const bool iok = d < D && i0 + r < N, jok = d < D && j0 + r < N;
       const size_t ia = (size_t)(i0 + r) * D + d;
       const size_t ja = (size_t)(j0 + r) * D + d;
-      a1[r][c] = iok ? z1[ia] : 0.f;
-      a2[r][c] = iok ? z2[ia] : 0.f;
-      b1[r][c] = jok ? z1[ja] : 0.f;
-      b2[r][c] = jok ? z2[ja] : 0.f;
+      v[0][u] = iok ? z1[ia] : 0.f;
+      v[1][u] = iok ? z2[ia] : 0.f;
+      v[2][u] = jok ? z1[ja] : 0.f;
+      v[3][u] = jok ? z2[ja] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < LD; ++u) {
+      const int e = tid + u * THREADS;
+      const int r = e / DC, c = e - r * DC;
+      a1[r][c] = v[0][u];
+      a2[r][c] = v[1][u];
+      b1[r][c] = v[2][u];
+      b2[r][c] = v[3][u];
     }
     __syncthreads();
     const int nc = min(DC, D - c0);
@@ -134,7 +179,39 @@ mmd_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
   red[0][tid] = s_all;
   red[1][tid] = s_diag;
   __syncthreads();
-  for (int s = TILE * TY / 2; s > 0; s >>= 1) {
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      red[0][tid] += red[0][tid + s];
+      red[1][tid] += red[1][tid + s];
+    }
+    __syncthreads();
+  }
+  const int nblocks = gridDim.x * gridDim.y;
+  if (nblocks == 1) {
+    if (tid == 0) out[0] = mmd_value(red[0][0], red[1][0], N);
+    return;
+  }
+  if (tid == 0) {
+    const size_t b = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    part[2 * b] = red[0][0];
+    part[2 * b + 1] = red[1][0];
+    __threadfence();                    // the partial, before the count
+    last = atomicAdd(count, 1u) == (unsigned)(nblocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every partial is written and fenced; read them past
+  // this SM's L1 (__ldcg), in block-index order per thread, then the tree
+  __threadfence();
+  double a = 0.0, d = 0.0;
+  for (int b = tid; b < nblocks; b += FIN) {
+    a += __ldcg(part + 2 * b);
+    d += __ldcg(part + 2 * b + 1);
+  }
+  red[0][tid] = a;
+  red[1][tid] = d;
+  __syncthreads();
+  for (int s = FIN / 2; s > 0; s >>= 1) {
     if (tid < s) {
       red[0][tid] += red[0][tid + s];
       red[1][tid] += red[1][tid + s];
@@ -142,37 +219,8 @@ mmd_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
     __syncthreads();
   }
   if (tid == 0) {
-    const size_t b = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    part[2 * b] = red[0][0];
-    part[2 * b + 1] = red[1][0];
-  }
-}
-
-// out = (sum of H - N * sum of diag H) / (N (N - 1)) from the partials,
-// summed in a fixed order.
-__global__ void __launch_bounds__(FIN)
-mmd_fwd_finish(const double* __restrict__ part, int nblocks, int N,
-               float* __restrict__ out) {
-  __shared__ double red[2][FIN];
-  const int t = threadIdx.x;
-  double a = 0.0, d = 0.0;
-  for (int b = t; b < nblocks; b += FIN) {
-    a += part[2 * b];
-    d += part[2 * b + 1];
-  }
-  red[0][t] = a;
-  red[1][t] = d;
-  __syncthreads();
-  for (int s = FIN / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      red[0][t] += red[0][t + s];
-      red[1][t] += red[1][t + s];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    const double n = (double)N;
-    out[0] = (float)((red[0][0] - n * red[1][0]) / (n * (n - 1.0)));
+    out[0] = mmd_value(red[0][0], red[1][0], N);
+    *count = 0u;                        // ready for the next launch
   }
 }
 
@@ -272,6 +320,22 @@ mmd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// The gradient kernel's shared-memory reservation, for the scope's largest
+// D, set once per device (an attribute of the kernel on the current
+// device; a launch may use less).
+cudaError_t bwd_setup() {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  const int de = current_device(&dev);
+  if (de) return (cudaError_t)de;
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      mmd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bwd_smem_bytes(MAX_D));
+  done[dev] = e == cudaSuccess;
+  return e;
+}
+
 // N 1 is in scope: the value and the gradient divide 0 by N (N - 1) = 0
 // and give NaN, as the plain expression does (a batch of one row).
 int check_shape(int N, int D) {
@@ -286,28 +350,33 @@ extern "C" {
 // Number of partial blocks of the value for N rows: the caller allocates
 // 2 * blocks doubles of scratch.
 int mmd_full_blocks(int N) {
-  const int t = (N + TILE - 1) / TILE;
+  const int tl = N <= SMALL_N ? 16 : 32;
+  const int t = (N + tl - 1) / tl;
   return t * t;
 }
 
 int mmd_full_max_d() { return MAX_D; }
 
 // out [1] = S for z1, z2 [N, D] (row-major fp32), s2 = sigma^2, form 0/1/2;
-// part: 2 * mmd_full_blocks(N) doubles. Two launches on `stream`: the
-// tiled pair sums, then their fixed-order total.
+// part: 2 * mmd_full_blocks(N) doubles of scratch; count: one unsigned
+// int, zero before the launch and zero again after it, used by no other
+// launch in flight (one per device and stream). One launch on `stream`.
 int mmd_full_fwd_f32(const float* z1, const float* z2, double* part,
-                     float* out, int N, int D, float s2, int form,
-                     void* stream) {
+                     unsigned int* count, float* out, int N, int D, float s2,
+                     int form, void* stream) {
   int e = check_shape(N, D);
   if (e) return e;
   if (form < 0 || form > 2) return (int)cudaErrorInvalidValue;
-  const int t = (N + TILE - 1) / TILE;
   const cudaStream_t s = (cudaStream_t)stream;
-  mmd_fwd_kernel<<<dim3(t, t), dim3(TILE, TY), 0, s>>>(z1, z2, N, D, s2,
-                                                       form, part);
-  cudaError_t ce = cudaGetLastError();
-  if (ce != cudaSuccess) return (int)ce;
-  mmd_fwd_finish<<<1, FIN, 0, s>>>(part, t * t, N, out);
+  if (N <= SMALL_N) {
+    const int t = (N + 15) / 16;
+    mmd_fwd_kernel<16, 16><<<dim3(t, t), dim3(16, 16), 0, s>>>(
+        z1, z2, N, D, s2, form, part, count, out);
+  } else {
+    const int t = (N + 31) / 32;
+    mmd_fwd_kernel<32, 8><<<dim3(t, t), dim3(32, 8), 0, s>>>(
+        z1, z2, N, D, s2, form, part, count, out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -319,13 +388,10 @@ int mmd_full_bwd_f32(const float* x, const float* y, const float* gout,
   int e = check_shape(N, D);
   if (e) return e;
   if (D > MAX_D || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(D);
-  cudaError_t ce = cudaFuncSetAttribute(
-      mmd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t ce = bwd_setup();
   if (ce != cudaSuccess) return (int)ce;
-  mmd_bwd_kernel<<<(N + BR - 1) / BR, BT, smem, (cudaStream_t)stream>>>(
-      x, y, gout, N, D, s2, form, gx);
+  mmd_bwd_kernel<<<(N + BR - 1) / BR, BT, bwd_smem_bytes(D),
+                   (cudaStream_t)stream>>>(x, y, gout, N, D, s2, form, gx);
   return (int)cudaGetLastError();
 }
 

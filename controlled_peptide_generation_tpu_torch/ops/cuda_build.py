@@ -56,12 +56,15 @@ def _nvcc():
 
 def compile_library(source):
     """Compile csrc/<source> (skipped when a library of the same source
-    content and flags exists) and load it. Returns (ctypes.CDLL, the nvcc
+    content, headers of csrc/ and flags exists) and load it. Returns (ctypes.CDLL, the nvcc
     output of the build, ptxas' -v report included). The output is kept
     beside the library, so a cached build returns it too."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(f for f in os.listdir(CSRC)
+                                  if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            digest.update(fh.read())
     stem = os.path.splitext(source)[0]
     so = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
     log_path = so[:-3] + ".log"

@@ -7,21 +7,27 @@ hs [T, B, H]; its backward is the reverse-time gradient recurrence. It
 replaces the TPU kernels of the JAX package (``ops/pallas_gru.py:gru_seq``,
 forward ``_fwd_kernel`` and backward ``_bwd_kernel``). The CUDA source,
 with its design note, is ``csrc/gru_seq.cu``: the forward scan (the
-recurrent weights held in registers for the whole scan), the backward
-recurrence (dgi, dh0 and the n-section of the recurrent gradient) and the
-recurrent-weight gradient (one launch: each output tile's rows split over
-a thread-block cluster, whose partials are summed in a fixed order, so
-two runs give the same bits).
+recurrent weights held in registers for the whole scan; in training it
+also stores each step's gates r, z, n and gh_n to a residual tape
+[T, B, H, 4]), the backward recurrence (from those residuals, with wh held
+in registers too: dgi, dh0 and the n-section of the recurrent gradient)
+and the recurrent-weight gradient (one launch: each output tile's rows
+split over a thread-block cluster, whose partials are summed in a fixed
+order, so two runs give the same bits).
 
-Dispatch: CPU tensors run the plain versions (``gru_seq_reference``, a
-step loop of ``_gates``, and ``gru_seq_bwd_reference``, the explicit
-reverse recurrence); CUDA tensors launch the kernels or raise, also for a
-shape outside the kernels' scope (H <= 128) or a dtype other than float32.
-``gru_seq_fwd.launches``, ``gru_seq_bwd.launches`` and
-``gru_seq_wgrad.launches`` count the wrapper calls that launched kernels.
-Inside ``cuda_build.plain()`` ``gru_seq`` runs the step loop under
-autograd on any device: the kernels' yardstick on CUDA, and with it the
-route of every ``gru_scan`` above it (encoder, decoder, train step).
+Dispatch: CPU tensors run the plain versions (``gru_seq_res_reference``,
+the step loop that returns hs and the residual tape, and
+``gru_seq_reference``, its hs; ``_bwd_chain_reference``, the backward
+recurrence from the residuals, the function of the CUDA backward; and
+``gru_seq_bwd_reference``, the explicit reverse recurrence that
+recomputes the gates, which ``GruSeq`` runs on CPU tensors); CUDA tensors
+launch the kernels or raise, also for a shape outside the kernels' scope
+(H <= 128) or a dtype other than float32. ``gru_seq_fwd.launches``,
+``gru_seq_bwd.launches`` and ``gru_seq_wgrad.launches`` count the wrapper
+calls that launched kernels. Inside ``cuda_build.plain()`` ``gru_seq``
+runs the step loop under autograd on any device: the kernels' yardstick
+on CUDA, and with it the route of every ``gru_scan`` above it (encoder,
+decoder, train step).
 """
 
 import ctypes
@@ -31,7 +37,6 @@ import threading
 import torch
 
 from .cuda_build import compile_library, in_plain, ptxas_usage
-from .gru import _gates
 
 MAX_H = 128           # the kernels' scope: wh [H, 3H] on one SM
 
@@ -49,8 +54,8 @@ def build():
             return _lib
         lib, build_log = compile_library("gru_seq.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_seq_fwd_f32.argtypes = [p] * 5 + [i] * 3 + [p]
-        lib.gru_seq_bwd_f32.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.gru_seq_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.gru_seq_bwd_f32.argtypes = [p] * 8 + [i] * 3 + [p]
         lib.gru_seq_wgrad_f32.argtypes = [p] * 6 + [i] * 3 + [p]
         q = ctypes.c_longlong
         # B4's entry (ops/gru_fwd_kernel.py): strides are 64-bit
@@ -76,16 +81,19 @@ def _check(lib, code, what):
 
 
 def launch_plan(B, H):
-    """The recurrence kernels' plans at these shapes: the scan's lanes per
-    hidden unit S, k values per lane KS, rows per block R, threads per
-    block and row tiles; the backward's rows per block, threads per block
-    and dynamic shared bytes."""
+    """The recurrence kernels' plan at these shapes, shared by the scan and
+    the backward (the same table by H, the same row tiles): lanes per
+    hidden unit S, values per lane KS, rows per block R, threads per
+    block, row tiles, and the grid (resident blocks at most) of each
+    kernel: the forward-only scan, the training forward (with its residual
+    stores) and the backward."""
     lib = build()
     out = (ctypes.c_int * 8)()
     _check(lib, lib.gru_seq_plan(B, H, out), "gru_seq_plan")
-    return {"scan": dict(zip(("S", "KS", "rows", "threads", "tiles"),
-                             out[:5])),
-            "bwd": dict(zip(("rows", "threads", "smem"), out[5:]))}
+    plan = dict(zip(("S", "KS", "rows", "threads", "tiles"), out[:5]))
+    return {"scan": dict(plan, grid=out[5]),
+            "train_fwd": dict(plan, grid=out[6]),
+            "bwd": dict(plan, grid=out[7])}
 
 
 def wgrad_plan(T, B, H):
@@ -97,23 +105,33 @@ def wgrad_plan(T, B, H):
     return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows"), out))
 
 
-_SCAN = re.compile(r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+_SCAN = re.compile(
+    r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+_BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
 _WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E")
 
 
 def _kernel_name(entry):
-    scan, wgrad = _SCAN.search(entry), _WGRAD.search(entry)
-    return (f"gru_scan_kernel<{', '.join(scan.groups())}>" if scan
-            else f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad else None)
+    scan, bwd, wgrad = (_SCAN.search(entry), _BWD.search(entry),
+                        _WGRAD.search(entry))
+    if scan:
+        ks, s, r, res = scan.groups()
+        return (f"gru_scan_kernel<{ks}, {s}, {r}"
+                + (", residuals>" if res == "1" else ">"))
+    if bwd:
+        return f"gru_bwd_kernel<{', '.join(bwd.groups())}>"
+    return f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad else None
 
 
 def ptxas_report(log=None):
     """{kernel: (registers, spill store bytes, spill load bytes)} of the
-    scan and weight-gradient instantiations, read from ptxas' -v output in
-    the build log (``build_log`` by default). Scan kernels are named
-    ``gru_scan_kernel<KS, S, R>`` (k values per lane, lanes per unit, rows
-    per block), weight-gradient kernels ``gru_wgrad_kernel<V>`` (floats per
-    copy)."""
+    scan, backward and weight-gradient instantiations, read from ptxas' -v
+    output in the build log (``build_log`` by default). Scan kernels are
+    named ``gru_scan_kernel<KS, S, R>`` (k values per lane, lanes per unit,
+    rows per block; ``gru_scan_kernel<KS, S, R, residuals>`` the training
+    forward's), backward kernels ``gru_bwd_kernel<KS, S, R>`` (m values per
+    lane, lanes per unit, rows per block), weight-gradient kernels
+    ``gru_wgrad_kernel<V>`` (floats per copy)."""
     return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 
@@ -142,9 +160,12 @@ def _stream(dev):
 
 
 def gru_seq_fwd(wh, bh, gi_tm, h0):
-    """hs [T, B, H] = the GRU scan over gi_tm [T, B, 3H] from h0 [B, H]."""
+    """The training forward: (hs [T, B, H], res [T, B, H, 4]), hs the GRU
+    scan over gi_tm [T, B, 3H] from h0 [B, H] and res each step's gates r,
+    z, n and gh_n = h_{t-1} @ wh_n + bh_n of each unit, what
+    ``gru_seq_bwd`` reads."""
     if gi_tm.device.type == "cpu":
-        return gru_seq_reference(wh, bh, gi_tm, h0)
+        return gru_seq_res_reference(wh, bh, gi_tm, h0)
     if gi_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {gi_tm.device}")
     T, B, _ = gi_tm.shape
@@ -154,33 +175,33 @@ def gru_seq_fwd(wh, bh, gi_tm, h0):
                      "h0": (h0, (B, H))}, T, B, H)
     gi_tm, wh, bh, h0 = (a.contiguous() for a in (gi_tm, wh, bh, h0))
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    if B == 0:
-        return hs
-    lib = build()
-    with torch.cuda.device(dev):
-        code = lib.gru_seq_fwd_f32(gi_tm.data_ptr(), wh.data_ptr(),
-                                   bh.data_ptr(), h0.data_ptr(),
-                                   hs.data_ptr(), T, B, H, _stream(dev))
-    _check(lib, code, "gru_seq_fwd_f32 launch")
-    gru_seq_fwd.launches += 1
-    return hs
+    res = torch.empty((T, B, H, 4), dtype=torch.float32, device=dev)
+    if B > 0:
+        lib = build()
+        with torch.cuda.device(dev):
+            code = lib.gru_seq_fwd_f32(
+                gi_tm.data_ptr(), wh.data_ptr(), bh.data_ptr(), h0.data_ptr(),
+                hs.data_ptr(), res.data_ptr(), T, B, H, _stream(dev))
+        _check(lib, code, "gru_seq_fwd_f32 launch")
+        gru_seq_fwd.launches += 1
+    return hs, res
 
 
-def gru_seq_bwd(wh, bh, gi_tm, h0, hs, dhs):
-    """The reverse recurrence: (dgi [T, B, 3H], dghn [T, B, H], dh0 [B, H])
-    where dghn is the n-section of the recurrent pre-activation gradient
+def gru_seq_bwd(wh, h0, hs, res, dhs):
+    """The reverse recurrence from the forward's residual tape res
+    [T, B, H, 4] (``gru_seq_fwd``): (dgi [T, B, 3H],
+    dghn [T, B, H], dh0 [B, H]) for the incoming dhs [T, B, H], where dghn
+    is the n-section of the recurrent pre-activation gradient
     (dn_pre * r); the r and z sections equal dgi's."""
-    if gi_tm.device.type == "cpu":
-        return _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs, dhs)
-    if gi_tm.device.type != "cuda":
-        raise ValueError(f"unsupported device {gi_tm.device}")
-    T, B, _ = gi_tm.shape
-    H = wh.shape[0]
-    dev = _validate({"gi_tm": (gi_tm, (T, B, 3 * H)),
-                     "wh": (wh, (H, 3 * H)), "bh": (bh, (3 * H,)),
-                     "h0": (h0, (B, H)), "hs": (hs, (T, B, H)),
+    if hs.device.type == "cpu":
+        return _bwd_chain_reference(wh, h0, hs, res, dhs)
+    if hs.device.type != "cuda":
+        raise ValueError(f"unsupported device {hs.device}")
+    T, B, H = hs.shape
+    dev = _validate({"wh": (wh, (H, 3 * H)), "h0": (h0, (B, H)),
+                     "hs": (hs, (T, B, H)), "res": (res, (T, B, H, 4)),
                      "dhs": (dhs, (T, B, H))}, T, B, H)
-    ins = tuple(a.contiguous() for a in (gi_tm, wh, bh, h0, hs, dhs))
+    ins = tuple(a.contiguous() for a in (wh, h0, hs, res, dhs))
     dgi = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
     dghn = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -235,18 +256,31 @@ def reset_launches():
 
 
 class GruSeq(torch.autograd.Function):
-    """hs = gru_seq(wh, bh, gi_tm, h0), differentiable in all four."""
+    """hs = gru_seq(wh, bh, gi_tm, h0), differentiable in all four. On
+    CUDA it saves the forward's residual tape and its backward runs the
+    kernels from it; on CPU tensors it saves the forward's inputs and its
+    backward recomputes the gates (``gru_seq_bwd_reference``'s recurrence).
+    """
 
     @staticmethod
     def forward(ctx, wh, bh, gi_tm, h0):
-        hs = gru_seq_fwd(wh, bh, gi_tm, h0)
-        ctx.save_for_backward(wh, bh, gi_tm, h0, hs)
+        hs, res = gru_seq_fwd(wh, bh, gi_tm, h0)
+        ctx.recompute = gi_tm.device.type == "cpu"
+        if ctx.recompute:
+            ctx.save_for_backward(wh, bh, gi_tm, h0, hs)
+        else:
+            ctx.save_for_backward(wh, h0, hs, res)
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
-        wh, bh, gi_tm, h0, hs = ctx.saved_tensors
-        dgi, dghn, dh0 = gru_seq_bwd(wh, bh, gi_tm, h0, hs, dhs)
+        if ctx.recompute:
+            wh, bh, gi_tm, h0, hs = ctx.saved_tensors
+            dgi, dghn, dh0 = _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs,
+                                                       dhs)
+        else:
+            wh, h0, hs, res = ctx.saved_tensors
+            dgi, dghn, dh0 = gru_seq_bwd(wh, h0, hs, res, dhs)
         dwh, dbh = gru_seq_wgrad(h0, hs, dgi, dghn)
         return dwh, dbh, dgi, dh0
 
@@ -262,14 +296,38 @@ def gru_seq(wh, bh, gi_tm, h0):
 # ---- plain versions ---------------------------------------------------------
 
 def gru_seq_reference(wh, bh, gi_tm, h0):
-    """Plain torch version of the forward: a step loop of ``_gates``
-    (differentiable by autograd)."""
+    """Plain torch version of the forward's hs (differentiable by
+    autograd)."""
+    return gru_seq_res_reference(wh, bh, gi_tm, h0)[0]
+
+
+def gru_seq_res_reference(wh, bh, gi_tm, h0):
+    """Plain torch version of the training forward: a step loop of the
+    gates that returns (hs [T, B, H], res [T, B, H, 4]), res holding each
+    step's r, z, n and gh_n of each unit."""
+    H = wh.shape[0]
     h = h0
-    hs = []
+    hs, res = [], []
     for t in range(gi_tm.shape[0]):
-        h = _gates(gi_tm[t], h @ wh + bh, h)
+        gi, gh = gi_tm[t], h @ wh + bh
+        r = torch.sigmoid(gi[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gi[:, 2 * H:] + r * gh[:, 2 * H:])
+        h = (1.0 - z) * n + z * h
         hs.append(h)
-    return torch.stack(hs)
+        res.append(torch.stack([r, z, n, gh[:, 2 * H:]], dim=-1))
+    return torch.stack(hs), torch.stack(res)
+
+
+def _bwd_step(dh, hp, r, z, n, gh_n):
+    """One reverse step given the gates: (dgi_t, dghn_t, dgh_t)."""
+    dz = dh * (hp - n)
+    dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+    dr_pre = dn_pre * gh_n * r * (1.0 - r)
+    dz_pre = dz * z * (1.0 - z)
+    dghn = dn_pre * r
+    return (torch.cat([dr_pre, dz_pre, dn_pre], dim=1), dghn,
+            torch.cat([dr_pre, dz_pre, dghn], dim=1))
 
 
 def _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs, dhs):
@@ -287,14 +345,26 @@ def _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs, dhs):
         r = torch.sigmoid(gi[:, :H] + gh[:, :H])
         z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
         n = torch.tanh(gi[:, 2 * H:] + r * gh_n)
-        dz = dh * (hp - n)
-        dn_pre = dh * (1.0 - z) * (1.0 - n * n)
-        dr_pre = dn_pre * gh_n * r * (1.0 - r)
-        dz_pre = dz * z * (1.0 - z)
-        dgi[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1)
-        dghn[t] = dn_pre * r
-        dgh = torch.cat([dr_pre, dz_pre, dghn[t]], dim=1)
+        dgi[t], dghn[t], dgh = _bwd_step(dh, hp, r, z, n, gh_n)
         dh = dh * z + dgh @ wh.T
+    return dgi, dghn, dh
+
+
+def _bwd_chain_reference(wh, h0, hs, res, dhs):
+    """Plain torch version of the CUDA backward: the reverse recurrence
+    given the forward's gates (res [T, B, H, 4] of r, z, n, gh_n), with no
+    gate recompute. Returns (dgi, dghn, dh0)."""
+    hprev = torch.cat([h0[None], hs[:-1]])
+    r, z, n, gh_n = res.unbind(-1)
+    dgi = torch.empty((*hs.shape[:2], 3 * hs.shape[2]), dtype=hs.dtype,
+                      device=hs.device)
+    dghn = torch.empty_like(hs)
+    dh = torch.zeros_like(h0)
+    for t in range(hs.shape[0] - 1, -1, -1):
+        dh = dh + dhs[t]
+        dgi[t], dghn[t], dgh = _bwd_step(dh, hprev[t], r[t], z[t], n[t],
+                                         gh_n[t])
+        dh = dh * z[t] + dgh @ wh.T
     return dgi, dghn, dh
 
 

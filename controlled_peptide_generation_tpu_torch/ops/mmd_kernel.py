@@ -28,8 +28,11 @@ Dispatch: CPU tensors run the plain versions (``mmd_full_reference``, the
 torch expression of ``losses.py``, and ``mmd_full_bwd_reference``, the
 formula above); CUDA tensors launch the kernels or raise, also outside the
 scope. ``mmd_full_fwd.launches`` and ``mmd_full_bwd.launches`` count the
-wrapper calls that launched kernels. ``losses.mmd_full_kernel`` takes the
-plain expression on any device inside ``cuda_build.plain()``.
+wrapper calls that launched kernels (the value is one launch a call: its
+last block sums the blocks' partials and resets a completion counter, one
+per device and stream, allocated zeroed once by ``_counter``).
+``losses.mmd_full_kernel`` takes the plain expression on any device inside
+``cuda_build.plain()``.
 """
 
 import ctypes
@@ -45,6 +48,8 @@ FORMS = {"gaussian": 0, "laplace": 1, "energy": 2}
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
+# (device index, stream handle) -> the value kernel's completion counter
+_counters = {}
 
 
 def build():
@@ -56,7 +61,7 @@ def build():
             return _lib
         lib, build_log = compile_library("mmd_full.cu")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mmd_full_fwd_f32.argtypes = [p] * 4 + [i, i, f, i, p]
+        lib.mmd_full_fwd_f32.argtypes = [p] * 5 + [i, i, f, i, p]
         lib.mmd_full_bwd_f32.argtypes = [p] * 4 + [i, i, f, i, p]
         lib.mmd_full_blocks.argtypes = [i]
         for fn in (lib.mmd_full_fwd_f32, lib.mmd_full_bwd_f32,
@@ -108,6 +113,22 @@ def _s2(sigma):
     return float(sigma) ** 2
 
 
+def _counter(dev, stream):
+    """The value kernel's completion counter for launches on ``stream`` (a
+    CUDA stream handle) of device ``dev``: one int32, zeroed once here and
+    reset to 0 by every launch that uses it, so a call launches no memset;
+    a launch on another stream or device gets a counter of its own. A
+    counter that exists is returned without the lock."""
+    key = (dev.index, stream)
+    count = _counters.get(key)
+    if count is not None:
+        return count
+    with _lib_lock:
+        if key not in _counters:
+            _counters[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        return _counters[key]
+
+
 def mmd_full_fwd(z1, z2, sigma, kernel="gaussian"):
     """The scalar S (0-d float32 tensor) of z1, z2 [N, D]."""
     form = _form(kernel)
@@ -122,10 +143,12 @@ def mmd_full_fwd(z1, z2, sigma, kernel="gaussian"):
     part = torch.empty((2 * lib.mmd_full_blocks(N),), dtype=torch.float64,
                        device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count = _counter(dev, stream)
     with torch.cuda.device(dev):
         code = lib.mmd_full_fwd_f32(
-            z1.data_ptr(), z2.data_ptr(), part.data_ptr(), out.data_ptr(), N,
-            D, _s2(sigma), form, torch.cuda.current_stream(dev).cuda_stream)
+            z1.data_ptr(), z2.data_ptr(), part.data_ptr(), count.data_ptr(),
+            out.data_ptr(), N, D, _s2(sigma), form, stream)
     _check(lib, code, "mmd_full_fwd_f32 launch")
     mmd_full_fwd.launches += 1
     return out

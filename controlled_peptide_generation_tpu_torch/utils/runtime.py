@@ -74,3 +74,34 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# CUgraphNodeType of libcuda's graph API, by value
+_NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait_event", "event_record", "ext_semas_signal",
+               "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+               "conditional")
+
+
+def graph_node_kinds(graph):
+    """The kinds of the nodes of a captured CUDA graph (a cudaGraph_t as
+    an int, ``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``),
+    read through libcuda (cuGraphGetNodes, cuGraphNodeGetType): how many
+    launches, memsets and copies a captured call makes."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
+                                      ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(_NODE_KINDS[kind.value]
+                     if 0 <= kind.value < len(_NODE_KINDS) else str(kind.value))
+    return kinds

@@ -67,9 +67,9 @@ def test_weight_gradient_kernel_matches_reference_and_mm_on_the_card():
         xs = torch.randn((B, T_, 252), generator=g, device=dev)
         h0 = 0.5 * torch.randn((B, H), generator=g, device=dev)
         gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1).contiguous()
-        hs = t_gk.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
+        hs, res = t_gk.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
         dhs = torch.randn(hs.shape, generator=g, device=dev)
-        dgi, dghn, _ = t_gk.gru_seq_bwd(p["wh"], p["bh"], gi, h0, hs, dhs)
+        dgi, dghn, _ = t_gk.gru_seq_bwd(p["wh"], h0, hs, res, dhs)
         before = t_gk.gru_seq_wgrad.launches
         runs = [t_gk.gru_seq_wgrad(h0, hs, dgi, dghn) for _ in range(2)]
         ref = t_gk._wgrad_reference(h0, hs, dgi, dghn)
@@ -187,7 +187,7 @@ def test_forward_only_scan_matches_plain_version_on_the_card():
         assert torch.equal(head[0], full[0][:, :37])
         assert torch.equal(head[1], full[1][:37])
         if not reverse:
-            hs2 = t_gk.gru_seq_fwd(wh, bh, gi.contiguous(), h0)
+            hs2, _ = t_gk.gru_seq_fwd(wh, bh, gi.contiguous(), h0)
             assert torch.equal(hs2, full[0])
 
 
@@ -227,6 +227,87 @@ def test_mmd_kernels_match_plain_versions_on_the_card():
     assert mmd_kernel.mmd_full_bwd.launches >= 15
 
 
+@pytest.mark.cuda
+def test_backward_recurrence_matches_both_plain_versions_on_the_card():
+    """On the card: the backward recurrence from the training forward's
+    residual tape against its plain version given the same residuals and
+    against the full recompute (dgi and dh0 within 1e-3 of their largest
+    entry), the residuals within 1e-4 of the plain forward's, at the
+    scope's edges (H 1, H 128, T 1, a batch that is no multiple of the
+    rows per block, a batch over many row tiles), bitwise repeatable, one
+    launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(5)
+    for H, B, T_ in ((1, 33, 25), (t_gk.MAX_H, 37, 25), (102, 37, 1),
+                     (80, 1037, 25), (t_gk.MAX_H, 5, 1)):
+        p = t_gru.init_gru_params(g, 16, H, dev)
+        xs = torch.randn((B, T_, 16), generator=g, device=dev)
+        h0 = 0.5 * torch.randn((B, H), generator=g, device=dev)
+        gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1).contiguous()
+        hs, res = t_gk.gru_seq_fwd(p["wh"], p["bh"], gi, h0)
+        _, res_ref = t_gk.gru_seq_res_reference(p["wh"], p["bh"], gi, h0)
+        dhs = torch.randn(hs.shape, generator=g, device=dev)
+        before = t_gk.gru_seq_bwd.launches
+        runs = [t_gk.gru_seq_bwd(p["wh"], h0, hs, res, dhs)
+                for _ in range(2)]
+        chain = t_gk._bwd_chain_reference(p["wh"], h0, hs, res, dhs)
+        _, _, dgi_r, dh0_r = t_gk.gru_seq_bwd_reference(
+            p["wh"], p["bh"], gi, h0, hs, dhs)
+        torch.cuda.synchronize()
+        assert t_gk.gru_seq_bwd.launches == before + 2
+        assert (res - res_ref).abs().max().item() <= 1e-4
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        for got, want in zip(runs[0], chain):
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+        for got, want in zip((runs[0][0], runs[0][2]), (dgi_r, dh0_r)):
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_mmd_value_counter_resets_over_interleaved_batches_on_the_card():
+    """On the card: B5's value is one launch whose last block resets its
+    completion counter, so 200 calls interleaving N 32 and 2 (one block)
+    with N 37 and 1,024 (many) give each N's value bitwise equal call to
+    call, within 1e-5 of the plain version, and one counter per device and
+    stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    from controlled_peptide_generation_tpu_torch.ops import mmd_kernel
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    pairs = {N: (torch.randn((N, 100), generator=g, device=dev),
+                 torch.randn((N, 100), generator=g, device=dev))
+             for N in (32, 37, 1024, 2)}
+    vals = {N: [] for N in pairs}
+    for _ in range(50):
+        for N, (z1, z2) in pairs.items():
+            vals[N].append(mmd_kernel.mmd_full_fwd(z1, z2, 7.0))
+    torch.cuda.synchronize()
+    for N, v in vals.items():
+        v = torch.stack(v)
+        assert bool((v == v[0]).all())
+        want = mmd_kernel.mmd_full_reference(*pairs[N], 7.0).item()
+        assert abs(v[0].item() - want) <= 1e-5
+    dev = pairs[32][0].device                  # with its index, as calls
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count = mmd_kernel._counter(dev, stream)
+    assert count.item() == 0
+    assert mmd_kernel._counter(dev, stream) is count
+    side = torch.cuda.Stream(dev)
+    assert mmd_kernel._counter(dev, side.cuda_stream) is not count
+
+
+def _first_rows(a, n, B):
+    """The first B rows of every tensor of ``a`` (nested in lists and
+    tuples) whose leading dimension is the batch n; others as they are."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(_first_rows(x, n, B) for x in a)
+    return a[:B] if torch.is_tensor(a) and a.shape[:1] == (n,) else a
+
+
 def _beam_cases(dev):
     """(tag, scan, stamped, plain, inputs of batch B, dims) of B1 and B3 at
     the shipped widths, seeded random weights, f32 and bf16 (the weight
@@ -248,11 +329,18 @@ def _beam_cases(dev):
         for dt in (torch.float32, torch.bfloat16):
             p = params if dt == torch.float32 else nn.cast_tree(params, dt)
 
-            def inputs(B, model=model, p=p):
-                gz = torch.Generator(device=dev).manual_seed(1)
-                z = torch.randn((B, model.z_dim), generator=gz, device=dev)
-                c = model.sample_c_prior(gz, B, device=dev)
-                return beam.decode_inputs(model, p, z, c)
+            # the kernel inputs of the largest batch; a smaller batch takes
+            # the first rows of each batch-indexed one (inputs made anew
+            # from fewer rows differ in their last bits: cuBLAS sums a
+            # product of another row count in another order, and a draw of
+            # fewer rows is not a prefix of a larger draw on the card)
+            gz = torch.Generator(device=dev).manual_seed(1)
+            z_all = torch.randn((2500, model.z_dim), generator=gz, device=dev)
+            c_all = model.sample_c_prior(gz, 2500, device=dev)
+            ins_all, dims = beam.decode_inputs(model, p, z_all, c_all)
+
+            def inputs(B, ins_all=ins_all, dims=dims):
+                return _first_rows(ins_all, 2500, B), dims
 
             kern = (tfm_beam_kernel if fam == "B3" else beam_kernel)
             scan = (kern.beam_scan_tfm if fam == "B3"

@@ -179,3 +179,108 @@ def test_ptxas_report_reads_each_instantiation():
     assert t_gk.ptxas_report(log) == {
         "gru_scan_kernel<13, 8, 4>": (72, 0, 0),
         "gru_wgrad_kernel<2>": (64, 4, 8)}
+
+
+def _jax_pregated_vjp(wh, bh, gi, h0, dhs, pallas):
+    """(hs, (dwh, dbh, dgi, dh0)) of the JAX package on a pre-gated tape:
+    the Pallas gru_seq in interpret mode, or a jax.lax.scan of its XLA
+    cell ``gru_cell_pregated`` (beyond the Pallas kernel's H <= 127)."""
+    if pallas:
+        fn = lambda *a: j_pg.gru_seq(*a, None, True)  # noqa: E731
+    else:
+        def fn(wh_, bh_, gi_, h0_):
+            def step(h, g):
+                h = j_gru.gru_cell_pregated({"wh": wh_, "bh": bh_}, g, h)
+                return h, h
+            return jax.lax.scan(step, h0_, gi_)[1]
+    hs, vjp = jax.vjp(fn, *map(jnp.asarray, (wh, bh, gi, h0)))
+    return np.asarray(hs), [np.asarray(a) for a in vjp(jnp.asarray(dhs))]
+
+
+@pytest.mark.parametrize("B,T_,H", [(8, 5, 16), (3, 1, 6), (5, 5, 1),
+                                     (2, 2, 128)])
+def test_chain_from_residuals_matches_recompute_and_jax(B, T_, H):
+    """The plain version of the CUDA backward (``_bwd_chain_reference``:
+    the reverse recurrence given the forward's gates, no recompute), fed
+    the residuals of the plain training forward, against the recurrence
+    that recomputes the gates (``_bwd_recurrence_reference``; rtol 1e-5)
+    and the JAX package's backward: the Pallas ``_bwd_kernel`` in
+    interpret mode within its scope (H <= 127), the XLA scan of its cell
+    beyond it, on dgi, dh0, dwh and dbh (grads rtol 1e-4)."""
+    rng = np.random.default_rng(B * T_ + H)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    wh, bh, gi, h0, dhs = (H ** -0.5 * f(H, 3 * H), f(3 * H),
+                           f(T_, B, 3 * H), f(B, H), f(T_, B, H))
+    tw, tb, tg, th0, tdhs = map(torch.from_numpy, (wh, bh, gi, h0, dhs))
+    hs, res = t_gk.gru_seq_res_reference(tw, tb, tg, th0)
+    assert res.shape == (T_, B, H, 4)
+    dgi, dghn, dh0 = t_gk._bwd_chain_reference(tw, th0, hs, res, tdhs)
+    dwh, dbh = t_gk._wgrad_reference(th0, hs, dgi, dghn)
+    got = [a.numpy() for a in (dwh, dbh, dgi, dh0)]
+    want = t_gk.gru_seq_bwd_reference(tw, tb, tg, th0, hs, tdhs)
+    for name, a, b in zip(("dwh", "dbh", "dgi", "dh0"), got, want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    hs_j, want_j = _jax_pregated_vjp(wh, bh, gi, h0, dhs, H <= 127)
+    np.testing.assert_allclose(hs.numpy(), hs_j, **FWD)
+    for name, a, b in zip(("dwh", "dbh", "dgi", "dh0"), got, want_j):
+        np.testing.assert_allclose(a, b, err_msg=name, **GRAD)
+
+
+def test_gru_seq_bwd_on_cpu_runs_the_chain_reference():
+    """``gru_seq_bwd`` takes the forward's residual tape; on CPU tensors
+    it returns its kernel's plain version, and ``gru_seq_fwd`` the plain
+    training forward's (hs, res)."""
+    g = torch.Generator().manual_seed(1)
+    T_, B, H = 4, 3, 5
+    wh, bh, gi, h0, dhs = (torch.randn(s, generator=g) for s in (
+        (H, 3 * H), (3 * H,), (T_, B, 3 * H), (B, H), (T_, B, H)))
+    hs, res = t_gk.gru_seq_fwd(wh, bh, gi, h0)
+    want = t_gk.gru_seq_res_reference(wh, bh, gi, h0)
+    assert torch.equal(hs, want[0]) and torch.equal(res, want[1])
+    got = t_gk.gru_seq_bwd(wh, h0, hs, res, dhs)
+    for a, b in zip(got, t_gk._bwd_chain_reference(wh, h0, hs, res, dhs)):
+        assert torch.equal(a, b)
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_gk.gru_seq_bwd(meta(H, 3 * H), meta(B, H), meta(T_, B, H),
+                         meta(T_, B, H, 4), meta(T_, B, H))
+
+
+def test_gru_seq_on_cpu_saves_inputs_and_recomputes():
+    """On CPU tensors ``GruSeq`` saves what it saved before the residual
+    tape existed (wh, bh, gi, h0, hs) and its gradients are the recompute
+    recurrence's, bit for bit."""
+    g = torch.Generator().manual_seed(2)
+    T_, B, H = 5, 4, 6
+    args = [torch.randn(s, generator=g).requires_grad_() for s in (
+        (H, 3 * H), (3 * H,), (T_, B, 3 * H), (B, H))]
+    dhs = torch.randn((T_, B, H), generator=g)
+    hs = t_gk.gru_seq(*args)
+    assert len(hs.grad_fn.saved_tensors) == 5
+    got = torch.autograd.grad(hs, args, dhs)
+    want = t_gk.gru_seq_bwd_reference(*(a.detach() for a in args),
+                                      hs.detach(), dhs)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_ptxas_report_names_the_training_and_backward_instantiations():
+    """The training forward's scan (its kRes flag set) and the backward
+    kernel are named with their plans in the report."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_15gru_"
+        "scan_kernelILi13ELi8ELi1ELb1EEEvPKfxxS2_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 70 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_15gru_"
+        "scan_kernelILi13ELi8ELi1ELb0EEEvPKfxxS2_' for 'sm_90a'",
+        "ptxas info    : Used 68 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_14gru_"
+        "bwd_kernelILi32ELi4ELi1EEEvPKfS2_' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers"])
+    assert t_gk.ptxas_report(log) == {
+        "gru_scan_kernel<13, 8, 1, residuals>": (70, 0, 0),
+        "gru_scan_kernel<13, 8, 1>": (68, 0, 0),
+        "gru_bwd_kernel<32, 4, 1>": (128, 4, 4)}

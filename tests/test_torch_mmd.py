@@ -129,3 +129,39 @@ def test_function_launches_no_backward_for_a_logged_value():
     finally:
         t_mk.mmd_full_bwd = real
     assert calls == [] and logged.requires_grad
+
+
+def test_value_counter_is_per_device_and_stream_and_never_on_cpu(
+        monkeypatch):
+    """The value kernel's completion counter: one zeroed int32 per (device,
+    stream), allocated once and handed back after; CPU calls (the plain
+    version, through the Function too) never reach the cache."""
+    monkeypatch.setattr(t_mk, "_counters", {})
+    made = []
+    zeros = torch.zeros
+
+    def fake_zeros(shape, dtype=None, device=None):
+        made.append(device)
+        return zeros(shape, dtype=dtype)
+
+    def no_counter(*args):
+        raise AssertionError("the counter cache was reached on the CPU")
+
+    z1, z2 = _pair(7, 8, 6)
+    real_counter = t_mk._counter
+    monkeypatch.setattr(t_mk, "_counter", no_counter)
+    a = T(z1).requires_grad_()
+    v = t_mk.mmd_full_fwd(T(z1), T(z2), 7.0)
+    torch.autograd.grad(t_L.mmd_full_kernel(a, T(z2), 7.0), a)
+    assert torch.isfinite(v) and t_mk._counters == {}
+    monkeypatch.setattr(t_mk, "_counter", real_counter)
+    monkeypatch.setattr(t_mk.torch, "zeros", fake_zeros)
+    c0 = t_mk._counter(torch.device("cuda", 0), 11)
+    assert t_mk._counter(torch.device("cuda", 0), 11) is c0
+    c1 = t_mk._counter(torch.device("cuda", 1), 11)
+    c2 = t_mk._counter(torch.device("cuda", 0), 12)
+    assert c1 is not c0 and c2 is not c0 and c1 is not c2
+    assert made == [torch.device("cuda", 0), torch.device("cuda", 1),
+                    torch.device("cuda", 0)]
+    assert all(c.dtype == torch.int32 and c.tolist() == [0]
+               for c in (c0, c1, c2))

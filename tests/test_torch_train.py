@@ -383,3 +383,30 @@ def test_profile_union_counts_overlaps_once():
     assert profile_train._union_us([(5, 6), (0, 2), (1, 3), (2.5, 2.75)]) \
         == 4.0
     assert profile_train._union_us([]) == 0.0
+
+
+def test_paired_steps_alternates_the_checkouts(monkeypatch, capsys):
+    """tools/paired_steps runs base and change in the order base, change,
+    change, base, ... with the flags of main.py passed to both, and
+    reports each checkout's median and quartiles."""
+    from controlled_peptide_generation_tpu_torch.tools import paired_steps
+    order = []
+
+    def fake_run(root, steps, flags, out):
+        order.append((os.path.basename(root), steps, tuple(flags)))
+        return {"steps_per_s": 100.0 + len(order), "busy_ms": 1.5}
+
+    monkeypatch.setattr(paired_steps, "_run", fake_run)
+    monkeypatch.setattr(paired_steps.runtime, "card_line", lambda: "card")
+    rep = paired_steps.main(["/x/base", "/x/change", "--pairs", "4",
+                             "--steps", "7", "--model.E_args.E_class",
+                             "transformer"])
+    flags = ("--model.E_args.E_class", "transformer")
+    assert order == [(n, 7, flags) for n in (
+        "base", "change", "change", "base", "base", "change", "change",
+        "base")]
+    assert [r["steps_per_s"] for r in rep["runs"]["base"]] == [
+        101.0, 104.0, 105.0, 108.0]
+    assert rep["base"]["steps_per_s"]["median"] == 104.5
+    assert rep["change"]["busy_ms"] == {"median": 1.5, "q1": 1.5, "q3": 1.5}
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rep
