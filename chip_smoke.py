@@ -106,23 +106,40 @@ Phases, each raising on failure (the script then exits non-zero):
    no other kernel, the same output checks, one step through the kernels
    and inside plain() agreeing (loss rtol 1e-5, gradients 1e-3 of each
    tensor's largest entry);
+6e. the static eval main path: static_eval.main --long on the phase-6
+   GRU run writes the states dump (the .npz: the card has no h5py; 10,000
+   rows a split) and the latent index, then prints its battery into
+   chiprun_out/: B4 launched 120 times in the dump (20 chunks a split, two
+   directions) and 36 in the battery (18 encodes), B1 4 times (the beam-5
+   decodes), the plain beam 3 times (beam 15, outside the kernels' scope);
+   a second --long on the same run dir finds the dump and runs the
+   battery alone (B4 36); the dump's mu, logvar and z within one float16
+   ulp plus MAX_HS_DELTA (5d's f32 gate: near zero a float16 ulp is finer
+   than the f32 difference of two summation orders) of the same dump
+   under cuda_build.plain(), src, label and split equal;
+   LatentIndex.search on the card equal to a numpy top-k; the dump's
+   seconds per split and the battery's;
+6e-t. the same on the phase-6t transformer run: its dump, and B3
+   launched 4 times in the battery, the plain beam 3 times, B4 never;
 5d. the dataloader encodings (run after 6: they encode the phase-6 GRU
    run): pipeline.get_encodings_from_dataloader on its amp-positive train
    and val rows, 2 B4 launches per batch, mu and logvar within 1e-4 of the
    same encode inside plain(); then run_from_states with
-   --Q_from_full_dataloader on that run until accepted samples are
-   written;
+   --Q_from_full_dataloader on that run and its dump (read from disk)
+   until accepted samples are written, with its rounds and accept rate;
 5d-bf16. the sampling CLI as a user runs it, sample_pipeline.main with
    --Q_from_full_dataloader and --hw.gen_dtype bfloat16 on the phase-6 GRU
-   run (the states dump from memory: the card has no h5py): B4 twice per
-   encode batch, the bf16 B1 entry launched, accepted samples written;
+   run, reading the phase-6e dump from disk: B4 twice per encode batch,
+   the bf16 B1 entry launched, accepted samples written, the rounds it
+   launched;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
    both widths, beside cuDNN's GRU forward, whole backward and data
    backward (input and h0 only) and the cuBLAS product that the
    weight-gradient kernel computes, and B2's launches x (time - bound) a
-   GRU step; B4 and B5; train steps/s of both families, the transformer
+   GRU step; B4, also at the dump's shape, B 512 at H 80, beside cuDNN's
+   forward; B5; train steps/s of both families, the transformer
    beam and round times, the bf16 kernels and rounds, seconds per phase),
    a `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
@@ -130,6 +147,7 @@ Phases, each raising on failure (the script then exits non-zero):
 
 import contextlib
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -211,6 +229,17 @@ BF16_UNIQ_RATIO = (0.99, 1.01)
 
 
 LOG_FILE = []          # the full log, also under chiprun_out/ (gitignored)
+
+
+class RoundCounter(logging.Handler):
+    """Counts the sampling loop's "Round #" records (rounds launched)."""
+
+    def __init__(self):
+        super().__init__()
+        self.rounds = 0
+
+    def emit(self, record):
+        self.rounds += record.getMessage().startswith("Round #")
 
 
 def log(msg):
@@ -339,6 +368,7 @@ def main():
     from controlled_peptide_generation_tpu_torch import config as C
     from controlled_peptide_generation_tpu_torch import pipeline
     from controlled_peptide_generation_tpu_torch import sample_pipeline
+    from controlled_peptide_generation_tpu_torch import static_eval
     from controlled_peptide_generation_tpu_torch.api import (
         load_trained_model, load_vocab)
     from controlled_peptide_generation_tpu_torch.latent import fused
@@ -361,6 +391,7 @@ def main():
     from controlled_peptide_generation_tpu_torch.tools import beam_split
     from controlled_peptide_generation_tpu_torch.train import train_vae
     from controlled_peptide_generation_tpu_torch.utils import runtime
+    from controlled_peptide_generation_tpu_torch.vis import build_index
 
     cuda_ms = runtime.cuda_ms
 
@@ -1588,6 +1619,154 @@ def main():
     step_vs_plain("transformer", model_t6, tcfg_t, tparams_t)
     mark("6t-b one transformer step, kernels vs plain")
 
+    # ---- 6e. main path: the static eval of the phase-6 runs ----------------
+    # static_eval --long writes the states dump and the latent index that
+    # sample_pipeline reads (5d, 5d-bf16), then prints its battery
+    def static_eval_run(tag, flags_):
+        """static_eval.main on the flags, its printed battery into
+        chiprun_out/, the counts set to 0 just before and read just after.
+        Returns (summary, counts, seconds)."""
+        reset_counts()
+        beam_kernel.beam_scan_gru.launches = 0
+        tfm_beam_kernel.beam_scan_tfm.launches = 0
+        beam.beam_search.plain_runs = 0
+        out_path = os.path.join(ROOT, "chiprun_out", f"static_eval_{tag}.txt")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as fh, contextlib.redirect_stdout(fh):
+            summary_ = static_eval.main(flags_ + ["--long", "--device",
+                                                  "cuda"])
+        seconds_ = time.perf_counter() - t0
+        counts_ = dict(counts(), **{
+            "B1": beam_kernel.beam_scan_gru.launches,
+            "B3": tfm_beam_kernel.beam_scan_tfm.launches,
+            "plain beam": beam.beam_search.plain_runs})
+        with open(out_path) as fh:
+            text = fh.read()
+        if "#### reco of" not in text or " - hyp 2: " not in text:
+            raise AssertionError(f"static_eval {tag}: the battery printed no "
+                                 f"reconstruction or hypotheses ({out_path})")
+        return summary_, counts_, seconds_
+
+    # what the battery runs (static_eval.py): 18 encodes of one sequence
+    # (3 interpolations x 2, 5 reconstructions a sequence, 2 for the
+    # reconstruction interpolation), B4 twice each; 4 beam-5 decodes in the
+    # kernel (prior samples, prior interpolation, a reconstruction a
+    # sequence); 3 beam-15 decodes (T*K 375, outside the kernels' scope) in
+    # the plain beam (a reconstruction a sequence, the interpolation)
+    n_seqs = len(static_eval.DEFAULT_SEQS.split(","))
+    n_encodes = 3 * 2 + 5 * n_seqs + 2 * (n_seqs - 1)
+    battery_want = {"B4": 2 * n_encodes, "beam 5": 2 + n_seqs,
+                    "beam 15": 2 * n_seqs - 1}
+    # the dump: each split's 10,000 rows in chunks of 512 (19 and one of
+    # 272), each chunk one encoder call, B4 in both directions
+    n_chunks = -(-static_eval.MAX_EXAMPLES // build_index.CHUNK)
+    dump_b4 = 2 * n_chunks * 3
+    if battery_want != {"B4": 36, "beam 5": 4, "beam 15": 3} or (
+            dump_b4 != 120):
+        raise AssertionError(f"the static eval's derived counts changed: "
+                             f"battery {battery_want}, dump B4 {dump_b4}")
+    se_flags = train_flags("smoke", TRAIN_ITERS)
+    summary, se_counts, se_s = static_eval_run("gru", se_flags)
+    want_se = dict.fromkeys(counts(), 0)
+    want_se.update({"B4": dump_b4 + battery_want["B4"],
+                    "B1": battery_want["beam 5"], "B3": 0,
+                    "plain beam": battery_want["beam 15"]})
+    # a second --long on the same run dir finds the dump: the battery alone
+    _, se_counts2, se_s2 = static_eval_run("gru_again", se_flags)
+    want_se2 = dict(want_se, B4=battery_want["B4"])
+    if se_counts != want_se or se_counts2 != want_se2:
+        raise AssertionError(f"static_eval --long launched {se_counts} "
+                             f"(want {want_se}), then {se_counts2} (want "
+                             f"{want_se2})")
+    dumped = {sp: build_index.read_states(p_)
+              for sp, p_ in summary["states"].items()}
+    bad = {sp: {k: v.shape for k, v in st.items()} for sp, st in
+           dumped.items() if st["mu"].shape != (static_eval.MAX_EXAMPLES,
+                                                 tcfg.model.z_dim)
+           or not os.path.exists(build_index.npz_path(summary["states"][sp]))}
+    if bad or not os.path.exists(summary["index"]):
+        raise AssertionError(f"the states dump {bad} or the index "
+                             f"{summary['index']} is missing")
+    # the same dump with every kernel as its plain version
+    plain_dir = os.path.join(train_top, "plain_dump")
+    os.makedirs(plain_dir, exist_ok=True)
+    with cuda_build.plain():
+        build_index.extract_from_dataset(
+            model_t, tparams, vocab, tcfg, pipeline.load_dataloader(tcfg),
+            plain_dir, TRAIN_ITERS, max_examples=static_eval.MAX_EXAMPLES)
+    # float16 storage: one ulp where the two routes' f32 values straddle a
+    # rounding boundary, plus MAX_HS_DELTA, the f32 gate of the same
+    # encoder's outputs (5d): near zero a float16 ulp (down to 6e-8) is
+    # finer than the f32 difference of the two routes' sums
+    ulp_share, ulp_max, far = {}, 0.0, []
+    for sp, st in dumped.items():
+        pl = build_index.read_states(build_index.states_path(
+            plain_dir, sp, TRAIN_ITERS))
+        for k in ("src", "label", "split"):
+            if not np.array_equal(st[k], pl[k]):
+                raise AssertionError(f"the dump's {sp} {k} differs from the "
+                                     f"plain dump's")
+        for k in ("mu", "logvar", "z"):
+            a, b = st[k], pl[k]
+            delta = np.abs(a.astype(np.float32) - b.astype(np.float32))
+            ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(
+                np.float32)
+            ulps = delta / ulp
+            ulp_max = max(ulp_max, float(ulps.max()))
+            ulp_share[sp, k] = float((ulps > 0).mean())
+            if (delta > ulp + MAX_HS_DELTA).any():
+                raise AssertionError(f"the dump's {sp} {k} differs from the "
+                                     f"plain dump's by more than one float16 "
+                                     f"ulp + {MAX_HS_DELTA}")
+            over = ulps > 1
+            far += [(float(u), float(d), float(m)) for u, d, m in zip(
+                ulps[over], delta[over], np.maximum(np.abs(a), np.abs(b))[
+                    over].astype(np.float32))]
+    # the index on the card against a numpy inner-product top-k (float64
+    # sums; a returned row's score is the top-k value at its rank)
+    index = build_index.LatentIndex.load(summary["index"], dev)
+    queries = dumped["test"]["z"][:256].astype(np.float32)
+    got_s, got_i = index.search(queries, k=10)
+    sims = queries.astype(np.float64) @ dumped["train"]["z"].astype(
+        np.float64).T
+    want_s = -np.sort(-sims, axis=1)[:, :10]
+    at_i = np.take_along_axis(sims, got_i, axis=1)
+    idx_err = max(float(np.abs(got_s - want_s).max()),
+                  float(np.abs(at_i - want_s).max()))
+    if not np.array_equal(index.z.cpu().numpy(), dumped["train"]["z"].astype(
+            np.float32)) or idx_err > 1e-3:
+        raise AssertionError(f"LatentIndex.search on the card disagrees with "
+                             f"numpy's top-k by {idx_err}")
+    log(f"[6e] static_eval --long on the phase-6 GRU run: dump of "
+        f"{static_eval.MAX_EXAMPLES} rows a split in "
+        + ", ".join(f"{sp} {summary['seconds'][sp]:.3f} s"
+                    for sp in ("train", "val", "test"))
+        + f" (host clock: draw, encode, copy, write .npz), battery "
+        f"{summary['seconds']['battery']:.3f} s, whole call {se_s:.3f} s; "
+        f"launches {se_counts} (want {want_se}); again on the dump: "
+        f"battery {se_s2:.3f} s, launches {se_counts2}; mu, logvar, z vs "
+        f"the dump under cuda_build.plain(): at most {ulp_max:.0f} float16 "
+        f"ulp, largest share of an array differing "
+        f"{max(ulp_share.values()):.6f}, {len(far)} entries beyond one ulp "
+        f"(ulps, |delta|, magnitude, largest 5: "
+        f"{sorted(far, reverse=True)[:5]}); LatentIndex.search (10,000 rows, "
+        f"256 queries, k 10) vs numpy: max |delta| {idx_err:.3e} ({card})")
+    mark("6e static eval of the GRU run (dump, index, battery)")
+    summary_t, se_counts_t, se_s_t = static_eval_run(
+        "tfm", train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS))
+    want_se_t = dict(want_se, B4=0, B1=0, B3=battery_want["beam 5"])
+    if se_counts_t != want_se_t or not all(
+            build_index.readable(p_) for p_ in summary_t["states"].values()):
+        raise AssertionError(f"transformer static_eval --long launched "
+                             f"{se_counts_t} (want {want_se_t}) or wrote no "
+                             f"dump")
+    log(f"[6e] static_eval --long on the phase-6t transformer run: dump "
+        + ", ".join(f"{sp} {summary_t['seconds'][sp]:.3f} s"
+                    for sp in ("train", "val", "test"))
+        + f", battery {summary_t['seconds']['battery']:.3f} s, whole call "
+        f"{se_s_t:.3f} s; launches {se_counts_t} ({card})")
+    mark("6e-t static eval of the transformer run")
+
     # ---- 5d. main path: Q from the dataloader's encodings -----------------
     # the GRU run of phase 6, its amp-positive train and val rows
     dataset = pipeline.load_dataloader(tcfg)
@@ -1613,10 +1792,12 @@ def main():
             "--Q_n_components", "10", "--n_samples_per_round", "5000",
             "--n_samples_acc", "100", "--samples_outfn_prefix",
             "smoke_dataloader"], extra_args=sample_pipeline.EXTRA_ARGS)
+    # the states of the phase-6e dump, read from disk
+    states_d = pipeline.load_states(cfg_d)
     gru_fwd_kernel.gru_fwd.launches = 0
     beam_kernel.beam_scan_gru.launches = 0
     stem_d, samples_d, stats_d = pipeline.run_from_states(
-        cfg_d, args_d, model_t, tparams, vocab, states, device=dev,
+        cfg_d, args_d, model_t, tparams, vocab, states_d, device=dev,
         dataset=dataset)
     dl_launches = {"B4": gru_fwd_kernel.gru_fwd.launches,
                    "B1": beam_kernel.beam_scan_gru.launches}
@@ -1626,28 +1807,33 @@ def main():
             or not os.path.exists(stem_d + ".plain.txt")):
         raise AssertionError(f"the --Q_from_full_dataloader run: launches "
                              f"{dl_launches}, {n_acc_d} accepted")
-    log(f"[5d] run_from_states --Q_from_full_dataloader on the phase-6 run: "
-        f"{stats_d['rounds']} round(s), {n_acc_d} accepted samples in "
+    log(f"[5d] run_from_states --Q_from_full_dataloader on the phase-6 run "
+        f"and its dump: {stats_d['rounds']} round(s) consumed "
+        f"({stats_d['rounds_launched']} launched), latent accept rate "
+        f"{stats_d['accepted_z']}/{stats_d['candidates']} = "
+        f"{stats_d['accepted_z'] / stats_d['candidates']:.4f}, "
+        f"{stats_d['unique']} unique decodes, {n_acc_d} accepted samples in "
         f"{stem_d}.*; launches {dl_launches}")
     enc_launches += dl_launches["B4"]
     mark("5d dataloader encodings and their pipeline")
 
     # ---- 5d-bf16: the sampling CLI, decoding in bf16, on the phase-6 run --
-    # sample_pipeline.main as a user runs it; the card has no h5py for the
-    # states dump (ROADMAP.md A2), so its reader returns the states in
-    # memory
-    read_states = pipeline.load_states
-    pipeline.load_states = lambda cfg_: states
+    # sample_pipeline.main as a user runs it, reading the phase-6e dump
+    # (the .npz: the card has no h5py)
     gru_fwd_kernel.gru_fwd.launches = 0
     beam_kernel.beam_scan_gru.launches_bf16 = 0
-    try:
-        stem_c = sample_pipeline.main(train_flags("smoke", TRAIN_ITERS) + [
-            "--Q_from_full_dataloader", "--Q_select_amppos", "1",
-            "--Q_n_components", "10", "--n_samples_per_round", "5000",
-            "--n_samples_acc", "100", "--samples_outfn_prefix",
-            "smoke_cli_bf16", "--hw.gen_dtype", "bfloat16"])
-    finally:
-        pipeline.load_states = read_states
+    rounds_c = RoundCounter()
+    pipeline.LOG.addHandler(rounds_c)
+    pipeline.LOG.setLevel("INFO")
+    t_cli = time.perf_counter()
+    stem_c = sample_pipeline.main(train_flags("smoke", TRAIN_ITERS) + [
+        "--Q_from_full_dataloader", "--Q_select_amppos", "1",
+        "--Q_n_components", "10", "--n_samples_per_round", "5000",
+        "--n_samples_acc", "100", "--samples_outfn_prefix",
+        "smoke_cli_bf16", "--hw.gen_dtype", "bfloat16"])
+    cli_s = time.perf_counter() - t_cli
+    pipeline.LOG.removeHandler(rounds_c)
+    pipeline.LOG.setLevel(logging.NOTSET)
     cli_launches = {"B4": gru_fwd_kernel.gru_fwd.launches,
                     "B1 bf16": beam_kernel.beam_scan_gru.launches_bf16}
     acc_files = [f for f in os.listdir(os.path.dirname(stem_c))
@@ -1660,15 +1846,19 @@ def main():
         raise AssertionError(f"the bf16 sample_pipeline run: launches "
                              f"{cli_launches}, {n_acc_c} accepted")
     log(f"[5d] sample_pipeline.main --Q_from_full_dataloader --hw.gen_dtype "
-        f"bfloat16 on the phase-6 run: {n_acc_c} accepted samples in "
-        f"{stem_c}.*; launches {cli_launches}")
+        f"bfloat16 on the phase-6 run, its dump read from disk: {n_acc_c} "
+        f"accepted samples in {stem_c}.* in {cli_s:.3f} s, "
+        f"{rounds_c.rounds} round(s) of 5000 launched; launches "
+        f"{cli_launches}")
     mark("5d-bf16 sample_pipeline CLI in bf16")
 
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
-    I, H_ = B2_WIDTHS[1]
-    p = gru_ops.init_gru_params(gb, I, H_, dev)
-    for B in (32, 1024, 20000):
+    # the decoder's width; B 512 at the encoder's, the dump's chunk
+    for B, (I, H_) in ((32, B2_WIDTHS[1]), (1024, B2_WIDTHS[1]),
+                       (20000, B2_WIDTHS[1]),
+                       (build_index.CHUNK, B2_WIDTHS[0])):
+        p = gru_ops.init_gru_params(gb, I, H_, dev)
         xs = torch.randn((B, T, I), generator=gb, device=dev)
         h0 = 0.5 * torch.randn((B, H_), generator=gb, device=dev)
         gi = (xs @ p["wi"] + p["bi"]).transpose(0, 1)
@@ -1698,7 +1888,7 @@ def main():
                                      20 if B < 20000 else 5),
                 "scan_fwd": cuda_ms(no_grad(lambda: gru_ops.gru_scan(
                     p, xs, h0)), 20 if B < 20000 else 5),
-                "cudnn_delta": lib_delta}
+                "cudnn_delta": lib_delta, "I": I, "H": H_}
         del xs, gi, cudnn
     b5_times = {}
     for N in (32, 4096):
@@ -1799,6 +1989,7 @@ def main():
             f"{k} {v:.2f} us" for k, v in loss_us.items()) + f" ({card})")
     for B, t in b4_times.items():
         b_ms, b_by = t["bound"]
+        I, H_ = t["I"], t["H"]
         log(f"[7] B4 forward-only scan at B {B}, T {T}, H {H_}: kernel "
             f"{t['kernel']:.4f} ms ({1e3 * t['kernel'] / T:.3f} us per "
             f"step, {t['kernel'] / t['cudnn_fwd']:.3f}x cuDNN's forward), "
@@ -1827,7 +2018,8 @@ def main():
         "route": "cuda",
         "source": "controlled_peptide_generation_tpu_torch/csrc/beam_gru.cu",
         "replaces": "controlled_peptide_generation_tpu/ops/pallas_beam.py:285",
-        "launches": launches["all"] + launches["accepted"],
+        "launches": (launches["all"] + launches["accepted"]
+                     + se_counts["B1"] + se_counts2["B1"]),
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
@@ -1852,7 +2044,8 @@ def main():
         "source": "controlled_peptide_generation_tpu_torch/csrc/tfm_beam.cu",
         "replaces":
             "controlled_peptide_generation_tpu/ops/pallas_tfm_beam.py:395",
-        "launches": launches_t["all"] + launches_t["accepted"],
+        "launches": (launches_t["all"] + launches_t["accepted"]
+                     + se_counts_t["B3"]),
         "max_abs_err": b3_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
@@ -1863,7 +2056,8 @@ def main():
         "source": "controlled_peptide_generation_tpu_torch/csrc/gru_seq.cu",
         "replaces":
             "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
-        "launches": train_launches["B4"] + enc_launches,
+        "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
+                     + se_counts2["B4"]),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],

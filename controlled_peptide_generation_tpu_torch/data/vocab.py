@@ -90,11 +90,14 @@ class Vocab:
             ixs = ixs + [PAD_IDX] * (fix_length - len(ixs))
         return ixs
 
-    def to_sentence(self, ixs, print_special_tokens=True):
+    def to_words(self, ixs, print_special_tokens=True):
         ixs = [int(i) for i in ixs]
         if not print_special_tokens:
             ixs = [i for i in ixs if i not in self.special_ix]
-        return " ".join(self.itos[i] for i in ixs)
+        return [self.itos[i] for i in ixs]
+
+    def to_sentence(self, ixs, print_special_tokens=True):
+        return " ".join(self.to_words(ixs, print_special_tokens))
 
     def to_sentences_batch(self, tokens, print_special_tokens=True):
         """2-D token matrix -> list of sentences (one numpy gather for the

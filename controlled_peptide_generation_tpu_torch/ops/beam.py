@@ -10,8 +10,12 @@ The route follows the device alone. In the JAX package the transformer's
 whole-scan kernel runs only under ``--hw.pallas_beam on``
 (``ops/beam.py:212-221`` there); in the port a CUDA tensor always takes
 the kernel (and raises outside its scope), a CPU tensor the plain
-version. Both kernels run float32 and bfloat16 (``--hw.gen_dtype
-bfloat16``, and the transformer's ``T_args.bf16``).
+version. A shape outside the kernel's scope (``in_kernel_scope``; beam
+15 at T 25) runs the plain version only where the caller asks for it
+with plain=True, as ``generation.generate_sentences`` does after deciding
+the route, where the JAX package runs its XLA arm. Both kernels run
+float32 and bfloat16 (``--hw.gen_dtype bfloat16``, and the transformer's
+``T_args.bf16``).
 
 Semantics, as in the JAX package's ops/beam.py:
 
@@ -85,8 +89,12 @@ def beam_search(model, params, z, c, beam_size=5, n_best=3, min_length=1,
     The steps run in the family's whole-scan kernel (beam_scan_gru or
     beam_scan_tfm): the CUDA kernel on CUDA tensors (raising where its
     scope does not cover the model), its plain version on CPU tensors.
-    plain=True runs the plain version on any device; it exists only to
-    hold the kernel against it."""
+    plain=True runs the plain version on any device: where the shape is
+    outside the kernel's scope (``in_kernel_scope``), as the JAX package
+    runs such shapes in its XLA arm, and to hold the kernel against it.
+    ``beam_search.plain_runs`` counts the calls with plain=True."""
+    if plain:
+        beam_search.plain_runs += 1
     if beam_size < n_best:
         raise ValueError("can't return more hypotheses than the beam holds")
     K = beam_size
@@ -103,34 +111,46 @@ def beam_search(model, params, z, c, beam_size=5, n_best=3, min_length=1,
     return hyps_from_tapes(tapes, n_best)
 
 
+beam_search.plain_runs = 0
+
+
+def in_kernel_scope(model, params, z, beam_size):
+    """True where the family's beam kernel covers this model, beam width
+    and type (``beam_kernel.applicable`` / ``tfm_beam_kernel.applicable``,
+    the JAX kernels' scope). Outside it the JAX package decodes in its XLA
+    arm; here the caller passes plain=True."""
+    if model.G_class == "transformer":
+        dt = tfm.compute_dtype(params["dec"],
+                               model.dec_tfm_args.get("bf16", False))
+        return tfm_beam_kernel.applicable(model, beam_size, dt)
+    return beam_kernel.applicable(model, beam_size, z.dtype)
+
+
+def _check_scope(model, params, z, K):
+    if z.device.type == "cuda" and not in_kernel_scope(model, params, z, K):
+        raise ValueError("the CUDA beam kernel's scope does not cover this "
+                         "model/beam/dtype (ops/beam_kernel.py and "
+                         "ops/tfm_beam_kernel.py applicable); pass "
+                         "plain=True for the plain version")
+
+
 def _scan_gru(model, params, z, c, K, T, n_best, min_length, plain):
     if plain:
         scan = beam_kernel.beam_scan_gru_reference
     else:
         scan = beam_kernel.beam_scan_gru
-        if z.device.type == "cuda" and not beam_kernel.applicable(
-                model, K, z.dtype):
-            raise ValueError("the CUDA beam kernel's scope does not cover "
-                             "this model/beam/dtype (ops/beam_kernel.py "
-                             "applicable)")
+        _check_scope(model, params, z, K)
     inputs, dims = decode_inputs(model, params, z, c)
     return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
                 n_best=n_best, **dims)
 
 
 def _scan_tfm(model, params, z, c, K, T, n_best, min_length, plain):
-    t_args = model.dec_tfm_args
-    dt = tfm.compute_dtype(params["dec"], t_args.get("bf16", False))
     if plain:
         scan = tfm_beam_kernel.beam_scan_tfm_reference
     else:
         scan = tfm_beam_kernel.beam_scan_tfm
-        if z.device.type == "cuda":
-            if not tfm_beam_kernel.applicable(model, K, dt):
-                raise ValueError(
-                    "the CUDA transformer beam kernel's scope does not "
-                    "cover this model/beam/dtype (ops/tfm_beam_kernel.py "
-                    "applicable)")
+        _check_scope(model, params, z, K)
     inputs, dims = tfm_scan_inputs(model, params, z, c)
     return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
                 n_best=n_best, **dims)

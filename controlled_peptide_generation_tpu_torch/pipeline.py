@@ -57,15 +57,11 @@ def resolve_QClass(name):
 # ---------------------------------------------------------------------------
 
 def load_states(cfg, splits=("train", "test")):
-    """{split: {mu, logvar, label, ...}} from the states dumps."""
-    out = {}
-    for split in splits:
-        fname = build_index.states_path(cfg.savepath, split, cfg.vae.n_iter)
-        if not os.path.exists(fname):
-            raise FileNotFoundError(
-                f"need dumped states at {fname}, run static_eval --long first")
-        out[split] = build_index.read_states(fname)
-    return out
+    """{split: {mu, logvar, label, ...}} from the states dumps (the
+    ``.h5`` where h5py imports, else the ``.npz``; a missing dump raises
+    FileNotFoundError naming the port's ``static_eval --long``)."""
+    return {split: build_index.read_states(build_index.states_path(
+        cfg.savepath, split, cfg.vae.n_iter)) for split in splits}
 
 
 def get_encodings_from_states(states, query, attributes):

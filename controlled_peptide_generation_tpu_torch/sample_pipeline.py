@@ -1,8 +1,10 @@
 """CLaSS sampling CLI of the port.
 
 Fit Q_xi(z), fit latent attribute heads, rejection-sample and beam-decode
-until --n_samples_acc accepted peptides exist. Runs on CUDA unless
-``--device cpu`` is given:
+until --n_samples_acc accepted peptides exist, from the states dump that
+``static_eval --long`` writes (``states_{split}_<iter>.npz``, or the
+``.h5`` where h5py imports). Runs on CUDA unless ``--device cpu`` is
+given:
 
     python -m controlled_peptide_generation_tpu_torch.sample_pipeline \
         --runname myrun --Q_select_amppos 0 \
