@@ -92,20 +92,36 @@ Phases, each raising on failure (the script then exits non-zero):
    plain=True give identical accept masks, tokens within gates (c) and
    (d);
 6. the training main path: ``main.main --phase 1 --dataset amp`` at the
-   shipped width and batch 32 for 301 steps: B2 launched 3 times per step
+   shipped width and batch 32 for 301 steps at the default --hw.unroll 50
+   (step 0 eagerly, steps 1-300 as six replays of one captured 50-step
+   CUDA graph; its kernel nodes printed): B2 launched 3 times per step
    each, B4 3 times per heldout batch (4 batches per checkpoint), B5's
-   value once per step and its backward never; finite losses, recon
+   value once per step and its backward never (counted through the
+   replays); finite losses, recon
    falling, checkpoints at 150 and 300 reloading with their Adam moments,
    vae_gen.txt over the vocab; then one step from the same params, batch
    and draws through the kernels and inside cuda_build.plain() (B2 and B5
    as their plain versions) must agree; then 51 steps with
-   ``--vae.z_regu_loss mmd``: B5's value and backward once per step,
-   finite and falling loss;
+   ``--vae.z_regu_loss mmd`` (five replays of a 10-step graph): B5's
+   value and backward once per step, finite and falling loss;
 6t. the transformer family's training main path, the same way (its
    flags, the shipped T_args, batch 32, 301 steps): B5 once per step and
    no other kernel, the same output checks, one step through the kernels
    and inside plain() agreeing (loss rtol 1e-5, gradients 1e-3 of each
    tensor's largest entry);
+6p. both families' 301 steps again at --hw.unroll 1 (every step eager):
+   the same launches, model_300.npz within 1e-5 of each array's largest
+   entry of phase 6's and the logged losses within rtol 1e-5; their
+   steps/s are [7]'s yardstick;
+6u. 51 steps at cadences 25 / 50 of each family, the default --hw.unroll
+   (two replays of a 25-step graph) against --hw.unroll 1 from one seed:
+   every array of model_50.npz within 1e-5 of its largest entry (bitwise
+   is expected), the logged losses within rtol 1e-5, the same launches;
+6f. 51 steps with --hw.flat_optimizer on through the chunks: finite
+   losses, recon falling, model_50.npz reloading with count 51 and a
+   nonzero v; two updates (the first clipped) from the same params and
+   grads, flat against per-leaf Adam, params and m within 1e-5 of each
+   tensor's largest entry;
 6e. the static eval main path: static_eval.main --long on the phase-6
    GRU run writes the states dump (the .npz: the card has no h5py; 10,000
    rows a split) and the latent index, then prints its battery into
@@ -139,7 +155,8 @@ Phases, each raising on failure (the script then exits non-zero):
    backward (input and h0 only) and the cuBLAS product that the
    weight-gradient kernel computes, and B2's launches x (time - bound) a
    GRU step; B4, also at the dump's shape, B 512 at H 80, beside cuDNN's
-   forward; B5; train steps/s of both families, the transformer
+   forward; B5; train steps/s of both families at --hw.unroll 50 and 1,
+   the transformer
    beam and round times, the bf16 kernels and rounds, seconds per phase),
    a `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
@@ -204,6 +221,8 @@ B5_LOOP_CALLS = 200
 MAX_MMD_DELTA = 1e-5     # fp64-accumulated pair sums against torch's fp32
 MAX_MMD_GRAD_REL = 1e-4  # of each gradient's largest entry
 MMD_ITERS = 50           # the short --vae.z_regu_loss mmd run (B5 backward)
+UNROLL_ITERS = 50        # 6u and 6f: 51 steps at cadences 25 / 50
+MAX_UNROLL_REL = 1e-5    # unroll 50 vs 1, of each array's largest entry
 FP32_PEAK = 67e12        # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor-core FLOP/s, dense, data sheet
 HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s, NVIDIA data sheet
@@ -240,6 +259,21 @@ class RoundCounter(logging.Handler):
 
     def emit(self, record):
         self.rounds += record.getMessage().startswith("Round #")
+
+
+class ChunkLog(logging.Handler):
+    """Reads the trainer's "<n> replays of a <unroll>-step CUDA graph of
+    <k> kernel nodes" record (train/train_vae.py) of the last run."""
+
+    def __init__(self):
+        super().__init__()
+        self.last = None
+
+    def emit(self, record):
+        words = record.getMessage().split()
+        if "replays" in words and "CUDA" in words:
+            self.last = (int(words[0]), int(words[4].split("-")[0]),
+                         int(words[-3]))
 
 
 def log(msg):
@@ -1456,13 +1490,20 @@ def main():
                 "B5 fwd": mmd_kernel.mmd_full_fwd.launches,
                 "B5 bwd": mmd_kernel.mmd_full_bwd.launches}
 
+    chunk_log = ChunkLog()
+    train_vae.log.addHandler(chunk_log)
+    train_vae.log.setLevel("INFO")
+
     def train_run(tag, flags_):
         """main.main on the flags, the kernels' counts set to 0 just before
-        and read just after. Returns (cfg, counts, seconds)."""
+        and read just after. Returns (cfg, counts, seconds, chunks), chunks
+        (replays, steps a replay, kernel nodes of the graph) or None when
+        every step ran eagerly."""
         reset_counts()
+        chunk_log.last = None
         t0 = time.perf_counter()
         cfg_ = train_main.main(flags_)
-        return cfg_, counts(), time.perf_counter() - t0
+        return cfg_, counts(), time.perf_counter() - t0, chunk_log.last
 
     def check_train_outputs(tag, tcfg_, n_steps_):
         """Finite logged losses with recon falling, every checkpoint
@@ -1548,7 +1589,10 @@ def main():
             leaf.requires_grad_(False)
 
     n_steps = TRAIN_ITERS + 1
-    tcfg, train_launches, train_s = train_run(
+    # the default --hw.unroll 50 at cadences 100 / 150: step 0 alone, steps
+    # 1-300 as six replays of a 50-step graph
+    want_chunks = (TRAIN_ITERS // 50, 50)
+    tcfg, train_launches, train_s, chunks = train_run(
         "GRU", train_flags("smoke", TRAIN_ITERS))
     rows, recon, ckpts, gen_lines, model_t, tparams = check_train_outputs(
         "GRU", tcfg, n_steps)
@@ -1559,14 +1603,17 @@ def main():
     want = {"B2 fwd": 3 * n_steps, "B2 bwd": 3 * n_steps,
             "B2 wgrad": 3 * n_steps, "B4": 3 * 4 * len(ckpts),
             "B5 fwd": n_steps, "B5 bwd": 0}
-    if train_launches != want:
+    if train_launches != want or chunks is None or chunks[:2] != want_chunks:
         raise AssertionError(f"GRU training launched the kernels "
-                             f"{train_launches} times, expected {want}")
+                             f"{train_launches} times, expected {want}; "
+                             f"chunks {chunks}, expected {want_chunks}")
     log(f"[6] phase-1 training, {n_steps} steps at batch "
         f"{tcfg.vae.batch_size} (emb {tcfg.model.emb_dim}, encoder H "
         f"{tcfg.model.E_args.h_dim}, z {tcfg.model.z_dim}, decoder H "
         f"{model_t.h_dec}, V {V}, T {tcfg.max_seq_len}): {train_s:.2f} s in "
-        f"main.main; launches {train_launches} (want {want}); recon at the "
+        f"main.main; {chunks[0]} replays of a {chunks[1]}-step CUDA graph "
+        f"of {chunks[2]} kernel nodes; launches {train_launches} (want "
+        f"{want}, counted through the replays); recon at the "
         f"logs {[round(r, 4) for r in recon]}; checkpoints {ckpts} reload "
         f"with Adam count it+1 and nonzero moments; {len(gen_lines)} "
         f"samples in vae_gen.txt; heldout "
@@ -1576,7 +1623,7 @@ def main():
     mark("6b one step, kernels vs plain")
 
     # the short run whose MMD regularizes: B5's backward on the card
-    mcfg, mmd_launches, mmd_s = train_run("GRU mmd", train_flags(
+    mcfg, mmd_launches, mmd_s, mmd_chunks = train_run("GRU mmd", train_flags(
         "smoke_mmd", MMD_ITERS, ["--vae.z_regu_loss", "mmd",
                                  "--vae.cheaplog_every", "10",
                                  "--vae.expsvlog_every", "1000"]))
@@ -1584,33 +1631,41 @@ def main():
         m_loss = [r["train_L_vae"] for r in json.load(fh)
                   if "train_L_vae" in r]
     want_m = MMD_ITERS + 1
+    # cadences 10 / 1000: chunks of 10
     if (mmd_launches["B5 fwd"] != want_m or mmd_launches["B5 bwd"] != want_m
+            or mmd_chunks is None or mmd_chunks[:2] != (MMD_ITERS // 10, 10)
             or not all(np.isfinite(m_loss)) or m_loss[-1] >= m_loss[0]):
         raise AssertionError(f"the mmd run: launches {mmd_launches} (want "
-                             f"B5 fwd and bwd {want_m}), L_vae at the logs "
-                             f"{m_loss}")
+                             f"B5 fwd and bwd {want_m}), chunks "
+                             f"{mmd_chunks}, L_vae at the logs {m_loss}")
     log(f"[6] --vae.z_regu_loss mmd, {want_m} steps: {mmd_s:.2f} s; "
-        f"launches {mmd_launches}; L_vae at the logs "
+        f"{mmd_chunks[0]} replays of a {mmd_chunks[1]}-step CUDA graph of "
+        f"{mmd_chunks[2]} kernel nodes; launches {mmd_launches}; L_vae at "
+        f"the logs "
         f"{[round(v, 4) for v in m_loss]}")
     mark("6c mmd run (B5 backward)")
 
     # ---- 6t. main path: phase-1 training of the transformer family --------
-    tcfg_t, tfm_launches, tfm_s = train_run(
+    tcfg_t, tfm_launches, tfm_s, tfm_chunks = train_run(
         "transformer", train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS))
     rows_t, recon_t, ckpts_t, gen_t, model_t6, tparams_t = (
         check_train_outputs("transformer", tcfg_t, n_steps))
     want_t = dict.fromkeys(want, 0)
     want_t["B5 fwd"] = n_steps
-    if tfm_launches != want_t:
+    if tfm_launches != want_t or tfm_chunks is None or (
+            tfm_chunks[:2] != want_chunks):
         raise AssertionError(f"transformer training launched the kernels "
-                             f"{tfm_launches} times, expected {want_t}")
+                             f"{tfm_launches} times, expected {want_t}; "
+                             f"chunks {tfm_chunks}, expected {want_chunks}")
     t_args = tcfg_t.model.G_args.T_args
     log(f"[6t] transformer phase-1 training, {n_steps} steps at batch "
         f"{tcfg_t.vae.batch_size} (d_model {t_args.d_model}, "
         f"{t_args.n_layers} layers, d_ff {t_args.d_ff}, {t_args.n_heads} "
         f"heads, emb {tcfg_t.model.emb_dim}, z {tcfg_t.model.z_dim}, V {V}, "
-        f"T {tcfg_t.max_seq_len}): {tfm_s:.2f} s in main.main; launches "
-        f"{tfm_launches} (want {want_t}); recon at the logs "
+        f"T {tcfg_t.max_seq_len}): {tfm_s:.2f} s in main.main; "
+        f"{tfm_chunks[0]} replays of a {tfm_chunks[1]}-step CUDA graph of "
+        f"{tfm_chunks[2]} kernel nodes; launches {tfm_launches} (want "
+        f"{want_t}); recon at the logs "
         f"{[round(r, 4) for r in recon_t]}; checkpoints {ckpts_t} reload "
         f"with Adam count it+1 and nonzero moments; {len(gen_t)} samples "
         f"in vae_gen.txt; heldout "
@@ -1618,6 +1673,155 @@ def main():
     mark("6t-a transformer training (main.main) and its checks")
     step_vs_plain("transformer", model_t6, tcfg_t, tparams_t)
     mark("6t-b one transformer step, kernels vs plain")
+
+    # ---- 6p, 6u: the chunked steps against the per-step path -------------
+    def state_delta(path_a, path_b):
+        """The largest |a - b| over the largest |b| of each array of two
+        checkpoints (params and Adam state), and whether all are bitwise
+        equal."""
+        worst, key, same = 0.0, None, True
+        with np.load(path_a) as a, np.load(path_b) as b:
+            if set(a.files) != set(b.files):
+                raise AssertionError(f"{path_a} and {path_b} hold other keys")
+            for k in b.files:
+                x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+                same &= a[k].tobytes() == b[k].tobytes()
+                rel = float(np.abs(x - y).max(initial=0)) / max(
+                    float(np.abs(y).max(initial=0)), 1e-30)
+                if rel > worst or key is None:
+                    worst, key = rel, k
+        return worst, key, same
+
+    def logged(cfg_):
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            return {r["it"]: {k: v for k, v in r.items()
+                              if k.startswith("train_")
+                              and "steps_per_sec" not in k}
+                    for r in json.load(fh)}
+
+    def same_run(tag, cfg_a, cfg_b, it, want_a):
+        """The checkpoints at ``it`` within MAX_UNROLL_REL of each array's
+        largest entry; the logged losses within rtol 1e-5."""
+        rel, key, bitwise = state_delta(cfg_a.vae.chkpt_path.format(it),
+                                        cfg_b.vae.chkpt_path.format(it))
+        rows_a, rows_b = logged(cfg_a), logged(cfg_b)
+        loss_rel = max(abs(rows_a[i][k] - v) / max(abs(v), 1e-30)
+                       for i, r in rows_b.items() for k, v in r.items())
+        if (rel > MAX_UNROLL_REL or set(rows_a) != set(rows_b)
+                or loss_rel > 1e-5):
+            raise AssertionError(f"{tag}: unroll {want_a} against unroll 1: "
+                                 f"model_{it}.npz {key} apart by {rel:.3e} "
+                                 f"of its largest entry, logged losses by "
+                                 f"{loss_rel:.3e}")
+        return rel, key, bitwise, loss_rel
+
+    # 6p: both families' 301 steps at --hw.unroll 1, the yardstick of [7]'s
+    # steps/s, against phase 6's chunked runs
+    unroll1_runs = {}
+    for tag, runname, extra, cfg_c, launches_c in (
+            ("GRU", "smoke_u1", (), tcfg, train_launches),
+            ("transformer", "smoke_tfm_u1", TFM_FLAGS, tcfg_t, tfm_launches)):
+        cfg_1, launches_1, secs_1, chunks_1 = train_run(
+            f"{tag} unroll 1", train_flags(runname, TRAIN_ITERS, list(extra)
+                                           + ["--hw.unroll", "1"]))
+        if chunks_1 is not None or launches_1 != launches_c:
+            raise AssertionError(f"{tag} --hw.unroll 1: chunks {chunks_1}, "
+                                 f"launches {launches_1} (want {launches_c})")
+        unroll1_runs[tag] = (cfg_1, secs_1, same_run(
+            f"{tag} 6p", cfg_c, cfg_1, TRAIN_ITERS, 50))
+        rel, key, bitwise, loss_rel = unroll1_runs[tag][2]
+        log(f"[6p] {tag} 301 steps at --hw.unroll 1: {secs_1:.2f} s in "
+            f"main.main, launches {launches_1}; model_{TRAIN_ITERS}.npz "
+            f"against phase 6's unroll 50: largest difference {rel:.3e} of "
+            f"the array's largest entry ({key}), bitwise "
+            f"{'equal' if bitwise else 'different'}; logged losses within "
+            f"{loss_rel:.3e}")
+    mark("6p per-step runs (unroll 1) of both families")
+
+    # 6u: 51 steps at cadences 25 / 50 (chunks of 25) against unroll 1
+    for tag, extra in (("GRU", ()), ("transformer", TFM_FLAGS)):
+        runs_u = {}
+        for unroll in (None, 1):
+            name = f"u{unroll or 'd'}_{tag[:3]}"
+            flags_u = train_flags(name, UNROLL_ITERS, list(extra) + [
+                "--vae.cheaplog_every", "25", "--vae.expsvlog_every", "50"]
+                + (["--hw.unroll", "1"] if unroll else []))
+            runs_u[unroll] = train_run(f"{tag} 6u", flags_u)
+        chunks_u = runs_u[None][3]
+        if chunks_u is None or chunks_u[:2] != (2, 25) or (
+                runs_u[1][3] is not None) or runs_u[None][1] != runs_u[1][1]:
+            raise AssertionError(f"6u {tag}: chunks {chunks_u}, launches "
+                                 f"{runs_u[None][1]} against "
+                                 f"{runs_u[1][1]}")
+        rel, key, bitwise, loss_rel = same_run(
+            f"{tag} 6u", runs_u[None][0], runs_u[1][0], UNROLL_ITERS, 25)
+        log(f"[6u] {tag} {UNROLL_ITERS + 1} steps, default --hw.unroll "
+            f"({chunks_u[0]} replays of a {chunks_u[1]}-step graph of "
+            f"{chunks_u[2]} kernel nodes) against --hw.unroll 1: "
+            f"model_{UNROLL_ITERS}.npz largest difference {rel:.3e} of the "
+            f"array's largest entry ({key}), bitwise "
+            f"{'equal' if bitwise else 'different'}; logged losses within "
+            f"{loss_rel:.3e}; launches {runs_u[None][1]}")
+    mark("6u unroll 25 against unroll 1, both families")
+
+    # the flat-vector Adam (--hw.flat_optimizer on) through the chunks
+    fcfg, f_launches, f_s, f_chunks = train_run("GRU flat", train_flags(
+        "smoke_flat", UNROLL_ITERS, ["--hw.flat_optimizer", "on",
+                                     "--vae.cheaplog_every", "25",
+                                     "--vae.expsvlog_every", "50"]))
+    f_rows = logged(fcfg)
+    f_recon = [r["train_L_vae_recon"] for _, r in sorted(f_rows.items())
+               if "train_L_vae_recon" in r]
+    f_bad = [(i, k) for i, r in f_rows.items() for k, v in r.items()
+             if not np.isfinite(v)]
+    model_f = build_model(fcfg.model, V, fcfg.max_seq_len)
+    tmpl_f = model_f.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+    flat_adam = train_opt.make_optimizer(fcfg.vae, flat=True)
+    fparams, fstate = checkpoints.load_train_state(
+        fcfg.vae.chkpt_path.format(UNROLL_ITERS), tmpl_f,
+        flat_adam.init(tmpl_f), dev)
+    if (f_bad or len(f_recon) < 2 or f_recon[-1] >= f_recon[0]
+            or int(fstate["count"]) != UNROLL_ITERS + 1
+            or not float(fstate["v"].abs().sum()) > 0
+            or f_chunks is None or f_chunks[:2] != (2, 25)):
+        raise AssertionError(f"the flat-Adam run: non-finite {f_bad}, recon "
+                             f"{f_recon}, count {int(fstate['count'])}, "
+                             f"chunks {f_chunks}")
+    # two updates from the same params and grads (the first clipped),
+    # flat against per-leaf
+    leaf_adam = train_opt.make_optimizer(fcfg.vae)
+    p_leaf = {k: v.clone() for k, v in checkpoints.flatten(fparams).items()}
+    p_leaf = checkpoints.unflatten(p_leaf)
+    s_leaf, s_flat = leaf_adam.init(p_leaf), flat_adam.init(fparams)
+    g_gen = torch.Generator(device=dev).manual_seed(5)
+    norms, upd_err = [], 0.0
+    for scale in (1.0, 1e-3):
+        grads = checkpoints.unflatten({
+            k: scale * torch.randn(v.shape, generator=g_gen, device=dev)
+            for k, v in checkpoints.flatten(fparams).items()})
+        norms.append(float(leaf_adam.step(p_leaf, grads, s_leaf)))
+        flat_adam.step(fparams, grads, s_flat)
+        a_f, b_f = checkpoints.flatten(fparams), checkpoints.flatten(p_leaf)
+        upd_err = max(upd_err, max(rel_err(a_f[k], b_f[k]) for k in b_f))
+    m_leaf = torch.cat([checkpoints.flatten(s_leaf["mu"])[k].reshape(-1)
+                        for k in checkpoints.ravel_order(p_leaf)])
+    m_err = rel_err(s_flat["m"], m_leaf)
+    if not (norms[0] > fcfg.vae.clip_grad > norms[1]) or (
+            upd_err > 1e-5 or m_err > 1e-5):
+        raise AssertionError(f"flat against per-leaf Adam: norms {norms}, "
+                             f"params rel {upd_err:.3e}, m rel {m_err:.3e}")
+    log(f"[6f] --hw.flat_optimizer on, {UNROLL_ITERS + 1} steps: {f_s:.2f} s "
+        f"in main.main, {f_chunks[0]} replays of a {f_chunks[1]}-step graph "
+        f"of {f_chunks[2]} kernel nodes; recon at the logs "
+        f"{[round(r, 4) for r in f_recon]}; model_{UNROLL_ITERS}.npz "
+        f"reloads with count {int(fstate['count'])} and nonzero v; two "
+        f"updates from the same params and grads (global norms "
+        f"{norms[0]:.3f}, {norms[1]:.3e}), flat against per-leaf: params "
+        f"within {upd_err:.3e} of each tensor's largest entry, m within "
+        f"{m_err:.3e}; launches "
+        f"{f_launches}")
+    mark("6f flat-vector Adam run")
 
     # ---- 6e. main path: the static eval of the phase-6 runs ----------------
     # static_eval --long writes the states dump and the latent index that
@@ -2007,11 +2211,18 @@ def main():
     for tag, tcfg_, rows_ in (("GRU", tcfg, rows),
                               ("transformer", tcfg_t, rows_t)):
         fin = rows_[-1]
+        with open(os.path.join(unroll1_runs[tag][0].savepath,
+                               "result.json")) as fh:
+            fin_1 = json.load(fh)[-1]
         log(f"[7] {tag} phase-1 training at the shipped width, batch "
-            f"{tcfg_.vae.batch_size}: {fin['train_steps_per_sec_warm']:.2f} "
-            f"steps/s after the first {train_vae.WARM_STEPS} steps, "
-            f"{fin['train_steps_per_sec']:.2f} steps/s over all {n_steps} "
-            f"(host clock, log and checkpoint boundaries included) ({card})")
+            f"{tcfg_.vae.batch_size}, --hw.unroll 50 (the default): "
+            f"{fin['train_steps_per_sec_warm']:.2f} steps/s from the first "
+            f"chunk boundary after {train_vae.WARM_STEPS} steps, "
+            f"{fin['train_steps_per_sec']:.2f} steps/s over all {n_steps}; "
+            f"--hw.unroll 1: {fin_1['train_steps_per_sec_warm']:.2f} after "
+            f"{train_vae.WARM_STEPS}, {fin_1['train_steps_per_sec']:.2f} over "
+            f"all (host clock, log and checkpoint boundaries included) "
+            f"({card})")
     k_ms, p_ms, (b_ms, b_by) = times[5000]
     entries = [{
         "name": "beam_scan_gru",

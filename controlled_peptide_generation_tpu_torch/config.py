@@ -299,8 +299,13 @@ def default_config():
         pp=1,
         mesh_axis="data",
         zero=False,
-        donate_state=True,    # parse only: JAX dispatch devices with no
-        unroll=50,            # effect in the port (it runs eagerly)
+        donate_state=True,    # parse only: buffer donation of jit, no
+                              # counterpart in the port
+        unroll=50,            # phase-1 steps per dispatch: runs of up to
+                              # this many steps (aligned to the log
+                              # cadences) replay as one captured CUDA graph
+                              # on the card, eagerly on the CPU; 1 runs
+                              # each step eagerly
         fused_rounds=True,    # CLaSS: one round = draw, heads, accept, decode
                               # (port: the serial loop is not ported yet)
         rounds_per_dispatch=1,  # CLaSS rounds drawn per launch
@@ -315,8 +320,9 @@ def default_config():
                               # CUDA GRU recurrence kernels
                               # (ops/gru_kernel.py) on CUDA tensors, their
                               # plain versions on CPU tensors; "off" raises
-        flat_optimizer="auto",  # "on" raises: the flat-vector Adam is not
-                                # ported
+        flat_optimizer="auto",  # "on": Adam on one raveled vector
+                                # (train/opt.py FlatAdam); "auto", "off":
+                                # per-leaf Adam. Keep it across a resume
         pallas_beam="auto",   # kept so JAX command lines parse; "auto" and
                               # "on" both mean the device decides: the
                               # family's CUDA beam kernel (ops/beam_kernel.py,
@@ -457,6 +463,14 @@ def check_beam_flag(cfg):
             "torch version")
 
 
+def flat_optimizer_enabled(cfg):
+    """--hw.flat_optimizer: "on" trains with the flat-vector Adam
+    (train/opt.py FlatAdam), "auto" and "off" with the per-leaf one (the
+    JAX package's auto is off too)."""
+    return bool(_parse_tristate("hw.flat_optimizer",
+                                cfg.hw.flat_optimizer))
+
+
 def check_train_flag(cfg):
     """hw.pallas_train may be auto or on; the device picks the route of the
     training recurrences. "off" asked the JAX package for its XLA scan;
@@ -535,7 +549,7 @@ def finalize(cfg, overrides=None):
     # them here so a bad spelling fails before any work starts
     check_beam_flag(cfg)
     check_train_flag(cfg)
-    _parse_tristate("hw.flat_optimizer", cfg.hw.flat_optimizer)
+    flat_optimizer_enabled(cfg)
 
     for cfgv, names in ((cfg.vae, (
             ("gen_samples_path", "vae_gen.txt"),

@@ -1,7 +1,8 @@
 """Where the time of a phase-1 train step goes on the card.
 
     python -m controlled_peptide_generation_tpu_torch.tools.profile_train \\
-        [--steps 50] [--warm 20] [--out FILE.json] [flags of main.py]
+        [--steps 50] [--warm 20] [--unroll 1] [--out FILE.json] \\
+        [flags of main.py]
 
 Builds the model and the data as ``main.py --phase 1`` does (by default
 the amp corpus at the shipped width, batch 32, seeded random weights),
@@ -12,14 +13,25 @@ then runs ``--steps`` more under ``torch.profiler`` and prints, per step:
 * the device's busy time (the union of the CUDA kernels' and copies'
   intervals) and its idle share of the profiled wall time;
 * the host time of the parts of a step (batch and draws, forward,
-  backward, optimizer), from ``record_function`` ranges;
+  backward, optimizer; with ``--unroll``: batches, the chunk's staging and
+  its replay), from ``record_function`` ranges;
 * the device time of each kernel, largest first, and the launches of the
-  port's kernels per step (B2's recurrences, B4, B5's value and gradient).
+  port's kernels per step (B2's recurrences, B4, B5's value and gradient);
+* the device launches inside and outside a chunk's graph.
 
 A step here is the trainer's own ``train_step``
 (``train/train_vae.make_train_step``), whose ``record_function`` ranges
 split it into its parts, after the batch and draws the trainer's loop
-makes; logging, sampling and checkpoints are left out. Needs CUDA.
+makes. With ``--unroll N`` (N > 1) it is a replay of the trainer's
+``TrainChunk`` of N steps divided by N (``--steps`` and ``--warm`` are
+rounded up to whole chunks; the warm chunks include the capture): the
+launches inside are the graph's kernel nodes per step, those outside the
+device events a second profiled window of the chunks' staging alone
+(draws and copies) records, and what the profiler saw during the
+replays is the first window's events less those; one more replay,
+launched with the device idle, times the graph's launch on the host
+(it moves the params on: a measurement only). Logging, sampling and
+checkpoints are left out. Needs CUDA.
 """
 
 import argparse
@@ -27,19 +39,20 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from .. import config as C
 from ..main import EXTRA_ARGS, load_dataset
 from ..models.rnn_vae import build_model
-from ..ops import gru_fwd_kernel, gru_kernel, mmd_kernel
 from ..ops import losses as L
 from ..train import checkpoints
 from ..train import train_vae as TV
 from ..utils import runtime
 
 PARTS = ("batch+draws", "forward", "backward", "optimizer")
+CHUNK_PARTS = ("batches", "chunk stage", "chunk replay")
 
 
 def _union_us(intervals):
@@ -59,6 +72,7 @@ def main(argv=None):
     own = argparse.ArgumentParser(add_help=False)
     own.add_argument("--steps", type=int, default=50)
     own.add_argument("--warm", type=int, default=20)
+    own.add_argument("--unroll", type=int, default=1)
     own.add_argument("--out", default="")
     opts, rest = own.parse_known_args(argv)
     cfg, args, _ = C.parse_and_finalize(
@@ -75,46 +89,84 @@ def main(argv=None):
     mmd = cfg.losses.wae_mmd
     rf = L.init_rf_basis(runtime.generator(dev, cfg.seed, 1), model.z_dim,
                          mmd.rf_dim, dev)
+    flat = C.flat_optimizer_enabled(cfg)
     train_step, optimizer = TV.make_train_step(model, cfg.vae, cfg.losses,
-                                               rf)
+                                               rf, flat)
     opt_state = optimizer.init(params)
     B, T = cfg.vae.batch_size, cfg.max_seq_len
+    unroll = max(opts.unroll, 1)
+    chunk = (TV.make_train_chunk(model, cfg.vae, cfg.losses, rf, unroll,
+                                 cfg.seed, flat) if unroll > 1 else None)
+    parts = CHUNK_PARTS if chunk is not None else PARTS
+    n = -(-opts.steps // unroll) * unroll
+    warm = -(-opts.warm // unroll) * unroll
 
     def step(it):
-        with record_function("batch+draws"):
-            text = torch.from_numpy(
-                dataset.next_batch("train_vae").text).to(dev)
-            draws = TV.draw_step(model, runtime.generator(dev, cfg.seed, it),
-                                 B, T, dev)
-        train_step(params, opt_state, text, it, draws)
+        if chunk is None:
+            with record_function("batch+draws"):
+                text = torch.from_numpy(
+                    dataset.next_batch("train_vae").text).to(dev)
+                draws = TV.draw_step(
+                    model, runtime.generator(dev, cfg.seed, it), B, T, dev)
+            train_step(params, opt_state, text, it, draws)
+            return
+        with record_function("batches"):
+            texts = np.stack([dataset.next_batch("train_vae").text
+                              for _ in range(unroll)])
+        chunk(params, opt_state, texts, it)
 
-    def window(it0):
+    def window(it0, stage_only=False):
         runtime.synchronize(dev)
         t0 = time.perf_counter()
-        for it in range(it0, it0 + opts.steps):
-            step(it)
+        for it in range(it0, it0 + n, unroll):
+            if stage_only:
+                chunk.stage(np.stack([dataset.next_batch("train_vae").text
+                                      for _ in range(unroll)]), it)
+            else:
+                step(it)
         runtime.synchronize(dev)
         return time.perf_counter() - t0
 
-    for it in range(opts.warm):
+    for it in range(0, warm, unroll):
         step(it)
-    wall_plain = window(opts.warm)
-    counted = (gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
-               gru_kernel.gru_seq_wgrad, gru_fwd_kernel.gru_fwd,
-               mmd_kernel.mmd_full_fwd, mmd_kernel.mmd_full_bwd)
+    wall_plain = window(warm)
+    counted = TV.launch_counters()
     for fn in counted:
         fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof = window(opts.warm + opts.steps)
-    launches = {fn.__name__: fn.launches / opts.steps for fn in counted}
+        wall_prof = window(warm + n)
+    launches = {fn.__name__: fn.launches / n for fn in counted}
 
-    n = opts.steps
-    # the device's events, less the ranges record_function mirrors there
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name not in PARTS
-                  and not getattr(e, "is_user_annotation", False)]
+    def device_events(prof_):
+        # the device's events, less the ranges record_function mirrors
+        return [e for e in prof_.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in parts
+                and not getattr(e, "is_user_annotation", False)]
+
+    dev_events = device_events(prof)
+    outside = len(dev_events) / n
+    graph = None
+    if chunk is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_stage:
+            window(warm + 2 * n, stage_only=True)
+        outside = len(device_events(prof_stage)) / n
+        # one replay's host time with the device idle: the launch alone,
+        # against the replay's host time in the window (which may wait)
+        runtime.synchronize(dev)
+        t0 = time.perf_counter()
+        chunk.graph.replay()
+        launch_ms = 1e3 * (time.perf_counter() - t0)
+        runtime.synchronize(dev)
+        kinds = chunk.node_kinds
+        graph = {"unroll": unroll,
+                 "replay_launch_ms_idle_device": launch_ms,
+                 "kernel_nodes_per_step": kinds.count("kernel") / unroll,
+                 "other_nodes_per_step": (len(kinds) - kinds.count("kernel"))
+                 / unroll,
+                 "profiled_replay_events_per_step":
+                     len(dev_events) / n - outside}
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in dev_events])
     per_kernel = defaultdict(lambda: [0.0, 0])
@@ -123,25 +175,28 @@ def main(argv=None):
         per_kernel[e.name][1] += 1
     host_parts = defaultdict(float)
     for e in prof.events():
-        if e.name in PARTS and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name in parts and e.device_type == torch.autograd.DeviceType.CPU:
             host_parts[e.name] += e.time_range.elapsed_us()
     report = {
         "card": runtime.card_line(),
-        "steps": n, "batch": B,
+        "steps": n, "batch": B, "unroll": unroll,
         "wall_ms_per_step": 1e3 * wall_plain / n,
         "wall_ms_per_step_profiled": 1e3 * wall_prof / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": (1.0 - busy_us / 1e6 / wall_prof
                               if dev_events else None),
-        "host_ms_per_step": {k: host_parts[k] / 1e3 / n for k in PARTS},
+        "host_ms_per_step": {k: host_parts[k] / 1e3 / n for k in parts},
         "device_events_per_step": len(dev_events) / n,
+        "device_launches_outside_graph_per_step": outside,
+        "graph": graph,
         "kernel_launches_per_step": launches,
         "kernels": [{"name": k, "ms_per_step": v[0] / 1e3 / n,
                      "calls_per_step": v[1] / n}
                     for k, v in sorted(per_kernel.items(),
                                        key=lambda kv: -kv[1][0])],
     }
-    print(f"[profile] {n} steps at batch {B} ({report['card']}): "
+    print(f"[profile] {n} steps at batch {B}, unroll {unroll} "
+          f"({report['card']}): "
           f"{report['wall_ms_per_step']:.4f} ms per step unprofiled, "
           f"{report['wall_ms_per_step_profiled']:.4f} ms profiled; device "
           f"busy {report['device_busy_ms_per_step']:.4f} ms per step "
@@ -151,6 +206,15 @@ def main(argv=None):
     print("[profile] host ms per step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in report["host_ms_per_step"].items()))
     print(f"[profile] the port's kernel launches per step: {launches}")
+    if graph is not None:
+        print(f"[profile] device launches per step: inside the graph "
+              f"{graph['kernel_nodes_per_step']:.2f} kernel nodes (and "
+              f"{graph['other_nodes_per_step']:.2f} other nodes), outside "
+              f"{outside:.2f} (the staging: draws and copies); the profiler "
+              f"saw {graph['profiled_replay_events_per_step']:.2f} device "
+              f"events a step during the replays; one replay's launch "
+              f"with the device idle {graph['replay_launch_ms_idle_device']:.4f}"
+              f" ms of host time")
     for row in report["kernels"][:15]:
         print(f"[profile]   {row['ms_per_step']:.4f} ms/step, "
               f"{row['calls_per_step']:.1f} calls/step: {row['name'][:100]}")

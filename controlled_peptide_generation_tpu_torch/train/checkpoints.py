@@ -12,12 +12,22 @@ of the train-state pytree ``{'params', 'opt', 'step'}``:
 * the Adam state of ``optax.chain(clip_by_global_norm, adam)``:
   ``"['opt'][1][0].count"``, ``"['opt'][1][0].mu['emb']['w']"``,
   ``"['opt'][1][0].nu[...]"``; in the port ``{'count', 'mu', 'nu'}``
-  (``train/opt.py``), under the path ``('opt', 'mu', 'emb', 'w')``;
+  (``train/opt.py`` ClipAdam), under the path ``('opt', 'mu', 'emb',
+  'w')``;
+* or the flat-vector Adam's (``--hw.flat_optimizer on``, the JAX
+  package's ``FlatAdamState``): ``"['opt'].m"``, ``"['opt'].v"`` (one
+  vector each, over the file's ``['params']`` leaves in ``ravel_order``)
+  and ``"['opt'].count"``; in the port ``{'m', 'v', 'count'}`` (FlatAdam);
 * ``"['step']"``, the iteration it was saved at.
 
 The port writes no classifier parameters (no gradient reaches them in
 phase 1) and no moments for them; the JAX package's non-strict loader
-keeps its own values for those.
+keeps its own values for those. Its flat m and v cover the leaves it
+writes, so a JAX resume of a port's flat checkpoint needs a template
+without the classifier (a JAX flat checkpoint loads into the port: the
+port cuts its own leaves' segments out of the file's vectors). A resume
+that flips the layout raises a ValueError naming ``--hw.flat_optimizer``
+(``check_opt_layout``, the JAX package's ``_check_opt_layout``).
 """
 
 import os
@@ -29,7 +39,11 @@ import torch
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 _OPTAX_ADAM = "['opt'][1][0]"
 _OPTAX_LEAF = re.compile(r"^\['opt'\]\[1\]\[0\]\.(count|mu|nu)(.*)$")
-_FLAT_ADAM = re.compile(r"^\['opt'\].*\.(m|v)$")
+_FLAT_OPT = "['opt']"
+_FLAT_LEAF = re.compile(r"^\['opt'\]\.(count|m|v)$")
+# the layouts' fingerprints in key paths (NamedTuple fields are ".name")
+_FLAT_OPT_PAT = re.compile(r"\.(m|v)$")
+_OPTAX_OPT_PAT = re.compile(r"\.(mu|nu)(\W|$)")
 
 
 def keystr(path):
@@ -51,23 +65,56 @@ def parse_keystr(key):
     return parts
 
 
-def state_keystr(path):
-    """A path of the port's train state -> its key in the file."""
+def state_keystr(path, flat=False):
+    """A path of the port's train state -> its key in the file; ``flat``
+    for the flat-vector Adam's state (``('opt', 'm')`` ->
+    ``"['opt'].m"``)."""
     if path[0] == "opt":
+        if flat:
+            return f"{_FLAT_OPT}.{path[1]}"
         return f"{_OPTAX_ADAM}.{path[1]}" + keystr(path[2:])
     return keystr(path)
 
 
 def parse_state_keystr(key):
-    """Inverse of state_keystr."""
-    if _FLAT_ADAM.match(key):
-        raise ValueError(
-            f"{key!r} is the flat-vector Adam state of --hw.flat_optimizer "
-            f"on, which the port does not run")
-    m = _OPTAX_LEAF.match(key)
+    """Inverse of state_keystr (either layout)."""
+    m = _OPTAX_LEAF.match(key) or _FLAT_LEAF.match(key)
     if m:
-        return ("opt", m.group(1)) + parse_keystr(m.group(2))
+        rest = m.group(2) if m.re is _OPTAX_LEAF else ""
+        return ("opt", m.group(1)) + parse_keystr(rest)
     return parse_keystr(key)
+
+
+def is_flat(opt_state):
+    """True for the flat-vector Adam's state ({'m', 'v', 'count'})."""
+    return opt_state is not None and "m" in opt_state
+
+
+def ravel_order(tree):
+    """The leaves' paths in the order ``jax.flatten_util.ravel_pytree``
+    concatenates them: dict keys sorted, list entries by index (a path
+    compares part by part; siblings are all dict keys or all indices)."""
+    return sorted(flatten(tree))
+
+
+def check_opt_layout(path, tmpl_keys, file_keys):
+    """Raise a ValueError naming --hw.flat_optimizer when the file's Adam
+    layout (flat vector or per leaf) is not the template's: a resume that
+    flipped the flag would otherwise fail on a missing key or reset the
+    moments without a word."""
+    t_flat = any(_FLAT_OPT_PAT.search(k) for k in tmpl_keys)
+    t_optax = any(_OPTAX_OPT_PAT.search(k) for k in tmpl_keys)
+    f_flat = any(_FLAT_OPT_PAT.search(k) for k in file_keys)
+    f_optax = any(_OPTAX_OPT_PAT.search(k) for k in file_keys)
+    if ((t_flat and not t_optax and f_optax and not f_flat)
+            or (t_optax and not t_flat and f_flat and not f_optax)):
+        stored = "per-leaf" if f_optax else "flat-vector"
+        expected = "flat-vector" if t_flat else "per-leaf"
+        raise ValueError(
+            f"checkpoint {path} stores the {stored} Adam state but this run "
+            f"expects the {expected} layout: --hw.flat_optimizer was "
+            f"flipped across a resume. Resume with the original "
+            f"--hw.flat_optimizer setting, or train from scratch.")
 
 
 def flatten(tree, prefix=()):
@@ -134,7 +181,7 @@ def save(path, params, opt_state=None, step=None):
     state = {"params": params}
     if opt_state is not None:
         state["opt"] = opt_state
-    flat = {state_keystr(p): v.detach().cpu().numpy()
+    flat = {state_keystr(p, is_flat(opt_state)): v.detach().cpu().numpy()
             for p, v in flatten(state).items()}
     if step is not None:
         flat[keystr(("step",))] = np.asarray(step, np.int32)
@@ -158,21 +205,55 @@ def load(path, device="cpu"):
     return params_from_jax(flat, device)
 
 
+def _own_segments(path, data, params):
+    """The file's flat m and v cut down to ``params``' leaves: the file's
+    vectors run over its own ``['params']`` leaves in ravel order (the
+    JAX package's hold the classifier too)."""
+    sizes = {parse_keystr(k)[1:]: data[k].size for k in data
+             if k.startswith("['params']")}
+    offsets, at = {}, 0
+    for p in sorted(sizes):
+        offsets[p] = at
+        at += sizes[p]
+    for name in ("m", "v"):
+        key = f"{_FLAT_OPT}.{name}"
+        if key not in data:
+            continue
+        vec = data[key]
+        if vec.shape != (at,):
+            raise ValueError(f"{path}: {key} has shape {vec.shape}, but the "
+                             f"file's parameters ravel to ({at},)")
+        parts = []
+        for p in ravel_order(params):
+            if p not in offsets:
+                raise ValueError(f"{path}: no {keystr(('params',) + p)} to "
+                                 f"place {key} by")
+            parts.append(vec[offsets[p]:offsets[p] + sizes[p]])
+        data[key] = np.concatenate(parts) if parts else vec[:0]
+    return data
+
+
 def load_train_state(path, params, opt_state, device="cpu"):
     """Fill copies of ``params`` and ``opt_state`` (the port's nested
-    dicts) from the file by key path. Leaves the file lacks keep the given
-    values and keys the file has beyond them are ignored (the JAX
-    package's ``strict=False``: e.g. the classifier's parameters and
-    moments). Returns (params, opt_state)."""
-    stored = flatten(state_from_jax(_read(
-        path, lambda k: k.startswith(("['params']", "['opt']"))), device))
+    dicts; the Adam state of either layout) from the file by key path.
+    Leaves the file lacks keep the given values and keys the file has
+    beyond them are ignored (the JAX package's ``strict=False``: e.g. the
+    classifier's parameters and moments). A file whose Adam layout is not
+    ``opt_state``'s raises a ValueError naming --hw.flat_optimizer.
+    Returns (params, opt_state)."""
+    flat = is_flat(opt_state)
+    data = _read(path, lambda k: k.startswith(("['params']", "['opt']")))
     want = flatten({"params": params, "opt": opt_state})
+    check_opt_layout(path, {state_keystr(p, flat) for p in want}, set(data))
+    if flat:
+        data = _own_segments(path, data, params)
+    stored = flatten(state_from_jax(data, device))
     out = {}
     for p, leaf in want.items():
         if p in stored:
             if stored[p].shape != leaf.shape:
                 raise ValueError(
-                    f"{path}: {state_keystr(p)} has shape "
+                    f"{path}: {state_keystr(p, flat)} has shape "
                     f"{tuple(stored[p].shape)}, expected {tuple(leaf.shape)}")
             leaf = stored[p].to(leaf.dtype)
         out[p] = leaf.clone()

@@ -1,22 +1,28 @@
-"""The phase-1 optimizer: clip by global norm, then Adam, with optax's
-formulas (the JAX package's ``optax.chain(clip_by_global_norm(c),
-adam(lr))``).
+"""The phase-1 optimizers: clip by global norm, then Adam, with optax's
+formulas, per leaf (the JAX package's ``optax.chain(clip_by_global_norm(c),
+adam(lr))``) or on one raveled vector (its ``flat_adam``, under
+``--hw.flat_optimizer on``).
 
 * clip: with n the global norm over all leaves, g stays g when n < c and
   becomes (g / n) * c otherwise (``torch.nn.utils.clip_grad_norm_``
-  scales by c / (n + 1e-6) instead, so it is not used);
+  scales by c / (n + 1e-6) instead, so it is not used); the flat variant
+  scales by g * (c / n), as ``flat_adam`` does;
 * Adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, count += 1,
   update = -lr * mu_hat / (sqrt(nu_hat) + eps) with the bias corrections
-  1 - b^count computed in float32.
+  1 - b^count computed in float32 from the count on the device.
 
-The state is ``{"count", "mu", "nu"}`` with mu and nu nested like the
-parameters; ``train/checkpoints.py`` maps it to optax's key paths.
-Parameters are updated in place (the trainer owns them).
+``ClipAdam``'s state is ``{"count", "mu", "nu"}`` with mu and nu nested
+like the parameters; ``FlatAdam``'s is ``{"m", "v", "count"}`` with m and
+v one vector over the leaves in the JAX package's ravel order
+(``checkpoints.ravel_order``). ``train/checkpoints.py`` maps both to the JAX package's
+key paths. Parameters are updated in place (the trainer owns them, and a
+captured CUDA graph of the step holds their addresses); a step makes no
+host-to-device copy, so it can be captured.
 """
 
 import torch
 
-from .checkpoints import flatten
+from .checkpoints import flatten, ravel_order
 
 
 def _zeros(tree):
@@ -29,14 +35,25 @@ def _zeros(tree):
     return torch.zeros_like(tree)
 
 
+def _device(params):
+    return next(iter(flatten(params).values())).device
+
+
+def _bias_corrections(count, b1, b2):
+    """(1 - b1^count, 1 - b2^count) in float32, from the device count:
+    a Python float base, so no host tensor is copied to the device."""
+    c32 = count.to(torch.float32)
+    return 1.0 - torch.pow(b1, c32), 1.0 - torch.pow(b2, c32)
+
+
 class ClipAdam:
     def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8):
         self.lr, self.clip = float(lr), float(clip)
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params):
-        dev = next(iter(flatten(params).values())).device
-        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=_device(params)),
                 "mu": _zeros(params), "nu": _zeros(params)}
 
     @staticmethod
@@ -51,13 +68,8 @@ class ClipAdam:
         mu, nu = flatten(state["mu"]), flatten(state["nu"])
         norm = self.global_norm(grads)
         keep = norm < self.clip
-        count = state["count"] + 1
-        state["count"].copy_(count)
-        c32 = count.to(torch.float32)
-        bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32,
-                                 device=c32.device) ** c32
-        bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32,
-                                 device=c32.device) ** c32
+        state["count"].add_(1)
+        bc1, bc2 = _bias_corrections(state["count"], self.b1, self.b2)
         for path, p in p_flat.items():
             g = g_flat[path]
             g = torch.where(keep, g, (g / norm) * self.clip)
@@ -70,11 +82,48 @@ class ClipAdam:
         return norm
 
 
+class FlatAdam:
+    """``flat_adam`` of the JAX package: clip and Adam on the gradients
+    raveled into one vector (``ravel_order``), so a step is a fixed
+    handful of launches however many leaves the model has (the
+    transformer's 67 would take several launches each per leaf)."""
+
+    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8):
+        self.lr, self.clip = float(lr), float(clip)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        flat = flatten(params)
+        n = sum(leaf.numel() for leaf in flat.values())
+        dev = _device(params)
+        # m and v are distinct buffers: the step writes both in place
+        return {"m": torch.zeros((n,), device=dev),
+                "v": torch.zeros((n,), device=dev),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    @torch.no_grad()
+    def step(self, params, grads, state):
+        """Update ``params`` and ``state`` in place from ``grads`` (nested
+        like params). Returns the global norm of the unclipped grads."""
+        order = ravel_order(params)
+        p_flat, g_flat = flatten(params), flatten(grads)
+        g = torch.cat([g_flat[path].reshape(-1) for path in order])
+        norm = torch.sqrt(torch.dot(g, g))
+        g = g * torch.where(norm < self.clip, 1.0, self.clip / norm)
+        state["count"].add_(1)
+        bc1, bc2 = _bias_corrections(state["count"], self.b1, self.b2)
+        m, v = state["m"], state["v"]
+        m.mul_(self.b1).add_((1.0 - self.b1) * g)
+        v.mul_(self.b2).add_(torch.mul(g, g).mul_(1.0 - self.b2))
+        upd = (-self.lr) * (m / bc1) / torch.sqrt(v / bc2).add_(self.eps)
+        leaves = [p_flat[path] for path in order]
+        torch._foreach_add_(leaves, [u.view_as(p) for u, p in zip(
+            upd.split([p.numel() for p in leaves]), leaves)])
+        return norm
+
+
 def make_optimizer(cfgv, flat=False):
-    """The phase-1 optimizer (clip ``cfgv.clip_grad``, Adam ``cfgv.lr``).
-    The JAX package's flat-vector variant (``--hw.flat_optimizer on``) is
-    not ported."""
-    if flat:
-        raise NotImplementedError(
-            "hw.flat_optimizer on is not ported (ROADMAP.md A7)")
-    return ClipAdam(cfgv.lr, cfgv.clip_grad)
+    """The phase-1 optimizer (clip ``cfgv.clip_grad``, Adam ``cfgv.lr``):
+    the flat-vector Adam when ``flat`` (``config.flat_optimizer_enabled``),
+    else the per-leaf one."""
+    return (FlatAdam if flat else ClipAdam)(cfgv.lr, cfgv.clip_grad)

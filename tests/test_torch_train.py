@@ -220,10 +220,32 @@ def test_optimizer_matches_optax():
                 np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-def test_flat_optimizer_is_not_ported():
+def test_flat_optimizer_trains_and_resumes(tmp_path, one_thread):
+    """--hw.flat_optimizer on builds the flat-vector Adam; a tiny CLI run
+    trains with it (finite losses, the flat state in its checkpoints) and
+    a second run resumes from its last checkpoint, moments and count
+    included."""
     cfg, _, _ = TC.parse_and_finalize(["--hw.flat_optimizer", "on"])
-    with pytest.raises(NotImplementedError):
-        t_opt.make_optimizer(cfg.vae, flat=True)
+    assert isinstance(t_opt.make_optimizer(
+        cfg.vae, TC.flat_optimizer_enabled(cfg)), t_opt.FlatAdam)
+    base = ["--tiny", "1", "--phase", "1", "--dataset", "synthetic",
+            "--device", "cpu", "--savepath_toplevel", str(tmp_path / "out"),
+            "--tb_toplevel", str(tmp_path / "tb"),
+            "--datapath", str(tmp_path / "data"),
+            "--hw.flat_optimizer", "on"]
+    run = t_main.main(base + ["--runname", "flat"]).savepath
+    path = os.path.join(run, "model_100.npz")
+    with np.load(path) as data:
+        assert int(data["['opt'].count"]) == 101
+        assert not any(".mu" in k for k in data.files)
+        assert float(np.abs(data["['opt'].v"]).sum()) > 0
+    with open(os.path.join(run, "result.json")) as fh:
+        rows = [r for r in json.load(fh) if "train_L_vae" in r]
+    assert rows and all(math.isfinite(r[k]) for r in rows for k in r)
+    again = t_main.main(base + ["--runname", "flat_again", "--loadpath",
+                                path]).savepath
+    with np.load(os.path.join(again, "model_25.npz")) as data:
+        assert int(data["['opt'].count"]) == 101 + 26
 
 
 def _jax_train_state(jm, seed):
