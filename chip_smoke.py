@@ -148,6 +148,28 @@ Phases, each raising on failure (the script then exits non-zero):
    run, reading the phase-6e dump from disk: B4 twice per encode batch,
    the bf16 B1 entry launched, accepted samples written, the rounds it
    launched;
+5s. the serial loop as a user runs it, sample_pipeline.main
+   --hw.fused_rounds 0 at rounds of 5,000 on the phase-6 GRU run and on the
+   phase-6t transformer run, each reading its phase-6e dump from disk: the
+   sample files written, peptides unique, at least 100 accepted, B1 (B3)
+   launched exactly 5 times a round (chunks of 1,024) and the plain beam
+   never; decode_from_z of one round's latents and c through the kernel
+   against plain=True (>= 99% identical rows, |score delta| <= 1e-3 on
+   them), each family; a serial round's host-clock time beside a fused
+   decode-all round's on the same run;
+8. the server as a user runs it: build_server on the phase-6 GRU run
+   (round 5,000), start(), make_http_server on 127.0.0.1 port 0; one
+   request of 64, 16 concurrent urllib clients x 64, one request of 12,000
+   (several bounded rounds in flight); /healthz, /stats, a 400 and a 404;
+   every 200 response exactly n rows, no peptide twice, their count
+   /stats's served, candidates rounds x 5,000, B1 launched once a round
+   and the plain beam never; the first round equal, in order and bit for
+   bit, to the deduped accepted rows of one pipeline.launch_round with
+   round_generator(seed, 1) outside the server; a request still queued at
+   stop() raises and the worker thread ends; latency p50 and p99 of the
+   burst, served rows/s and the stage split;
+8t. the transformer's server on the phase-6t run for one request: B3
+   launched once a round;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -163,13 +185,17 @@ Phases, each raising on failure (the script then exits non-zero):
 """
 
 import contextlib
+import csv
 import json
 import logging
 import os
 import shutil
 import statistics
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 T_START = time.perf_counter()
@@ -402,6 +428,7 @@ def main():
     from controlled_peptide_generation_tpu_torch import config as C
     from controlled_peptide_generation_tpu_torch import pipeline
     from controlled_peptide_generation_tpu_torch import sample_pipeline
+    from controlled_peptide_generation_tpu_torch import serve
     from controlled_peptide_generation_tpu_torch import static_eval
     from controlled_peptide_generation_tpu_torch.api import (
         load_trained_model, load_vocab)
@@ -1781,6 +1808,17 @@ def main():
     fparams, fstate = checkpoints.load_train_state(
         fcfg.vae.chkpt_path.format(UNROLL_ITERS), tmpl_f,
         flat_adam.init(tmpl_f), dev)
+    # the file's m and v run over the JAX train state's leaves, the
+    # classifier's included (zeros there), as the JAX package resumes them
+    with np.load(fcfg.vae.chkpt_path.format(UNROLL_ITERS)) as data:
+        m_file = data["['opt'].m"]
+    n_own = sum(v.numel() for v in checkpoints.flatten(tmpl_f).values())
+    n_clf = sum(int(np.prod(sh)) for sh in checkpoints.classifier_shapes(
+        fcfg.model.emb_dim, **fcfg.model.C_args).values())
+    if m_file.shape != (n_own + n_clf,) or np.any(m_file[:n_clf]):
+        raise AssertionError(f"the flat checkpoint's m has shape "
+                             f"{m_file.shape} (want {n_own} + {n_clf}) or "
+                             f"nonzero classifier segments")
     if (f_bad or len(f_recon) < 2 or f_recon[-1] >= f_recon[0]
             or int(fstate["count"]) != UNROLL_ITERS + 1
             or not float(fstate["v"].abs().sum()) > 0
@@ -2056,6 +2094,295 @@ def main():
         f"{cli_launches}")
     mark("5d-bf16 sample_pipeline CLI in bf16")
 
+    # ---- 5s. main path: the serial loop (--hw.fused_rounds 0) -------------
+    # sample_pipeline.main as a user runs it on the phase-6 GRU run, reading
+    # the phase-6e dump from disk; every round decodes its 5,000 candidates
+    # in chunks of 1,024 (pipeline.DECODE_CHUNK): five B1 launches a round
+    def serial_cli(tag, flags_, counter):
+        rounds_s = RoundCounter()
+        pipeline.LOG.addHandler(rounds_s)
+        pipeline.LOG.setLevel("INFO")
+        beam.beam_search.plain_runs = 0
+        counter.launches = 0
+        t0 = time.perf_counter()
+        stem_ = sample_pipeline.main(flags_ + [
+            "--hw.fused_rounds", "0", "--Q_n_components", "10",
+            "--n_samples_per_round", "5000", "--n_samples_acc", "100",
+            "--samples_outfn_prefix", f"smoke_serial_{tag}"])
+        secs = time.perf_counter() - t0
+        n_launch, n_plain = counter.launches, beam.beam_search.plain_runs
+        pipeline.LOG.removeHandler(rounds_s)
+        pipeline.LOG.setLevel(logging.NOTSET)
+        with open(stem_ + ".csv", newline="") as fh:
+            rows_ = list(csv.DictReader(fh))
+        peps_ = [r["peptide"] for r in rows_]
+        n_acc_ = sum(r["accept"] == "True" for r in rows_)
+        per_round = -(-5000 // pipeline.DECODE_CHUNK)
+        missing = [ext for ext in (".plain.txt", ".csv", ".pkl")
+                   if not os.path.exists(stem_ + ext)]
+        if (missing or len(set(peps_)) != len(peps_) or n_acc_ < 100
+                or rounds_s.rounds < 1 or n_plain != 0
+                or n_launch != per_round * rounds_s.rounds):
+            raise AssertionError(
+                f"serial {tag} run: missing {missing}, {len(peps_)} rows "
+                f"({len(set(peps_))} unique), {n_acc_} accepted, "
+                f"{rounds_s.rounds} rounds, launches {n_launch} (want "
+                f"{per_round} a round), plain beam {n_plain}")
+        log(f"[5s] sample_pipeline.main --hw.fused_rounds 0 on the phase-6 "
+            f"{tag} run, its dump read from disk: {rounds_s.rounds} round(s) "
+            f"of 5000, {len(peps_)} unique peptides, {n_acc_} accepted, in "
+            f"{secs:.3f} s; launches {n_launch} ({per_round} a round), plain "
+            f"beam 0; files {stem_}.*")
+        return rounds_s.rounds, n_launch
+
+    serial_runs = {
+        "GRU": serial_cli("GRU", train_flags("smoke", TRAIN_ITERS),
+                          beam_kernel.beam_scan_gru),
+        "transformer": serial_cli(
+            "transformer", train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS),
+            tfm_beam_kernel.beam_scan_tfm)}
+    mark("5s serial sample_pipeline CLI, both families")
+
+    def fitted_Q(cfg_):
+        """Q (10 components) and the two heads on a run's dump."""
+        states_ = pipeline.load_states(cfg_)
+        Q_ = pipeline.fitQ_and_test(
+            cfg_, pipeline.resolve_QClass("mogQ"),
+            {"n_components": 10, "z_num_samples": 10,
+             "covariance_type": "diag"}, states_, device=dev)[0]
+        Q_.init_attr_classifiers(
+            {a: pipeline.build_clfZ(cfg_, a, states_, device=dev)
+             for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
+        return Q_
+
+    serial_ms = {}
+    for tag, cfg_, model_, params_ in (("GRU", tcfg, model_t, tparams),
+                                       ("transformer", tcfg_t, model_t6,
+                                        tparams_t)):
+        Q_s = fitted_Q(cfg_)
+        z_s = Q_s.rejection_sample(
+            pipeline.round_generator(cfg_.seed, 1, dev), 5000)[0]
+        dec = [pipeline.decode_top1(
+            z_s, model_, params_, pipeline.round_generator(cfg_.seed, 2, dev),
+            plain=plain_) for plain_ in (False, True)]
+        same = (dec[0][0] == dec[1][0]).all(axis=1)
+        d_score = float(np.abs(dec[0][1] - dec[1][1])[same].max())
+        log(f"[5s] {tag} decode_from_z of one round's 5000 latents and c "
+            f"(chunks of {pipeline.DECODE_CHUNK}), kernel vs plain=True: "
+            f"rows identical {same.mean():.6f}, max |top-1 score delta| on "
+            f"them {d_score:.3e}")
+        if same.mean() < MIN_SAME_ROWS or d_score > MAX_SCORE_DELTA:
+            raise AssertionError(f"{tag} serial decode: kernel vs plain "
+                                 f"{same.mean():.4f} rows identical, score "
+                                 f"delta {d_score:.3e}")
+        # host-clock round times on this run: a serial round against a
+        # fused decode-all round (its results copied to the host)
+        def serial_round():
+            pipeline.one_sampling_round(
+                model_, params_, vocab, Q_s, 5000,
+                pipeline.round_generator(cfg_.seed, 3, dev))
+
+        def fused_round_():
+            host_, ev_ = pipeline.launch_round(
+                cfg_, model_, params_, Q_s, 5000,
+                pipeline.round_generator(cfg_.seed, 3, dev))
+            ev_.synchronize()
+        for name, fn in (("serial", serial_round), ("fused", fused_round_)):
+            fn()
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            serial_ms[tag, name] = statistics.median(ts)
+        log(f"[5s] {tag} round of 5000 on the phase-6 run (host clock, "
+            f"median of 5): serial {serial_ms[tag, 'serial']:.3f} ms "
+            f"(rejection, 5 beam launches, pandas frame, physchem per "
+            f"peptide), fused decode-all {serial_ms[tag, 'fused']:.3f} ms "
+            f"(one round, its host copies) ({card})")
+    mark("5s decode_from_z kernel vs plain and round times")
+
+    # ---- 8. main path: the server over HTTP -------------------------------
+    def post(url_, n_):
+        req_ = urllib.request.Request(
+            url_ + "/generate", data=json.dumps({"n": n_}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req_, timeout=300) as r_:
+            return json.loads(r_.read()), time.perf_counter() - t0
+
+    def get(url_, path_):
+        with urllib.request.urlopen(url_ + path_, timeout=60) as r_:
+            return json.loads(r_.read())
+
+    def http_code(fn):
+        try:
+            fn()
+        except urllib.error.HTTPError as e:
+            return e.code
+        return 200
+
+    cfg_8, args_8, _ = C.parse_and_finalize(
+        train_flags("smoke", TRAIN_ITERS) + [
+            "--n_samples_per_round", "5000", "--Q_n_components", "10"],
+        extra_args=serve.EXTRA_ARGS)
+    t0 = time.perf_counter()
+    srv = serve.build_server(cfg_8, args_8, device=dev)
+    build_s = time.perf_counter() - t0
+    mark("8a build_server on the phase-6 run")
+    beam_kernel.beam_scan_gru.launches = 0
+    beam.beam_search.plain_runs = 0
+    srv.start()
+    worker = srv._worker
+    httpd = serve.make_http_server(srv, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    big_n, burst_n, n_clients = 12000, 64, 16
+    responses, burst_lat, queued_err = [], [], {}
+
+    def queued():
+        try:
+            srv.generate(10 ** 7, timeout=300)
+        except RuntimeError as e:
+            queued_err["e"] = e
+    q_thread = threading.Thread(target=queued)
+    try:
+        t_http = time.perf_counter()
+        out, first_s = post(url, burst_n)
+        responses.append((burst_n, out))
+        burst_out = [None] * n_clients
+
+        def client(i):
+            burst_out[i] = post(url, burst_n)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_clients)]
+        for t_ in threads:
+            t_.start()
+        for t_ in threads:
+            t_.join(300)
+        for o_, lat in burst_out:
+            responses.append((burst_n, o_))
+            burst_lat.append(lat)
+        out, big_s = post(url, big_n)
+        responses.append((big_n, out))
+        http_s = time.perf_counter() - t_http
+        health = get(url, "/healthz")
+        codes = (http_code(lambda: post(url, 0)),
+                 http_code(lambda: get(url, "/nope")))
+        # idle: every launched round read
+        deadline = time.time() + 60
+        while (srv.stats["rounds"] < srv._round_ix
+               and time.time() < deadline):
+            time.sleep(0.01)
+        stats_8 = get(url, "/stats")
+        rounds_idle = srv._round_ix
+
+        q_thread.start()
+        while not srv._queue and q_thread.is_alive():
+            time.sleep(0.001)
+    finally:
+        srv.stop()
+        httpd.shutdown()
+        httpd.server_close()
+    if q_thread.ident is not None:
+        q_thread.join(60)
+    serve_launches = beam_kernel.beam_scan_gru.launches
+    serve_plain = beam.beam_search.plain_runs
+    served_rows = [r for _, o_ in responses for r in o_["samples"]]
+    served_peps = [r["peptide"] for r in served_rows]
+    # the first round outside the server: one launch_round with round 1's
+    # generator, its accepted rows deduped in order
+    host_1, ev_1 = pipeline.launch_round(
+        cfg_8, srv.model, srv.params, srv.Q, 5000,
+        pipeline.round_generator(cfg_8.seed, 1, dev))
+    ev_1.synchronize()
+    acc_1 = host_1[2].numpy()
+    tok_1 = host_1[3].numpy()[acc_1]
+    seen_1, first_1 = set(), []
+    for i, k in enumerate(pipeline.canonical_keys(tok_1)):
+        if k not in seen_1:
+            seen_1.add(k)
+            first_1.append(i)
+    peps_1 = vocab.to_sentences_batch(tok_1[first_1].astype(np.int64),
+                                      print_special_tokens=False)
+    score_1 = {k: v.numpy()[acc_1][first_1] for k, v in host_1[1].items()}
+    # round 1's rows left unserved at stop() wait in the spare rows
+    by_pep = {r["peptide"]: r for r in served_rows + list(srv._spare)}
+    first_in_order = [r["peptide"] for r in responses[0][1]["samples"]] == (
+        peps_1[:burst_n])
+    first_bitwise = all(
+        p in by_pep and all(np.float32(by_pep[p][k]).tobytes()
+                            == score_1[k][i].tobytes() for k in score_1)
+        for i, p in enumerate(peps_1))
+    bad = [n_ for n_, o_ in responses if o_["n"] != n_
+           or len(o_["samples"]) != n_]
+    if (bad or len(set(served_peps)) != len(served_peps)
+            or len(served_peps) != stats_8["served"]
+            or stats_8["candidates"] != 5000 * stats_8["rounds"]
+            or stats_8["rounds"] != rounds_idle
+            or serve_launches != srv._round_ix or serve_plain != 0
+            or not first_in_order or not first_bitwise
+            or not isinstance(queued_err.get("e"), RuntimeError)
+            or worker.is_alive() or codes != (400, 404)
+            or health["backend"] != "cuda" or not health["ok"]):
+        raise AssertionError(
+            f"the server: short responses {bad}, {len(served_peps)} rows "
+            f"({len(set(served_peps))} unique) against served "
+            f"{stats_8['served']}, stats {stats_8}, rounds at idle "
+            f"{rounds_idle}, B1 launches {serve_launches} against "
+            f"{srv._round_ix} rounds launched, plain beam {serve_plain}, "
+            f"first round in order {first_in_order} and bitwise "
+            f"{first_bitwise}, queued request {queued_err}, worker alive "
+            f"{worker.is_alive()}, codes {codes}, health {health}")
+    q = statistics.quantiles(burst_lat, n=100)
+    st_8 = stats_8["stage_s"]
+    log(f"[8] GenerationServer over HTTP on the phase-6 GRU run (round "
+        f"5000, depth {srv._depth}; build_server {build_s:.3f} s): one "
+        f"request of {burst_n} in {first_s:.3f} s, then {n_clients} "
+        f"concurrent clients x {burst_n}: latency p50 {q[49]:.4f} s, p99 "
+        f"{q[98]:.4f} s; then one request of {big_n} in {big_s:.3f} s; "
+        f"{len(served_peps)} unique rows served in {http_s:.3f} s = "
+        f"{len(served_peps) / http_s:.1f} served rows/s; rounds "
+        f"{stats_8['rounds']} ({stats_8['candidates']} candidates, "
+        f"{stats_8['accepted']} accepted, {stats_8['duplicates']} "
+        f"duplicates), B1 launches {serve_launches} (one a round, "
+        f"{srv._round_ix - rounds_idle} for the request queued at stop), "
+        f"plain beam 0; stage_s dispatch_device "
+        f"{st_8['dispatch_device']:.4f}, d2h {st_8['d2h']:.4f}, "
+        f"host_postproc {st_8['host_postproc']:.4f}; the first round equal "
+        f"to one launch_round outside the server ({len(peps_1)} rows, the "
+        f"first {burst_n} in order, every score bit for bit); 400 and 404 "
+        f"answered; the request queued at stop() raised; the worker ended "
+        f"({card})")
+    mark("8 the server over HTTP")
+
+    # ---- 8t. the transformer's server for one request (B3) ----------------
+    cfg_8t, args_8t, _ = C.parse_and_finalize(
+        train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS) + [
+            "--n_samples_per_round", "5000", "--Q_n_components", "10"],
+        extra_args=serve.EXTRA_ARGS)
+    srv_t = serve.build_server(cfg_8t, args_8t, device=dev)
+    tfm_beam_kernel.beam_scan_tfm.launches = 0
+    srv_t.start()
+    try:
+        t0 = time.perf_counter()
+        rows_8t = srv_t.generate(burst_n, timeout=300)
+        lat_8t = time.perf_counter() - t0
+    finally:
+        srv_t.stop()
+    serve_launches_t = tfm_beam_kernel.beam_scan_tfm.launches
+    peps_8t = [r["peptide"] for r in rows_8t]
+    if (len(peps_8t) != burst_n or len(set(peps_8t)) != burst_n
+            or serve_launches_t < 1 or serve_launches_t != srv_t._round_ix):
+        raise AssertionError(f"the transformer server: {len(set(peps_8t))} "
+                             f"unique of {len(peps_8t)} rows, B3 launches "
+                             f"{serve_launches_t}, rounds {srv_t._round_ix}")
+    log(f"[8t] transformer GenerationServer on the phase-6t run: one "
+        f"request of {burst_n} in {lat_8t:.3f} s, {srv_t._round_ix} "
+        f"round(s), B3 launches {serve_launches_t} ({card})")
+    mark("8t the transformer's server")
+
+
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
     # the decoder's width; B 512 at the encoder's, the dump's chunk
@@ -2230,7 +2557,8 @@ def main():
         "source": "controlled_peptide_generation_tpu_torch/csrc/beam_gru.cu",
         "replaces": "controlled_peptide_generation_tpu/ops/pallas_beam.py:285",
         "launches": (launches["all"] + launches["accepted"]
-                     + se_counts["B1"] + se_counts2["B1"]),
+                     + se_counts["B1"] + se_counts2["B1"]
+                     + serial_runs["GRU"][1] + serve_launches),
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
@@ -2256,7 +2584,8 @@ def main():
         "replaces":
             "controlled_peptide_generation_tpu/ops/pallas_tfm_beam.py:395",
         "launches": (launches_t["all"] + launches_t["accepted"]
-                     + se_counts_t["B3"]),
+                     + se_counts_t["B3"] + serial_runs["transformer"][1]
+                     + serve_launches_t),
         "max_abs_err": b3_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})

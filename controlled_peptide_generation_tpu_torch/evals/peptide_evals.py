@@ -3,7 +3,8 @@
 The part of the JAX package's ``evals/peptide_evals.py`` the CLaSS round
 needs: the Eisenberg hydrophobicity scale, the hydrophobic moment (100
 degree helix angle) and the net charge (E/D = -1, K/R = +1), vectorized
-over a token matrix.
+over a token matrix (``modlamp_from_tokens``, the fused loop's) or per
+peptide string (``compute_modlamp``, the serial loop's).
 """
 
 import numpy as np
@@ -38,3 +39,37 @@ def modlamp_from_tokens(tokens, itos):
     empty = n == 0
     return (np.where(empty, 0.0, H), np.where(empty, 0.0, uH),
             np.where(empty, 0.0, charge))
+
+
+def calculate_moment(hvalues, angle=100):
+    """uH = sqrt((sum H_i cos(i*d))^2 + (sum H_i sin(i*d))^2) / len."""
+    rad = np.deg2rad(np.arange(len(hvalues)) * angle)
+    hv = np.asarray(hvalues)
+    return float(np.hypot(np.sum(hv * np.cos(rad)),
+                          np.sum(hv * np.sin(rad))) / len(hvalues))
+
+
+def calculate_charge(sequence):
+    return sum(AA_CHARGE.get(aa, 0) for aa in sequence)
+
+
+def compute_modlamp(df):
+    """A copy of the peptide DataFrame ``df`` with H / uH / charge columns,
+    computed per peptide string (spaces stripped; an empty peptide gets
+    0.0 in each)."""
+    H, uH, charge = [], [], []
+    for pep in df["peptide"].str.replace(" ", "", regex=False):
+        if len(pep) == 0:
+            H.append(0.0)
+            uH.append(0.0)
+            charge.append(0.0)
+            continue
+        hv = [EISENBERG.get(aa, 0.0) for aa in pep]
+        H.append(sum(hv) / len(hv))
+        uH.append(calculate_moment(hv))
+        charge.append(float(calculate_charge(pep)))
+    df = df.copy()
+    df.loc[:, "H"] = H
+    df.loc[:, "uH"] = uH
+    df.loc[:, "charge"] = charge
+    return df

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from . import class_sampler
 from . import gmm as gmm_mod
 
 TAU = 2.0 * math.pi
@@ -41,8 +42,24 @@ class RejSampleMixin:
         self.attr_clfs = dict(attr_clfs)       # name -> LogRegParams
         self.clf_targets = dict(clf_targets)   # name -> target column {0,1}
 
+    def rejection_sample(self, gen, n_samples, draws=None):
+        """Sample z ~ Q, score every head, accept where U < prod(p), from
+        ``gen`` (or the injected ``class_sampler.RejectionDraws``).
+        Returns (z, scores dict, accept): scores are ``clfZ_prob_accum``
+        and ``clfZ_<attr>=<target>``."""
+        names, clf_w, clf_b, targets = class_sampler.clf_args(self)
+        if draws is None:
+            draws = class_sampler.rejection_draws(gen, self.params,
+                                                  n_samples)
+        z, probs, accum, accept = class_sampler.rejection_round(
+            draws, self._sampler(), clf_w, clf_b, targets)
+        scores = {"clfZ_prob_accum": accum}
+        for i, a in enumerate(names):
+            scores[f"clfZ_{a}={self.clf_targets[a]}"] = probs[:, i]
+        return z, scores, accept
+
     def _sampler(self):
-        """(kind, GMMParams) consumed by the fused round."""
+        """(kind, GMMParams) consumed by the rounds."""
         return ("gmm_" + self.covariance_type, self.params)
 
     def logpdf(self, x):

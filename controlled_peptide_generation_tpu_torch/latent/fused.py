@@ -18,6 +18,7 @@ import torch
 
 from ..ops import nn
 from ..ops.beam import beam_search
+from . import class_sampler
 from . import gmm as gmm_mod
 
 # max sentences per beam_search call inside a round
@@ -52,13 +53,10 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
     candidate in slot j and valid[j] marks a real accepted candidate; z,
     probs and accum are then the K gathered rows."""
     n = draws.u.shape[0]
-    cov_type = kind.split("_", 1)[1]
     # rejection math stays fp32
-    z = gmm_mod.sample_from_draws(q_params, draws.comp, draws.eps, cov_type)
-    p1 = torch.sigmoid(z @ clf_w.T + clf_b[None, :])
-    probs = torch.where(targets[None, :] == 1, p1, 1.0 - p1)
-    accum = torch.prod(probs, dim=1)
-    accept = draws.u < accum
+    z, probs, accum, accept = class_sampler.rejection_round(
+        class_sampler.RejectionDraws(draws.comp, draws.eps, draws.u),
+        (kind, q_params), clf_w, clf_b, targets)
     c = model.c_from_bits(draws.cbit)
     z_dec = model.apply_flow(params, z)[0]
     idx = valid = None
@@ -82,16 +80,6 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
     return z, c, probs, accum, accept, tokens, idx, valid
 
 
-def clf_args(Q):
-    """(names, clf_w [A, D], clf_b [A], targets [A]) of Q's heads."""
-    names = sorted(Q.attr_clfs)
-    clf_w = torch.stack([Q.attr_clfs[a].w for a in names])
-    clf_b = torch.stack([torch.as_tensor(Q.attr_clfs[a].b) for a in names])
-    targets = torch.tensor([Q.clf_targets[a] for a in names],
-                           device=clf_w.device)
-    return names, clf_w, clf_b.to(clf_w.device), targets
-
-
 def fused_round(model, params, draws, Q, beam_size=5, prefix="clfZ",
                 decode_dtype="float32", capacity=None, beam_chunk=None,
                 plain=False):
@@ -99,7 +87,7 @@ def fused_round(model, params, draws, Q, beam_size=5, prefix="clfZ",
     tokens [n, T+1]); with capacity=K, (z, scores, accept, tokens [K, T+1],
     idx [K], valid [K]) with z/scores on the K compacted rows. plain=True
     decodes with the beam kernel's plain version (for comparisons only)."""
-    names, clf_w, clf_b, targets = clf_args(Q)
+    names, clf_w, clf_b, targets = class_sampler.clf_args(Q)
     kind, q_params = Q._sampler()
     out = _round_body(model, params, draws, kind, q_params, clf_w, clf_b,
                       targets, beam_size, decode_dtype, capacity,

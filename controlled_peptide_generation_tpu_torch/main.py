@@ -44,13 +44,13 @@ def main(argv=None):
     if cfg.phase != 1:
         raise NotImplementedError(
             f"--phase {cfg.phase}: phase-2 training is not ported yet "
-            f"(ROADMAP.md A9); run --phase 1")
+            f"(ROADMAP.md A7); run --phase 1")
     families = (cfg.model.E_args.E_class, cfg.model.G_args.G_class)
     if "transformer" in families and families != ("transformer",) * 2:
         raise NotImplementedError(
             f"training a transformer with a GRU (E_class {families[0]}, "
             f"G_class {families[1]}) is not ported yet: no parity test "
-            f"covers the mixed families (ROADMAP.md A11); train "
+            f"covers the mixed families (ROADMAP.md A7); train "
             f"--model.E_args.E_class transformer --model.G_args.G_class "
             f"transformer, or the GRU family")
     C.save_config(overrides, cfg, cfg.savepath)

@@ -43,17 +43,17 @@ class RNNVAE:
         if self.E_class not in ("gru", "transformer"):
             raise NotImplementedError(
                 f"the {self.E_class} encoder family is not ported yet "
-                f"(ROADMAP.md A9)")
+                f"(ROADMAP.md A7)")
         if self.G_class not in ("gru", "transformer"):
             raise NotImplementedError(
                 f"the {self.G_class} decoder family is not ported yet "
-                f"(ROADMAP.md A9)")
+                f"(ROADMAP.md A7)")
         if self.gru_args.get("skip_connections", False):
             raise NotImplementedError(
-                "GRU skip connections are not ported yet (ROADMAP.md A9)")
+                "GRU skip connections are not ported yet (ROADMAP.md A7)")
         if self.flow > 0:
             raise NotImplementedError(
-                "flows are not ported yet (ROADMAP.md A9)")
+                "flows are not ported yet (ROADMAP.md A7)")
 
     @property
     def h_dec(self):
@@ -225,7 +225,7 @@ class RNNVAE:
         else:
             raise NotImplementedError(
                 f"q_c={q_c!r} needs the CNN classifier, not ported yet "
-                f"(ROADMAP.md A9)")
+                f"(ROADMAP.md A7)")
         dec_logits = self.decode_train(
             params, sequences, z, c, train=train, gen=gen,
             word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"),
@@ -236,7 +236,7 @@ class RNNVAE:
 def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:
     """Construct from the cfg.model Bunch (config.py)."""
     if cfg_model.flow > 0:
-        raise NotImplementedError("flows are not ported yet (ROADMAP.md A9)")
+        raise NotImplementedError("flows are not ported yet (ROADMAP.md A7)")
     return RNNVAE(
         n_vocab=n_vocab,
         max_seq_len=max_seq_len,

@@ -41,7 +41,7 @@ def sample_sentences(model, params, z, c, sample_mode="categorical",
     if sample_mode not in HARD_MODES:
         raise NotImplementedError(
             f"sample_mode {sample_mode!r}: the port has {HARD_MODES} (the "
-            f"soft modes are queued in ROADMAP.md A9)")
+            f"soft modes are queued in ROADMAP.md A7)")
     B, T, dev = z.shape[0], model.max_seq_len, z.device
     if sample_mode == "categorical" and noise is None:
         noise = gumbel((T, B, model.n_vocab), gen, dev)

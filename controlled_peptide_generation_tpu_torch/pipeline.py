@@ -8,6 +8,12 @@ accepted samples exist. Up to hw.rounds_in_flight rounds are queued ahead
 of the one being consumed; each round's results come back by an
 asynchronous copy.
 
+``hw.fused_rounds=0`` runs the serial loop instead, round by round as the
+reference's sample_pipeline does: rejection sampling
+(``latent/class_sampler.py``), then the beam decode of every candidate in
+chunks of 1,024 (``decode_from_z``), dedup by peptide string and physchem
+per peptide, in a pandas frame.
+
 Each round draws from its own torch.Generator seeded from (cfg.seed,
 round_ix), so the candidate stream does not depend on the schedule.
 """
@@ -27,8 +33,9 @@ from . import config as C
 from .api import (load_trained_model, get_model_and_vocab_path,
                   get_result_for_model, load_vocab)
 from .data.loader import AttributeDataLoader
-from .evals.peptide_evals import modlamp_from_tokens
+from .evals.peptide_evals import compute_modlamp, modlamp_from_tokens
 from .latent import density, fused, logreg
+from .ops import beam as beam_ops
 from .train import checkpoints
 from .utils import runtime
 from .vis import build_index
@@ -42,6 +49,15 @@ Q_CLASSES = {"mogQ": density.mogQ, "fullQ": density.fullQ,
 
 # beam width of every pipeline decode
 DECODE_BEAM_SIZE = 5
+# latents per beam launch of the serial loop's decode
+DECODE_CHUNK = 1024
+
+
+def is_device_oom(e):
+    """True only for the CUDA caching allocator's out-of-memory error: the
+    callers that shrink their rounds on it must not do so on any other
+    error whose message mentions memory."""
+    return isinstance(e, torch.cuda.OutOfMemoryError)
 
 
 def resolve_QClass(name):
@@ -178,6 +194,69 @@ def build_clfZ(cfg, attr, states, attributes=None, device="cpu"):
 # ---------------------------------------------------------------------------
 # rounds
 # ---------------------------------------------------------------------------
+
+def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
+                beam_size=DECODE_BEAM_SIZE, cs=None, plain=False):
+    """Beam-decode latents in chunks of ``chunk``, the last zero-padded to
+    the full width; c per chunk drawn from ``gen`` (``cs``: the chunks'
+    c, each [chunk, c_dim], injected). Returns the top-1 hypotheses
+    (tokens [n, T+1] int64, scores [n] f32) as numpy arrays. On CUDA
+    tensors every chunk launches the family's beam kernel (B1 or B3) where
+    its scope covers the model, as ``generation.generate_sentences``
+    routes; ``plain=True`` runs the plain version (for comparisons)."""
+    dev = next(iter(checkpoints.flatten(params).values())).device
+    z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    n = z.shape[0]
+    toks, scores = [], []
+    for j, s in enumerate(range(0, n, chunk)):
+        zc = z[s:s + chunk]
+        pad = chunk - zc.shape[0]
+        if pad:
+            zc = torch.cat([zc, zc.new_zeros((pad, z.shape[1]))])
+        c = (model.sample_c_prior(gen, chunk, device=dev) if cs is None
+             else torch.as_tensor(cs[j], dtype=torch.float32, device=dev))
+        route_plain = plain or not beam_ops.in_kernel_scope(
+            model, params, zc, beam_size)
+        hyps, sc = beam_ops.beam_search(model, params, zc, c,
+                                        beam_size=beam_size, n_best=1,
+                                        plain=route_plain)
+        toks.append(hyps[:chunk - pad, 0].cpu().numpy())
+        scores.append(sc[:chunk - pad, 0].cpu().numpy())
+    return np.concatenate(toks), np.concatenate(scores)
+
+
+def decode_from_z(z, model, params, vocab, gen=None, chunk=DECODE_CHUNK,
+                  beam_size=DECODE_BEAM_SIZE, cs=None):
+    """``decode_top1``'s tokens as peptide strings (specials stripped).
+    A posterior flow would map z first; flows are not ported (ROADMAP.md
+    A7) and build_model raises for them."""
+    LOG.info("Decoder decoding: beam search")
+    tokens, _ = decode_top1(z, model, params, gen, chunk, beam_size, cs)
+    return vocab.to_sentences_batch(tokens, print_special_tokens=False)
+
+
+def get_new_samples(model, params, vocab, Q, n_samples, gen):
+    """One serial round: rejection-sample n latents, decode all of them,
+    and return the per-sample frame (peptide, z as float16 rows, accept_z,
+    the score columns). ``gen`` draws the rejection round, then each
+    decode chunk's c."""
+    import pandas as pd
+    z, scores, accept = Q.rejection_sample(gen, n_samples)
+    peptides = decode_from_z(z, model, params, vocab, gen=gen)
+    return pd.DataFrame({
+        "peptide": peptides,
+        "z": list(z.to(torch.float16).cpu().numpy()),
+        "accept_z": accept.cpu().numpy(),
+        **{k: v.cpu().numpy() for k, v in scores.items()},
+    })
+
+
+def one_sampling_round(model, params, vocab, Q, n_samples_per_round, gen):
+    df = get_new_samples(model, params, vocab, Q, n_samples_per_round, gen)
+    df = compute_modlamp(df)
+    df["accept"] = df["accept_z"]
+    return df
+
 
 def round_capacity(cfg, n_samples):
     """Decode-slot capacity for hw.decode_mode="accepted", or None for the
@@ -328,9 +407,9 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
                                    round_generator(cfg.seed, round_ix,
                                                    device))
                 break
-            except torch.cuda.OutOfMemoryError:
+            except Exception as e:
                 shrink = round_size // 2
-                if shrink < 1:
+                if not is_device_oom(e) or shrink < 1:
                     raise
                 LOG.warning("round out of device memory at %d candidates; "
                             "retrying at %d (tune hw.tfm_lane_budget_gb)",
@@ -405,6 +484,45 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
     return samples, stats
 
 
+def _serial_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
+                          device):
+    """The reference-shaped strict round-by-round loop
+    (``hw.fused_rounds=0``): each round's frame deduplicated by peptide
+    string, within the round and against every earlier round, until
+    n_samples_acc unique peptides, n_samples_acc of them accepted, exist.
+    The logged rates divide by the unique samples kept, as the
+    reference's do. Returns (frame, stats)."""
+    import pandas as pd
+    samples = pd.DataFrame(columns=["peptide"])
+
+    def is_finished(df, min_accepted):
+        return not (len(df) < min_accepted
+                    or df["accept"].sum() < min_accepted)
+
+    round_ix = n_accept_z_seen = 0
+    while not is_finished(samples, args.n_samples_acc):
+        round_ix += 1
+        LOG.info("Round #%d (x%d candidates per dispatch)", round_ix,
+                 round_size)
+        new = one_sampling_round(model, params, vocab, Q, round_size,
+                                 round_generator(cfg.seed, round_ix,
+                                                 device))
+        n_accept_z_seen += int(new["accept_z"].sum())
+        beam_canary_check(cfg, device, len(new), new["peptide"].nunique(),
+                          context=f"serial round {round_ix}")
+        new = new.loc[new.peptide.drop_duplicates().index]
+        new = new[~new["peptide"].isin(samples["peptide"])]
+        samples = pd.concat([samples, new], ignore_index=True, sort=False)
+        _log_round_rates(int(samples["accept_z"].sum()),
+                         int(samples["accept"].sum()), len(samples),
+                         round_size - new.shape[0])
+    stats = {"rounds": round_ix, "rounds_launched": round_ix,
+             "candidates": round_ix * round_size,
+             "accepted_z": n_accept_z_seen, "unique": len(samples),
+             "unique_accepted": int(samples["accept"].sum())}
+    return samples, stats
+
+
 # ---------------------------------------------------------------------------
 # output
 # ---------------------------------------------------------------------------
@@ -416,6 +534,18 @@ def _samples_frame(samples):
     import pandas as pd
     return pd.DataFrame({k: list(v) if k in ("peptide", "z") else v
                          for k, v in samples.items()})
+
+
+def _frame_columns(frame):
+    """The serial loop's frame as the fused loop's dict of columns, in the
+    same order: z stacked [n, D] float16, the masks bool (concatenating
+    onto the loop's empty first frame makes them object columns)."""
+    out = {k: frame[k].to_numpy() for k in frame.columns}
+    out["peptide"] = frame["peptide"].tolist()
+    out["z"] = np.stack(out["z"]).astype(np.float16)
+    for k in ("accept_z", "accept"):
+        out[k] = out[k].astype(bool)
+    return out
 
 
 def _save_csv_pkl(samples, fn):
@@ -449,13 +579,9 @@ def save_samples(samples, basedir, fn_prefix):
 # ---------------------------------------------------------------------------
 
 def _check_slice(cfg):
-    if not cfg.hw.get("fused_rounds", True):
-        raise NotImplementedError(
-            "hw.fused_rounds=0 (the serial loop) is not ported yet "
-            "(ROADMAP.md A6)")
     if int(cfg.hw.get("dp", 1)) != 1:
         raise NotImplementedError(
-            "hw.dp != 1 is not ported yet (ROADMAP.md A12)")
+            "hw.dp != 1 is not ported yet (ROADMAP.md A9)")
 
 
 def run(cfg, args, device="cuda"):
@@ -525,8 +651,13 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
             rpd = max_rpd
     round_size = args.n_samples_per_round * rpd
     t_sampling = time.perf_counter()
-    samples, stats = _fused_sampling_loop(cfg, args, model, params, vocab,
-                                          Q, round_size, device)
+    if cfg.hw.get("fused_rounds", True):
+        samples, stats = _fused_sampling_loop(cfg, args, model, params,
+                                              vocab, Q, round_size, device)
+    else:
+        frame, stats = _serial_sampling_loop(cfg, args, model, params, vocab,
+                                             Q, round_size, device)
+        samples = _frame_columns(frame)
     dt = time.perf_counter() - t_sampling
     n_acc = int(np.sum(samples["accept"]))
     stats["seconds"] = dt

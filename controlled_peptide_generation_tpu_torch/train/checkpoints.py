@@ -21,13 +21,17 @@ of the train-state pytree ``{'params', 'opt', 'step'}``:
 * ``"['step']"``, the iteration it was saved at.
 
 The port writes no classifier parameters (no gradient reaches them in
-phase 1) and no moments for them; the JAX package's non-strict loader
-keeps its own values for those. Its flat m and v cover the leaves it
-writes, so a JAX resume of a port's flat checkpoint needs a template
-without the classifier (a JAX flat checkpoint loads into the port: the
-port cuts its own leaves' segments out of the file's vectors). A resume
-that flips the layout raises a ValueError naming ``--hw.flat_optimizer``
-(``check_opt_layout``, the JAX package's ``_check_opt_layout``).
+phase 1); the JAX package's non-strict loader keeps its own values for
+those. The flat m and v the port writes run over every leaf of the JAX
+package's train state in its ravel order, the classifier's included
+(their segments are 0, as in a JAX phase-1 run: ``classifier_shapes``
+copies the JAX package's ``models/classifier.py`` init rule), so a JAX
+resume with its full template loads them. Reading, the port cuts its own
+leaves' segments out of a file's vectors: a JAX file's, this writer's, or
+one written before the classifier's segments were (vectors over the
+port's leaves only). A resume that flips the layout raises a ValueError
+naming ``--hw.flat_optimizer`` (``check_opt_layout``, the JAX package's
+``_check_opt_layout``).
 """
 
 import os
@@ -117,6 +121,27 @@ def check_opt_layout(path, tmpl_keys, file_keys):
             f"--hw.flat_optimizer setting, or train from scratch.")
 
 
+def classifier_shapes(emb_dim, min_filter_width=3, max_filter_width=5,
+                      num_filters=100, **_):
+    """{path under 'clf': shape} of the JAX package's text-CNN classifier
+    (``models/classifier.py`` init there): a conv bank ``conv<w>`` for
+    each width w over the embedding, then ``fc`` to 2 logits. Takes
+    ``cfg.model.C_args``; the defaults are the shipped ones."""
+    widths = range(min_filter_width, max_filter_width + 1)
+    shapes = {}
+    for w in widths:
+        shapes[f"conv{w}", "w"] = (w, emb_dim, num_filters)
+        shapes[f"conv{w}", "b"] = (num_filters,)
+    shapes["fc", "w"] = (num_filters * len(widths), 2)
+    shapes["fc", "b"] = (2,)
+    return shapes
+
+
+def _clf_sizes(emb_dim, c_args):
+    return {("clf",) + p: int(np.prod(s))
+            for p, s in classifier_shapes(emb_dim, **(c_args or {})).items()}
+
+
 def flatten(tree, prefix=()):
     """Nested dicts and lists -> {path tuple: leaf} (a list index is an
     int in the path)."""
@@ -174,13 +199,37 @@ def params_from_jax(flat, device="cpu"):
     return tree.get("params", tree)
 
 
-def save(path, params, opt_state=None, step=None):
+def _jax_flat_vector(params, vec, c_args):
+    """A flat vector over ``params``' leaves (ravel order) -> the JAX
+    train state's: zeros at the classifier's segments."""
+    if "clf" in params:
+        return vec
+    own = {p: t.numel() for p, t in flatten(params).items()}
+    sizes = {**own, **_clf_sizes(params["emb"]["w"].shape[1], c_args)}
+    parts, at = [], 0
+    for p in sorted(sizes):
+        if p in own:
+            parts.append(vec[at:at + own[p]])
+            at += own[p]
+        else:
+            parts.append(torch.zeros(sizes[p], dtype=vec.dtype,
+                                     device=vec.device))
+    return torch.cat(parts)
+
+
+def save(path, params, opt_state=None, step=None, c_args=None):
     """Write ``{'params': params}``, plus the Adam state and the step when
-    given, as a JAX-format npz."""
+    given, as a JAX-format npz. A flat Adam state's m and v are written
+    over the JAX train state's leaves, the classifier's (shapes from
+    ``c_args``, ``cfg.model.C_args``) as zeros."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = {"params": params}
     if opt_state is not None:
         state["opt"] = opt_state
+        if is_flat(opt_state):
+            state["opt"] = dict(opt_state, **{
+                k: _jax_flat_vector(params, opt_state[k], c_args)
+                for k in ("m", "v")})
     flat = {state_keystr(p, is_flat(opt_state)): v.detach().cpu().numpy()
             for p, v in flatten(state).items()}
     if step is not None:
@@ -205,12 +254,19 @@ def load(path, device="cpu"):
     return params_from_jax(flat, device)
 
 
-def _own_segments(path, data, params):
+def _own_segments(path, data, params, c_args=None):
     """The file's flat m and v cut down to ``params``' leaves: the file's
-    vectors run over its own ``['params']`` leaves in ravel order (the
-    JAX package's hold the classifier too)."""
+    vectors run over its own ``['params']`` leaves in ravel order, and
+    over the classifier's where the file holds no classifier but its
+    vectors are longer (the port's writer)."""
     sizes = {parse_keystr(k)[1:]: data[k].size for k in data
              if k.startswith("['params']")}
+    n_file = sum(sizes.values())
+    key_m = f"{_FLAT_OPT}.m"
+    if (key_m in data and data[key_m].size > n_file
+            and not any(p[0] == "clf" for p in sizes)):
+        emb = data[keystr(("params", "emb", "w"))]
+        sizes.update(_clf_sizes(emb.shape[1], c_args))
     offsets, at = {}, 0
     for p in sorted(sizes):
         offsets[p] = at
@@ -233,20 +289,21 @@ def _own_segments(path, data, params):
     return data
 
 
-def load_train_state(path, params, opt_state, device="cpu"):
+def load_train_state(path, params, opt_state, device="cpu", c_args=None):
     """Fill copies of ``params`` and ``opt_state`` (the port's nested
     dicts; the Adam state of either layout) from the file by key path.
     Leaves the file lacks keep the given values and keys the file has
     beyond them are ignored (the JAX package's ``strict=False``: e.g. the
     classifier's parameters and moments). A file whose Adam layout is not
     ``opt_state``'s raises a ValueError naming --hw.flat_optimizer.
-    Returns (params, opt_state)."""
+    ``c_args`` (``cfg.model.C_args``) sizes the classifier's segments of
+    a port-written flat state. Returns (params, opt_state)."""
     flat = is_flat(opt_state)
     data = _read(path, lambda k: k.startswith(("['params']", "['opt']")))
     want = flatten({"params": params, "opt": opt_state})
     check_opt_layout(path, {state_keystr(p, flat) for p in want}, set(data))
     if flat:
-        data = _own_segments(path, data, params)
+        data = _own_segments(path, data, params, c_args)
     stored = flatten(state_from_jax(data, device))
     out = {}
     for p, leaf in want.items():

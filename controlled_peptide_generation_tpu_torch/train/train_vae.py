@@ -448,7 +448,7 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     opt_state = optimizer.init(params)
     if cfg.loadpath:
         params, opt_state = checkpoints.load_train_state(
-            cfg.loadpath, params, opt_state, dev)
+            cfg.loadpath, params, opt_state, dev, c_args=cfg.model.C_args)
         log.info("Loaded train state from %s", cfg.loadpath)
     for leaf in checkpoints.flatten(params).values():
         leaf.requires_grad_(True)
@@ -478,7 +478,8 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
             fetch.add(it, metrics, sent, force=expsv)
         if expsv and it > cfgv.s_iter:
             path = cfgv.chkpt_path.format(it)
-            checkpoints.save(path, params, opt_state, step=it)
+            checkpoints.save(path, params, opt_state, step=it,
+                             c_args=cfg.model.C_args)
             log.info("Saved model to %s", path)
             if cfg.hw.get("heldout_eval", True):
                 hld = evaluate_heldout(

@@ -130,37 +130,119 @@ def test_jax_flat_state_loads_into_the_port(tmp_path):
     assert float(ts["v"].abs().sum()) > 0
 
 
-def test_port_flat_state_loads_into_jax(tmp_path):
-    """The port's flat state, after one of its steps, loads into JAX
-    checkpoints.load with a flat template over the same leaves (the
-    port's, without the classifier), bit for bit."""
-    _, _, jm, _ = _models()
-    jparams = {k: v for k, v in jm.init_params(jax.random.PRNGKey(4))
-               .items() if k != "clf"}
+def _port_flat_file(tmp_path, jparams, name):
+    """The port's flat state after one of its steps on ``jparams``'
+    non-classifier leaves, saved; returns (port params, state, path)."""
     tparams = _to_port(jparams)
     opt = t_opt.FlatAdam(1e-3, 5.0)
     ts = opt.init(tparams)
     opt.step(tparams, jax.tree.map(lambda p: 0.5 * torch.ones_like(p),
                                    tparams), ts)
-    path = str(tmp_path / "model_3.npz")
+    path = str(tmp_path / name)
     t_ck.save(path, tparams, ts, step=3)
+    return tparams, ts, path
+
+
+def _segments(vec, tree):
+    """A flat vector over ``tree``'s leaves cut into {keystr: segment}."""
+    _, unravel = ravel_pytree(tree)
+    return {k: np.asarray(v).reshape(-1)
+            for k, v in j_ck._flatten(unravel(jnp.asarray(vec))).items()}
+
+
+def test_port_flat_state_loads_into_jax(tmp_path):
+    """The port's flat state, after one of its steps, loads into JAX
+    checkpoints.load with the JAX package's full flat template (the
+    classifier included): m and v as long as the template's, the port's
+    leaves' segments bit for bit, the classifier's 0, and the JAX flat
+    update runs on the loaded state."""
+    _, _, jm, _ = _models()
+    jparams = jm.init_params(jax.random.PRNGKey(4))
+    assert "clf" in jparams
+    tparams, ts, path = _port_flat_file(tmp_path, jparams, "model_3.npz")
     with np.load(path) as data:
         assert {"['opt'].m", "['opt'].v", "['opt'].count"} <= set(data.files)
+        assert not any(k.startswith("['params']['clf']") for k in data.files)
     template = {"params": jparams, "opt": flat_adam(1e-3, 5.0).init(jparams)}
     back = j_ck.load(path, template, strict=False)
     assert int(back["opt"].count) == 1
-    np.testing.assert_array_equal(np.asarray(back["opt"].m),
-                                  ts["m"].numpy())
-    np.testing.assert_array_equal(np.asarray(back["opt"].v),
-                                  ts["v"].numpy())
+    n_all = ravel_pytree(jparams)[0].shape
+    own = t_ck.ravel_order(tparams)
+    for name in ("m", "v"):
+        vec = getattr(back["opt"], name)
+        assert vec.shape == n_all
+        seg = _segments(vec, jparams)
+        got = np.concatenate([seg[t_ck.keystr(p)] for p in own])
+        np.testing.assert_array_equal(got, ts[name].numpy())
+        clf = [v for k, v in seg.items() if k.startswith("['clf']")]
+        assert clf and not any(np.any(v) for v in clf)
+        assert np.any(got)
     flat = j_ck._flatten(back["params"])
     for p, v in t_ck.flatten(tparams).items():
         np.testing.assert_array_equal(np.asarray(flat[t_ck.keystr(p)]),
                                       v.numpy())
+    # the classifier keeps the template's values (no file key)
+    np.testing.assert_array_equal(np.asarray(back["params"]["clf"]["fc"]["w"]),
+                                  np.asarray(jparams["clf"]["fc"]["w"]))
     # and the JAX flat update from the loaded state runs on it
-    upd, _ = flat_adam(1e-3, 5.0).update(
+    upd, state = flat_adam(1e-3, 5.0).update(
         jax.tree.map(jnp.ones_like, back["params"]), back["opt"])
     assert np.isfinite(np.asarray(ravel_pytree(upd)[0])).all()
+    assert int(state.count) == 2
+
+
+def test_port_flat_state_round_trips_through_jax(tmp_path):
+    """port -> JAX -> port: the JAX package resumes the port's flat file
+    with its full template and saves it again (its file holds the
+    classifier); the port reads back its own m, v and params bit for
+    bit."""
+    _, _, jm, _ = _models()
+    jparams = jm.init_params(jax.random.PRNGKey(6))
+    tparams, ts, path = _port_flat_file(tmp_path, jparams, "model_3.npz")
+    template = {"params": jparams, "opt": flat_adam(1e-3, 5.0).init(jparams)}
+    back = j_ck.load(path, template, strict=False)
+    jpath = str(tmp_path / "model_4.npz")
+    j_ck.save(jpath, back)
+    with np.load(jpath) as data:
+        assert any(k.startswith("['params']['clf']") for k in data.files)
+    opt = t_opt.FlatAdam(1e-3, 5.0)
+    tp0 = jax.tree.map(torch.zeros_like, tparams)
+    tp, ts2 = t_ck.load_train_state(jpath, tp0, opt.init(tp0))
+    assert int(ts2["count"]) == 1
+    for name in ("m", "v"):
+        np.testing.assert_array_equal(ts2[name].numpy(), ts[name].numpy())
+    for p, v in t_ck.flatten(tparams).items():
+        np.testing.assert_array_equal(t_ck.flatten(tp)[p].numpy(), v.numpy())
+    # and straight back from the port's own file
+    tp, ts3 = t_ck.load_train_state(path, tp0, opt.init(tp0))
+    for name in ("m", "v"):
+        np.testing.assert_array_equal(ts3[name].numpy(), ts[name].numpy())
+
+
+def test_port_flat_state_of_the_old_layout_still_loads(tmp_path):
+    """A port flat file whose m and v cover the port's leaves only (the
+    writer before the classifier's segments) loads into the port; one
+    whose vectors fit neither layout raises naming the key."""
+    _, _, jm, _ = _models()
+    tparams, ts, path = _port_flat_file(
+        tmp_path, jm.init_params(jax.random.PRNGKey(7)), "model_3.npz")
+    with np.load(path) as data:
+        files = {k: data[k] for k in data.files}
+    n_own = sum(v.numel() for v in t_ck.flatten(tparams).values())
+    old = dict(files, **{f"['opt'].{k}": ts[k].numpy() for k in ("m", "v")})
+    assert old["['opt'].m"].shape == (n_own,) != files["['opt'].m"].shape
+    old_path = str(tmp_path / "model_old.npz")
+    np.savez(old_path, **old)
+    opt = t_opt.FlatAdam(1e-3, 5.0)
+    tp0 = jax.tree.map(torch.zeros_like, tparams)
+    _, back = t_ck.load_train_state(old_path, tp0, opt.init(tp0))
+    for name in ("m", "v"):
+        np.testing.assert_array_equal(back[name].numpy(), ts[name].numpy())
+    bad_path = str(tmp_path / "model_bad.npz")
+    np.savez(bad_path, **dict(files, **{
+        f"['opt'].{k}": files[f"['opt'].{k}"][:-1] for k in ("m", "v")}))
+    with pytest.raises(ValueError, match=r"\['opt'\]\.m"):
+        t_ck.load_train_state(bad_path, tp0, opt.init(tp0))
 
 
 @pytest.mark.parametrize("saved_flat", [True, False])

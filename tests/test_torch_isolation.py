@@ -56,15 +56,18 @@ def test_entry_points_need_cuda_or_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["run", "run_from_states",
-                                   "load_trained_model"])
+                                   "load_trained_model", "serve.main",
+                                   "build_server", "GenerationServer"])
 def test_programmatic_entry_points_default_to_cuda(entry, tmp_path):
-    """Called without a device, the programmatic entry points ask for
-    CUDA and raise where there is none, before any file is read."""
+    """Called without a device, the programmatic entry points (and the
+    serving CLI without --device) ask for CUDA and raise where there is
+    none, before any file is read."""
     if torch.cuda.is_available():
         pytest.skip("this check is about a machine without CUDA")
     from controlled_peptide_generation_tpu_torch import config as TC
     from controlled_peptide_generation_tpu_torch import pipeline
     from controlled_peptide_generation_tpu_torch import sample_pipeline
+    from controlled_peptide_generation_tpu_torch import serve
     from controlled_peptide_generation_tpu_torch.api import (
         load_trained_model)
     cfg, args, _ = TC.parse_and_finalize(
@@ -76,6 +79,11 @@ def test_programmatic_entry_points_default_to_cuda(entry, tmp_path):
             cfg, args, None, None, None, {}),
         "load_trained_model": lambda: load_trained_model(
             str(tmp_path / "model_1.npz"), 24, cfg),
+        "serve.main": lambda: serve.main(
+            ["--savepath_toplevel", str(tmp_path)]),
+        "build_server": lambda: serve.build_server(cfg, args),
+        "GenerationServer": lambda: serve.GenerationServer(
+            cfg, None, None, None, None),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
