@@ -134,15 +134,34 @@ Phases, each raising on failure (the script then exits non-zero):
    than the f32 difference of two summation orders) of the same dump
    under cuda_build.plain(), src, label and split equal;
    LatentIndex.search on the card equal to a numpy top-k; the dump's
-   seconds per split and the battery's;
+   seconds per split and the battery's; --long's diagnostics on the card
+   (t-SNE and the latent discriminators, covar, kde): their artifacts
+   (_latent_discriminator.json, _frob_dist.txt, _kde.txt), finite
+   numbers, every figure drawn or named in a "figures not drawn" log line
+   (the card's machine has no matplotlib), their seconds;
 6e-t. the same on the phase-6t transformer run: its dump, and B3
    launched 4 times in the battery, the plain beam 3 times, B4 never;
+   its diagnostics and their seconds;
+6v. the diagnostics on the card against the same functions with
+   device="cpu" on the phase-6e GRU dump: the latent discriminators' AUCs
+   within 1e-4, the Frobenius distances rtol 1e-6, kde's per-point
+   non-zero fractions (the first 500 amp-positive and unlabeled rows
+   against all 10,000) within one Gaussian (1 / n_train), t-SNE at 500
+   points with P within 1e-6 and the final KL within 1%; then the times
+   at full size: t-SNE at 2,000 points (seconds, iterations), the
+   discriminators, build_covar (host clock), density_stats at 500 x
+   10,000 (CUDA events);
 5d. the dataloader encodings (run after 6: they encode the phase-6 GRU
    run): pipeline.get_encodings_from_dataloader on its amp-positive train
    and val rows, 2 B4 launches per batch, mu and logvar within 1e-4 of the
    same encode inside plain(); then run_from_states with
    --Q_from_full_dataloader on that run and its dump (read from disk)
    until accepted samples are written, with its rounds and accept rate;
+6a. PeptideEvaluator.similarity's aligner (run after 5d): 5d's accepted
+   samples against the amp corpus's train split, 100 x 100 drawn under
+   one random.seed on the card and on the CPU: the same similarity list,
+   the scores on the card equal to the CPU's exactly, align_scores' time
+   at those 10,000 pairs (CUDA events);
 5d-bf16. the sampling CLI as a user runs it, sample_pipeline.main with
    --Q_from_full_dataloader and --hw.gen_dtype bfloat16 on the phase-6 GRU
    run, reading the phase-6e dump from disk: B4 twice per encode batch,
@@ -189,6 +208,7 @@ import csv
 import json
 import logging
 import os
+import random
 import shutil
 import statistics
 import sys
@@ -285,6 +305,19 @@ class RoundCounter(logging.Handler):
 
     def emit(self, record):
         self.rounds += record.getMessage().startswith("Round #")
+
+
+class FigureLog(logging.Handler):
+    """Collects the diagnostics' "figures not drawn" records (vis/figures.py:
+    matplotlib is not installed on the card's machine)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        if "figures not drawn" in record.getMessage():
+            self.lines.append(record.getMessage())
 
 
 class ChunkLog(logging.Handler):
@@ -453,6 +486,9 @@ def main():
     from controlled_peptide_generation_tpu_torch.train import train_vae
     from controlled_peptide_generation_tpu_torch.utils import runtime
     from controlled_peptide_generation_tpu_torch.vis import build_index
+    from controlled_peptide_generation_tpu_torch.vis import covar, kde, tsne
+    from controlled_peptide_generation_tpu_torch.evals import alignment
+    from controlled_peptide_generation_tpu_torch.evals import peptide_evals
 
     cuda_ms = runtime.cuda_ms
 
@@ -1873,10 +1909,16 @@ def main():
         tfm_beam_kernel.beam_scan_tfm.launches = 0
         beam.beam_search.plain_runs = 0
         out_path = os.path.join(ROOT, "chiprun_out", f"static_eval_{tag}.txt")
+        fig_log = FigureLog()
+        static_eval.LOG.addHandler(fig_log)
+        static_eval.LOG.setLevel("INFO")
         t0 = time.perf_counter()
-        with open(out_path, "w") as fh, contextlib.redirect_stdout(fh):
-            summary_ = static_eval.main(flags_ + ["--long", "--device",
-                                                  "cuda"])
+        try:
+            with open(out_path, "w") as fh, contextlib.redirect_stdout(fh):
+                summary_ = static_eval.main(flags_ + ["--long", "--device",
+                                                      "cuda"])
+        finally:
+            static_eval.LOG.removeHandler(fig_log)
         seconds_ = time.perf_counter() - t0
         counts_ = dict(counts(), **{
             "B1": beam_kernel.beam_scan_gru.launches,
@@ -1887,7 +1929,42 @@ def main():
         if "#### reco of" not in text or " - hyp 2: " not in text:
             raise AssertionError(f"static_eval {tag}: the battery printed no "
                                  f"reconstruction or hypotheses ({out_path})")
-        return summary_, counts_, seconds_
+        # the diagnostics: their artifacts under the JAX package's names,
+        # finite numbers, each figure drawn or named as not drawn
+        stem_ = summary_["states"]["train"][:-3]
+        missing = [stem_ + x for x in ("_latent_discriminator.json",
+                                       "_frob_dist.txt", "_kde.txt")
+                   if not os.path.exists(stem_ + x)]
+        aucs = [v for e in summary_["discriminator"].values()
+                for k, v in e.items() if k.endswith("_auc")]
+        figs = [f"_tsne_{a}.png" for a, _ in attributes] + [
+            f"_{t}{x}" for t in ("pos", "unl") for x in (
+                "_q_phi_z.png", "_covar_diag.png", "_covar_offdiag.png")] + [
+            f"_kde_{k}.png" for k in summary_["kde"]]
+        unnamed = [f for f in figs if not os.path.exists(stem_ + f)
+                   and not any(os.path.basename(stem_ + f) in line
+                               for line in fig_log.lines)]
+        if (missing or unnamed or not aucs or len(fig_log.lines) > 3
+                or not np.isfinite(aucs + [summary_["frob_pos"],
+                                           summary_["frob_unl"]]
+                                   + list(summary_["kde"].values())).all()):
+            raise AssertionError(f"static_eval {tag} --long's diagnostics: "
+                                 f"missing {missing}, figures neither drawn "
+                                 f"nor named {unnamed}, discriminator "
+                                 f"{summary_['discriminator']}")
+        return summary_, counts_, seconds_, len(figs), len(fig_log.lines)
+
+    def diag_line(summary_):
+        """The seconds per diagnostic of a --long run and its numbers."""
+        sec = summary_["seconds"]
+        aucs = {f"{a}.{k}": round(v, 4) for a, e in
+                summary_["discriminator"].items() for k, v in e.items()
+                if k.endswith("_auc")}
+        return (f"t-SNE + discriminators {sec['tsne']:.3f} s, covar "
+                f"{sec['covar']:.3f} s, kde {sec['kde']:.3f} s (host clock); "
+                f"AUCs {aucs}; Frobenius pos {summary_['frob_pos']:.4f}, unl "
+                f"{summary_['frob_unl']:.4f}; kde non-zero fractions "
+                f"{ {k: round(v, 4) for k, v in summary_['kde'].items()} }")
 
     # what the battery runs (static_eval.py): 18 encodes of one sequence
     # (3 interpolations x 2, 5 reconstructions a sequence, 2 for the
@@ -1908,13 +1985,15 @@ def main():
         raise AssertionError(f"the static eval's derived counts changed: "
                              f"battery {battery_want}, dump B4 {dump_b4}")
     se_flags = train_flags("smoke", TRAIN_ITERS)
-    summary, se_counts, se_s = static_eval_run("gru", se_flags)
+    attributes = C.dataset_spec(tcfg)["attributes"]
+    summary, se_counts, se_s, n_figs, n_fig_logs = static_eval_run(
+        "gru", se_flags)
     want_se = dict.fromkeys(counts(), 0)
     want_se.update({"B4": dump_b4 + battery_want["B4"],
                     "B1": battery_want["beam 5"], "B3": 0,
                     "plain beam": battery_want["beam 15"]})
     # a second --long on the same run dir finds the dump: the battery alone
-    _, se_counts2, se_s2 = static_eval_run("gru_again", se_flags)
+    _, se_counts2, se_s2, _, _ = static_eval_run("gru_again", se_flags)
     want_se2 = dict(want_se, B4=battery_want["B4"])
     if se_counts != want_se or se_counts2 != want_se2:
         raise AssertionError(f"static_eval --long launched {se_counts} "
@@ -1986,15 +2065,18 @@ def main():
         + f" (host clock: draw, encode, copy, write .npz), battery "
         f"{summary['seconds']['battery']:.3f} s, whole call {se_s:.3f} s; "
         f"launches {se_counts} (want {want_se}); again on the dump: "
-        f"battery {se_s2:.3f} s, launches {se_counts2}; mu, logvar, z vs "
+        f"whole call {se_s2:.3f} s, launches {se_counts2}; mu, logvar, z vs "
         f"the dump under cuda_build.plain(): at most {ulp_max:.0f} float16 "
         f"ulp, largest share of an array differing "
         f"{max(ulp_share.values()):.6f}, {len(far)} entries beyond one ulp "
         f"(ulps, |delta|, magnitude, largest 5: "
         f"{sorted(far, reverse=True)[:5]}); LatentIndex.search (10,000 rows, "
         f"256 queries, k 10) vs numpy: max |delta| {idx_err:.3e} ({card})")
+    log(f"[6e] --long's diagnostics of the GRU run's dump on the card: "
+        + diag_line(summary) + f"; {n_figs} figures, named as not drawn "
+        f"in {n_fig_logs} log line(s) ({card})")
     mark("6e static eval of the GRU run (dump, index, battery)")
-    summary_t, se_counts_t, se_s_t = static_eval_run(
+    summary_t, se_counts_t, se_s_t, _, _ = static_eval_run(
         "tfm", train_flags("smoke_tfm", TRAIN_ITERS, TFM_FLAGS))
     want_se_t = dict(want_se, B4=0, B1=0, B3=battery_want["beam 5"])
     if se_counts_t != want_se_t or not all(
@@ -2006,8 +2088,85 @@ def main():
         + ", ".join(f"{sp} {summary_t['seconds'][sp]:.3f} s"
                     for sp in ("train", "val", "test"))
         + f", battery {summary_t['seconds']['battery']:.3f} s, whole call "
-        f"{se_s_t:.3f} s; launches {se_counts_t} ({card})")
+        f"{se_s_t:.3f} s; launches {se_counts_t}; diagnostics: "
+        + diag_line(summary_t) + f" ({card})")
     mark("6e-t static eval of the transformer run")
+
+    # ---- 6v. the dump's diagnostics on the card against the CPU ----------
+    # the phase-6e GRU dump (10,000 rows a split, z 100, six attributes);
+    # the same functions with device="cpu" on the same arrays
+    diag_dir = os.path.join(train_top, "diagnostics")
+    os.makedirs(diag_dir, exist_ok=True)
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def discriminator(device_):
+        return tsne.build_latent_discriminator(
+            dumped["train"], os.path.join(diag_dir, f"{device_}.h5"),
+            attributes, dumped["val"], dumped["test"], device=device_)
+
+    disc_c, disc_s = host_s(lambda: discriminator("cuda"))
+    disc_p = discriminator("cpu")
+    auc_err = max(abs(disc_c[a][k] - disc_p[a][k]) for a in disc_p
+                  for k in disc_p[a] if k.endswith("_auc"))
+    acc_err = max(abs(disc_c[a][k] - disc_p[a][k]) for a in disc_p
+                  for k in disc_p[a] if k.endswith("_acc"))
+    frob_c, covar_s = host_s(lambda: covar.build_covar(
+        dumped["train"], os.path.join(diag_dir, "cuda.h5"), device="cuda"))
+    frob_p = covar.build_covar(dumped["train"],
+                               os.path.join(diag_dir, "cpu.h5"),
+                               device="cpu")
+    frob_rel = max(abs(c - p_) / abs(p_) for c, p_ in zip(frob_c, frob_p))
+    # kde at 500 x 10,000: the first 500 amp-positive and unlabeled rows'
+    # z under every train row's posterior
+    st = dumped["train"]
+    n_train = st["mu"].shape[0]
+    mu_c, lv_c = (torch.as_tensor(st[k], device=dev) for k in ("mu",
+                                                              "logvar"))
+    kde_err, kde_rows = 0.0, {}
+    for target, tag_ in ((1, "pos"), (-1, "unl")):
+        sel = np.flatnonzero(st["label"][:, 0] == target)[:500]
+        r_c, d_c = kde.density_stats(mu_c, lv_c, st["z"][sel])
+        r_p, d_p = kde.density_stats(st["mu"], st["logvar"], st["z"][sel],
+                                     device="cpu")
+        kde_err = max(kde_err, float((r_c.cpu() - r_p).abs().max()))
+        kde_rows[tag_] = (len(sel), float(r_c.mean()), float(d_c.mean()))
+    z_kde = torch.as_tensor(st["z"][:500], device=dev)
+    kde_ms = cuda_ms(lambda: kde.density_stats(mu_c, lv_c, z_kde), 20)
+    # t-SNE at 500 points on both devices, then at the full 2,000
+    z500 = torch.as_tensor(st["z"][:500].astype(np.float32))
+    ts_c, ts500_s = host_s(lambda: tsne.fit_tsne(z500.to(dev)))
+    ts_p = tsne.fit_tsne(z500)
+    p_err = float((ts_c.P.cpu() - ts_p.P).abs().max())
+    kl_rel = abs(ts_c.kl - ts_p.kl) / ts_p.kl
+    emb_err = float((ts_c.embedding.cpu() - ts_p.embedding).abs().max())
+    z2000 = torch.as_tensor(st["z"][:2000].astype(np.float32), device=dev)
+    ts_full, ts_full_s = host_s(lambda: tsne.fit_tsne(z2000))
+    log(f"[6v] the GRU dump's diagnostics, card vs device=\"cpu\": "
+        f"discriminators (12 Newton fits on 10,000 x {st['mu'].shape[1]}) "
+        f"AUC max |delta| {auc_err:.3e}, accuracy {acc_err:.3e}; Frobenius "
+        f"{frob_c} vs {frob_p}, rel {frob_rel:.3e}; kde non-zero fractions "
+        f"max |delta| {kde_err:.3e} (one Gaussian 1/{n_train}), rows "
+        f"(n, fraction, mean density) {kde_rows}; t-SNE at 500 points: P "
+        f"max |delta| {p_err:.3e}, KL {ts_c.kl:.6f} vs {ts_p.kl:.6f} (rel "
+        f"{kl_rel:.3e}), {ts_c.n_iter} vs {ts_p.n_iter} iterations, "
+        f"embedding max |delta| {emb_err:.3e} ({card})")
+    log(f"[6v] full-size times on the card: t-SNE at 2,000 points "
+        f"{ts_full_s:.3f} s for {ts_full.n_iter} iterations (KL "
+        f"{ts_full.kl:.6f}), at 500 {ts500_s:.3f} s; discriminators "
+        f"{disc_s:.3f} s; build_covar (500 rows a set) {covar_s:.4f} s "
+        f"(host clock); kde density_stats at 500 x {n_train} "
+        f"{kde_ms:.4f} ms (CUDA events) ({card})")
+    if (auc_err > 1e-4 or frob_rel > 1e-6 or kde_err > 1.0 / n_train
+            or p_err > 1e-6 or kl_rel > 1e-2
+            or not torch.isfinite(ts_full.embedding).all()):
+        raise AssertionError("a diagnostic on the card disagrees with the "
+                             "same function on the CPU")
+    mark("6v the dump's diagnostics, card vs CPU")
 
     # ---- 5d. main path: Q from the dataloader's encodings -----------------
     # the GRU run of phase 6, its amp-positive train and val rows
@@ -2058,6 +2217,45 @@ def main():
         f"{stem_d}.*; launches {dl_launches}")
     enc_launches += dl_launches["B4"]
     mark("5d dataloader encodings and their pipeline")
+
+    # ---- 6a. the similarity eval's aligner: 100 x 100 peptides -----------
+    # the accepted CLaSS samples of 5d against the train split of the amp
+    # corpus, the same random.seed on both devices: the same pairs, the
+    # same scores
+    gen_peps = [p_ for p_, a in zip(samples_d["peptide"],
+                                    samples_d["accept"]) if a]
+    amp_train = [dataset.rows[i]["text"] for i in
+                 dataset.get_subset_indices("split=train")]
+    sims = {}
+    for device_ in ("cuda", "cpu"):
+        random.seed(0)
+        sims[device_] = peptide_evals.PeptideEvaluator(
+            device=device_).similarity(gen_peps, amp_train, matrix_size=100)
+    random.seed(0)
+    pairs = peptide_evals.PeptideEvaluator().similarity_pairs(
+        gen_peps, amp_train, matrix_size=100)
+    max_len = max(max(len(a), len(b)) for a, b in pairs)
+    enc_a = alignment.encode_seqs([a for a, _ in pairs], max_len)
+    enc_b = alignment.encode_seqs([b for _, b in pairs], max_len)
+    args_c = [torch.as_tensor(x, device=dev) for x in (enc_a[0], enc_b[0],
+                                                        enc_a[1], enc_b[1])]
+    scores_c = alignment.align_scores(*args_c, device=dev).cpu()
+    scores_p = alignment.align_scores(enc_a[0], enc_b[0], enc_a[1],
+                                      enc_b[1])
+    align_ms = cuda_ms(lambda: alignment.align_scores(*args_c, device=dev),
+                       20)
+    log(f"[6a] PeptideEvaluator.similarity, {len(gen_peps)} accepted "
+        f"samples x {len(amp_train)} amp train-split peptides (100 x 100 "
+        f"drawn): "
+        f"{len(pairs)} pairs of up to {max_len} residues, mean similarity "
+        f"{sims['cuda'][1]:.6f} (CPU {sims['cpu'][1]:.6f}); scores on the "
+        f"card equal to the CPU's: {torch.equal(scores_c, scores_p)}; "
+        f"align_scores {align_ms:.4f} ms (CUDA events) ({card})")
+    if (sims["cuda"][0]["sim"] != sims["cpu"][0]["sim"]
+            or not torch.equal(scores_c, scores_p) or len(pairs) < 5000):
+        raise AssertionError("the aligner on the card disagrees with the "
+                             "CPU's")
+    mark("6a the similarity eval's aligner")
 
     # ---- 5d-bf16: the sampling CLI, decoding in bf16, on the phase-6 run --
     # sample_pipeline.main as a user runs it, reading the phase-6e dump

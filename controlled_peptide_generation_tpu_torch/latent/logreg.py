@@ -63,6 +63,12 @@ def fit(X, y, C=1.0, tol=1e-4, max_iter=200):
     return LogRegParams(theta[:D], theta[D]), it
 
 
+def predict_proba(params, X):
+    """[N, D] -> [N, 2] class probabilities (sklearn's column order)."""
+    p1 = torch.sigmoid(X @ params.w + params.b)
+    return torch.stack([1.0 - p1, p1], dim=1)
+
+
 def decision(params, X):
     return X @ params.w + params.b
 

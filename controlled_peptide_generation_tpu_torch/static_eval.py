@@ -15,11 +15,22 @@ its XLA arm.
 ``--long`` first writes the latent states dump of each split
 (``states_{split}_{iter}.npz``, and the ``.h5`` where h5py imports; up
 to 10,000 rows a split) and the latent index ``index_{iter}.npz``: what
-``sample_pipeline`` reads. The JAX package's t-SNE, latent-discriminator,
-covariance and density diagnostics (``--covar``, ``--kde``) are not
-ported yet (ROADMAP.md A6); ``--long`` logs which it skipped. Runs on
-CUDA unless ``--device cpu`` is given; the transformer family takes
-``--model.E_args.E_class transformer --model.G_args.G_class
+``sample_pipeline`` reads. Then, in the JAX package's order, the
+diagnostics of the dump, each computed on ``--device``:
+
+* ``vis/tsne.py``: the t-SNE of the first 2,000 train z and its figure
+  per attribute (``states_train_<iter>_tsne_<attr>.png``); the latent
+  discriminators' AUC and accuracy (``..._latent_discriminator.json``);
+* ``vis/covar.py`` (``--covar 1``): the Frobenius distance of Cov_q(z)
+  to I for positive and unlabeled rows (``..._frob_dist.txt``) and three
+  figures each;
+* ``vis/kde.py`` (``--kde 1``): the coverage of each point under the
+  per-point posteriors (``..._kde.txt``) and a histogram each.
+
+The figures need matplotlib; where it is not installed each diagnostic
+logs once the figures it did not draw, and every number is still written.
+Runs on CUDA unless ``--device cpu`` is given; the transformer family
+takes ``--model.E_args.E_class transformer --model.G_args.G_class
 transformer``.
 """
 
@@ -34,7 +45,7 @@ from .api import (generate_interpolated_samples, get_model_and_vocab_path,
                   recon_sequence, sample_from_model)
 from .pipeline import load_dataloader
 from .utils import runtime
-from .vis import build_index
+from .vis import build_index, covar, kde, tsne
 
 LOG = logging.getLogger("GenerationAPI")
 
@@ -47,13 +58,12 @@ EXTRA_ARGS = [
     ("--seqs", dict(default=DEFAULT_SEQS,
                     help="comma separated seqs to reconstruct between")),
     ("--long", dict(action="store_true", default=False,
-                    help="write the states dump and the latent index")),
+                    help="state dump + t-SNE/latent discriminator"
+                         " + covar/kde diagnostics")),
     ("--covar", dict(type=int, default=1,
-                     help="with --long: Cov_q(z)-vs-identity plots (not "
-                          "ported yet)")),
+                     help="with --long: Cov_q(z)-vs-identity plots")),
     ("--kde", dict(type=int, default=1,
-                   help="with --long: per-point density diagnostics (not "
-                        "ported yet)")),
+                   help="with --long: per-point density diagnostics")),
     ("--device", dict(default="cuda", help="cuda (default) or cpu")),
 ]
 
@@ -154,8 +164,12 @@ def run_battery(model, params, vocab, seqs_arg, device):
 def run_long_analysis(cfg, model, params, vocab, base, device,
                       with_covar=True, with_kde=True):
     """Write the states dump of each split (unless a readable one exists)
-    and the latent index. Returns {"states": {split: path}, "index":
-    path, "seconds": {split: s}} (seconds of the splits encoded here)."""
+    and the latent index, then run the dump's diagnostics on ``device``.
+    Returns {"states": {split: path}, "index": path, "discriminator":
+    report, "frob_pos", "frob_unl" (with covar), "kde": {attr_tag:
+    fraction} (with kde), "seconds": {split: s, "tsne": s, "covar": s,
+    "kde": s}} (the seconds of the splits encoded here; "tsne" covers the
+    t-SNE and the discriminators)."""
     fnames = {split: build_index.states_path(base, split, cfg.vae.n_iter)
               for split in ["train", "val", "test"]}
     seconds = {}
@@ -171,17 +185,33 @@ def run_long_analysis(cfg, model, params, vocab, base, device,
     if not os.path.exists(idx_path):
         build_index.LatentIndex.from_states(fnames["train"], device).save(
             idx_path)
-    skipped = ["t-SNE", "latent discriminator"]
-    skipped += ["covar"] if with_covar else []
-    skipped += ["kde"] if with_kde else []
-    LOG.info("--long wrote the dump and the index; not ported yet "
-             "(ROADMAP.md A6), skipped: %s", ", ".join(skipped))
-    return {"states": fnames, "index": idx_path, "seconds": seconds}
+    summary = {"states": fnames, "index": idx_path, "seconds": seconds}
+    attributes = C.dataset_spec(cfg)["attributes"]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        runtime.synchronize(device)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    summary["discriminator"] = timed(
+        "tsne", lambda: tsne.eval(fnames, attributes, device=device))
+    if with_covar:
+        summary["frob_pos"], summary["frob_unl"] = timed(
+            "covar", lambda: covar.eval(fnames, device=device))
+        LOG.info("Frobenius(Cov_q(z), I): positive %.3f, unlabeled %.3f",
+                 summary["frob_pos"], summary["frob_unl"])
+    if with_kde:
+        summary["kde"] = timed(
+            "kde", lambda: kde.eval(fnames, attributes, device=device))
+        LOG.info("kde nonzero-density fractions: %s", summary["kde"])
+    return summary
 
 
 def main(argv=None):
-    """Returns {"states", "index", "seconds"} (the dump's, with --long)
-    with the battery's seconds under seconds["battery"]."""
+    """Returns run_long_analysis's summary (with --long; else only
+    "seconds") with the battery's seconds under seconds["battery"]."""
     cfg, args, _ = C.parse_and_finalize(argv, extra_args=EXTRA_ARGS)
     device = runtime.setup(args.device)
     model_path, vocab_path, base = get_model_and_vocab_path(cfg)

@@ -421,8 +421,7 @@ def evaluate_heldout(model, params, dataset, gen, n_batches=4,
         kls.append(L.kl_gaussianprior(mu, lv))
         mus.append(mu)
         lvs.append(lv)
-    C, _, _ = cov_q(torch.cat(mus).cpu().numpy(),
-                    torch.cat(lvs).cpu().numpy())
+    C, _, _ = cov_q(torch.cat(mus), torch.cat(lvs))
     return {"recon": torch.stack(recons).mean().item(),
             "kl": torch.stack(kls).mean().item(),
             "cov_frob": frobenius_to_identity(C)}

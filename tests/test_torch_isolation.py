@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its entry points refuse to run without CUDA unless asked for the CPU."""
+"""The port stands alone: it imports neither jax nor the JAX package, nor
+sklearn or matplotlib (the H100 machine has neither; the figures import
+matplotlib only when they draw), and its entry points refuse to run
+without CUDA unless asked for the CPU."""
 
 import os
 import shutil
@@ -26,6 +28,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith("controlled_peptide_generation_tpu."))
 print("IMPORTED", len(names))
 print("BAD", bad)
+print("OPTIONAL", sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("sklearn", "matplotlib")))
 """
 
 
@@ -35,9 +39,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         capture_output=True, text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.splitlines()
-                 if l.startswith(("IMPORTED", "BAD")))
+                 if l.startswith(("IMPORTED", "BAD", "OPTIONAL")))
     assert int(lines["IMPORTED"]) >= 20
     assert lines["BAD"] == "[]"
+    assert lines["OPTIONAL"] == "[]"
 
 
 def test_entry_points_need_cuda_or_device_cpu(tmp_path):
@@ -57,7 +62,9 @@ def test_entry_points_need_cuda_or_device_cpu(tmp_path):
 
 @pytest.mark.parametrize("entry", ["run", "run_from_states",
                                    "load_trained_model", "serve.main",
-                                   "build_server", "GenerationServer"])
+                                   "build_server", "GenerationServer",
+                                   "tsne.eval", "covar.eval", "kde.eval",
+                                   "PeptideEvaluator.similarity"])
 def test_programmatic_entry_points_default_to_cuda(entry, tmp_path):
     """Called without a device, the programmatic entry points (and the
     serving CLI without --device) ask for CUDA and raise where there is
@@ -70,6 +77,8 @@ def test_programmatic_entry_points_default_to_cuda(entry, tmp_path):
     from controlled_peptide_generation_tpu_torch import serve
     from controlled_peptide_generation_tpu_torch.api import (
         load_trained_model)
+    from controlled_peptide_generation_tpu_torch.evals import peptide_evals
+    from controlled_peptide_generation_tpu_torch.vis import covar, kde, tsne
     cfg, args, _ = TC.parse_and_finalize(
         ["--savepath_toplevel", str(tmp_path)],
         extra_args=sample_pipeline.EXTRA_ARGS)
@@ -84,6 +93,11 @@ def test_programmatic_entry_points_default_to_cuda(entry, tmp_path):
         "build_server": lambda: serve.build_server(cfg, args),
         "GenerationServer": lambda: serve.GenerationServer(
             cfg, None, None, None, None),
+        "tsne.eval": lambda: tsne.eval({"train": str(tmp_path / "s.h5")}),
+        "covar.eval": lambda: covar.eval({"train": str(tmp_path / "s.h5")}),
+        "kde.eval": lambda: kde.eval({"train": str(tmp_path / "s.h5")}),
+        "PeptideEvaluator.similarity": lambda: (
+            peptide_evals.PeptideEvaluator().similarity(["A C"], ["K L"])),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()

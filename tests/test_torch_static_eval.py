@@ -10,6 +10,7 @@ port's ``static_eval --long`` on a run dir the port trained, then its
 machine."""
 
 import glob
+import json
 import os
 import sys
 
@@ -191,13 +192,18 @@ def port_run(tmp_path_factory):
     return cfg, flags
 
 
-def test_static_eval_then_sample_pipeline(port_run, capsys, monkeypatch):
+def test_static_eval_then_sample_pipeline(port_run, capsys, monkeypatch,
+                                         caplog):
     """static_eval --long writes the three dumps (both formats here) and
-    the index and prints the battery; sample_pipeline then samples from
-    that dump with h5py hidden (the .npz alone)."""
+    the index, runs the diagnostics (t-SNE, the latent discriminators,
+    covar, kde: their artifacts under the JAX package's names, nothing
+    logged as not ported) and prints the battery; sample_pipeline then
+    samples from that dump with h5py hidden (the .npz alone)."""
     cfg, flags = port_run
     monkeypatch.setattr(static_eval, "MAX_EXAMPLES", 200)
-    summary = static_eval.main(flags + ["--long"])
+    with caplog.at_level("INFO", logger="GenerationAPI"):
+        summary = static_eval.main(flags + ["--long"])
+    assert "not ported" not in caplog.text
     out = capsys.readouterr().out
     assert "#### reco of" in out and " - hyp 2: " in out
     assert "recon interpol - w=1.00" in out
@@ -206,7 +212,19 @@ def test_static_eval_then_sample_pipeline(port_run, capsys, monkeypatch):
         assert summary["states"][split] == path
         assert os.path.exists(path)
         assert build_index.read_states(path)["mu"].shape == (200, 12)
-    assert set(summary["seconds"]) == {"train", "val", "test", "battery"}
+    assert set(summary["seconds"]) == {"train", "val", "test", "battery",
+                                       "tsne", "covar", "kde"}
+    stem = summary["states"]["train"][:-3]
+    for suffix in ("_latent_discriminator.json", "_frob_dist.txt",
+                   "_kde.txt"):
+        assert os.path.exists(stem + suffix)
+    attrs = [a for a, _ in TC.AMP_ATTRIBUTES]
+    with open(stem + "_latent_discriminator.json") as fh:
+        assert json.load(fh) == summary["discriminator"]
+    assert list(summary["discriminator"]) == attrs
+    assert np.isfinite([summary["frob_pos"], summary["frob_unl"]]).all()
+    assert summary["kde"] and all(0.0 <= f <= 1.0
+                                  for f in summary["kde"].values())
     index = build_index.LatentIndex.load(summary["index"])
     assert tuple(index.z.shape) == (200, 12)
 
