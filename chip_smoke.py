@@ -189,6 +189,28 @@ Phases, each raising on failure (the script then exits non-zero):
    burst, served rows/s and the stage split;
 8t. the transformer's server on the phase-6t run for one request: B3
    launched once a round;
+9. phase-2 training as a user runs it: ``main.main --phase 2`` of the GRU
+   family at the shipped width (classifier 3 x 100 filters, batch 32,
+   ``--dataset amp``) from phase 6's model_300.npz for FULL_ITERS + 1
+   steps, and of the transformer family from phase 6t's for FULL_ITERS_T
+   + 1: full_gen.txt with its label lines, full_samez/posz/interp.txt,
+   the FASTAs and a last checkpoint with the classifier, finite logged
+   losses; B2 launched 5 times a GRU step each (three recurrences in the
+   VAE update, two in encode(soft)), B4 twice (the artifacts' encode),
+   B5 never (mmdrf), no kernel for the transformer; per family one step's
+   three sub-losses and every group's gradients under --full.z_regu_loss
+   mmd (B5's value and gradient once) through the kernels against
+   cuda_build.plain() on the same params, batches and draws (losses rtol
+   1e-5, gradients MAX_GRAD_REL of each tensor's largest entry), then
+   three steps on the host clock and one under torch.profiler (device
+   events, busy ms, idle share); 11 GRU steps under --full.z_regu_loss mmd
+   through main.main (B5 once a step each way); then each mixed family
+   (a transformer encoder with a GRU decoder, and the reverse): 51
+   phase-1 steps at cadences 25 / 50 (two replays of a 25-step CUDA graph:
+   the draws of both families' parts), B2 and B4 for the GRU part alone,
+   B5 once a step; the phase-6 output checks; one step through the
+   kernels against plain(); one fused CLaSS round through B1 (B3)
+   against plain=True on the same draws ([5]'s gates);
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -198,7 +220,8 @@ Phases, each raising on failure (the script then exits non-zero):
    GRU step; B4, also at the dump's shape, B 512 at H 80, beside cuDNN's
    forward; B5; train steps/s of both families at --hw.unroll 50 and 1,
    the transformer
-   beam and round times, the bf16 kernels and rounds, seconds per phase),
+   beam and round times, the bf16 kernels and rounds, phase-2 steps/s of
+   both families and B2's launches a phase-2 step, seconds per phase),
    a `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
 """
@@ -268,6 +291,7 @@ MAX_MMD_DELTA = 1e-5     # fp64-accumulated pair sums against torch's fp32
 MAX_MMD_GRAD_REL = 1e-4  # of each gradient's largest entry
 MMD_ITERS = 50           # the short --vae.z_regu_loss mmd run (B5 backward)
 UNROLL_ITERS = 50        # 6u and 6f: 51 steps at cadences 25 / 50
+FULL_ITERS, FULL_ITERS_T = 100, 30   # [9]: phase-2 steps, GRU / transformer
 MAX_UNROLL_REL = 1e-5    # unroll 50 vs 1, of each array's largest entry
 FP32_PEAK = 67e12        # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor-core FLOP/s, dense, data sheet
@@ -483,7 +507,10 @@ def main():
     from controlled_peptide_generation_tpu_torch.train import checkpoints
     from controlled_peptide_generation_tpu_torch.train import opt as train_opt
     from controlled_peptide_generation_tpu_torch.tools import beam_split
+    from controlled_peptide_generation_tpu_torch.train import train_full
     from controlled_peptide_generation_tpu_torch.train import train_vae
+    from controlled_peptide_generation_tpu_torch.tools import profile_train
+    from torch.profiler import ProfilerActivity, profile
     from controlled_peptide_generation_tpu_torch.utils import runtime
     from controlled_peptide_generation_tpu_torch.vis import build_index
     from controlled_peptide_generation_tpu_torch.vis import covar, kde, tsne
@@ -1428,11 +1455,12 @@ def main():
             mark(f"5 {tag} {mode} run")
         return launches_, loop_, cfg_
 
-    def round_checks(tag, cfg_, model_, params_, decode_dtype="float32"):
+    def round_checks(tag, cfg_, model_, params_, decode_dtype="float32",
+                     timed=True):
         """One round through the kernel and one with plain=True on the same
         draws (identical accept masks, >= 99% identical token rows; a bf16
-        decode: gates (c) and (d)), then host-clock round times per decode
-        mode (quartiles of ROUND_REPS)."""
+        decode: gates (c) and (d)), then, when ``timed``, host-clock round
+        times per decode mode (quartiles of ROUND_REPS)."""
         bf16 = decode_dtype == "bfloat16" or (
             model_.G_class == "transformer"
             and model_.dec_tfm_args.get("bf16", False))
@@ -1480,6 +1508,8 @@ def main():
             raise AssertionError(f"{tag}: only {rows_same:.4f} token rows "
                                  f"identical (need {need})")
         mark(f"5 {tag} kernel vs plain round")
+        if not timed:
+            return None
         round_ms_ = {}
         for mode, cap in (("all", None), ("accepted", 2500)):
             def one_round():
@@ -2581,6 +2611,238 @@ def main():
     mark("8t the transformer's server")
 
 
+    # ---- 9. main path: phase-2 training and the mixed families ------------
+    def full_run(tag, run6, runname, n_iter, extra=()):
+        """main.main --phase 2 from the phase-6 run's last phase-1
+        checkpoint, the kernels' counts set to 0 just before and read just
+        after; the phase-2 files, finite logged losses, the last
+        checkpoint holding the classifier. Returns (cfg, counts, seconds,
+        the last result row, the last checkpoint's iteration, the logged
+        phase-2 rows)."""
+        every = max(n_iter // 2, 1)
+        flags_ = train_flags(runname, TRAIN_ITERS, list(extra)) + [
+            "--phase", "2", "--loadpath",
+            run6.vae.chkpt_path.format(TRAIN_ITERS), "--full.n_iter",
+            str(n_iter), "--full.cheaplog_every", str(max(every // 2, 1)),
+            "--full.expsvlog_every", str(every)]
+        cfg_, launches_, secs_, _ = train_run(tag, flags_)
+        fc = cfg_.full
+        last_it = fc.s_iter + n_iter
+        missing = [p_ for p_ in (
+            fc.gen_samples_path, fc.samez_samples_path, fc.posz_samples_path,
+            fc.interp_samples_path, fc.fasta_gen_samples_path,
+            fc.fasta_pos_samples_path, fc.chkpt_path.format(last_it))
+            if not os.path.exists(p_)]
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            rows_ = json.load(fh)
+        logged_ = [r for r in rows_ if "full_L_vae" in r]
+        bad = [(r["it"], k) for r in logged_ for k, v in r.items()
+               if not np.isfinite(v)]
+        with np.load(fc.chkpt_path.format(last_it)) as data:
+            has_clf = "['params']['clf']['fc']['w']" in data.files
+            step_ = int(data["['step']"])
+        with open(fc.gen_samples_path) as fh:
+            gen_lines = fh.read().splitlines()
+        if (missing or bad or not logged_ or not has_clf or step_ != last_it
+                or len(gen_lines) != 2 * cfg_.evals.sample_size
+                or not set(gen_lines[::2]) <= {"label: 0", "label: 1"}):
+            raise AssertionError(f"{tag}: missing {missing}, non-finite "
+                                 f"{bad}, logged {len(logged_)} rows, clf "
+                                 f"{has_clf}, step {step_}, "
+                                 f"{len(gen_lines)} full_gen.txt lines")
+        return cfg_, launches_, secs_, rows_[-1], last_it, logged_
+
+    def full_vs_plain(tag, model_, cfg_, ckpt_, n_wall=3):
+        """The three phase-2 sub-losses and every group's gradients under
+        --full.z_regu_loss mmd (B2 and B5 both on the path) at the params
+        of ``ckpt_``, on the same batches and draws, through the kernels
+        and inside cuda_build.plain(): losses rtol 1e-5, gradients within
+        MAX_GRAD_REL of each tensor's largest entry. Then the run's own
+        FullStep (mmdrf): ``n_wall`` steps on the host clock, and one more
+        under torch.profiler (device activity alone): device events a
+        step, device busy ms a step, idle share of the unprofiled
+        steps. Returns (loss rel, grad rel, the tensor of the
+        largest gradient error, the kernel route's counts, the
+        profile)."""
+        cfgf = C.parse_and_finalize(["--full.z_regu_loss", "mmd"])[0].full
+        template = model_.init_params(torch.Generator(device=dev).manual_seed(
+            0), dev)
+        template["clf"] = model_.init_classifier(
+            torch.Generator(device=dev).manual_seed(0), dev)
+        params_ = checkpoints.load_params(ckpt_, template, dev)
+        for leaf in checkpoints.flatten(params_).values():
+            leaf.requires_grad_(True)
+        ds = train_main.load_dataset(cfg_)
+        text = torch.from_numpy(ds.next_batch("train_vae").text).to(dev)
+        lab = ds.next_batch("train_amp_lab")
+        lab_text = torch.from_numpy(lab.text).to(dev)
+        lab_y = torch.from_numpy(np.maximum(
+            getattr(lab, ds.attributes[0][0]), 0)).to(dev)
+        draws = train_full.draw_full_step(
+            model_, runtime.generator(dev, cfg_.seed, 10 ** 6),
+            text.shape[0], lab_text.shape[0], cfg_.max_seq_len, dev, cfgf)
+        rf = losses.init_rf_basis(runtime.generator(dev, cfg_.seed, 7),
+                                  model_.z_dim, cfg_.losses.wae_mmd.rf_dim,
+                                  dev)
+        vae_l, attr_l, clf_l = train_full.make_full_losses(
+            model_, cfgf, cfg_.losses.wae_mmd, rf)
+        calls = ((lambda: vae_l(params_, text, 1.5, draws["vae"]),
+                  ("E", "G")),
+                 (lambda: attr_l(params_, 0.9, draws["attr"]), ("G",)),
+                 (lambda: clf_l(params_, lab_text, lab_y, 0.9,
+                                draws["clf"]), ("C",)))
+
+        def run():
+            out_ = []
+            for fn, names in calls:
+                loss, met = fn()
+                out_.append((loss.detach(), met, train_full.group_grads(
+                    loss, params_, names)))
+            return out_
+
+        reset_counts()
+        res_k = run()
+        torch.cuda.synchronize()
+        k_counts = counts()
+        with cuda_build.plain():
+            res_p = run()
+        loss_rel, grad_rel, worst = 0.0, 0.0, None
+        for (_, mk, gk), (_, mp, gp) in zip(res_k, res_p):
+            for k in mp:
+                loss_rel = max(loss_rel, abs(mk[k].item() - mp[k].item())
+                               / max(abs(mp[k].item()), 1e-30))
+            for n_ in gp:
+                fk, fp = checkpoints.flatten(gk[n_]), checkpoints.flatten(
+                    gp[n_])
+                for p_ in fp:
+                    e_ = rel_err(fk[p_], fp[p_])
+                    if e_ >= grad_rel:
+                        grad_rel, worst = e_, checkpoints.keystr(p_)
+        if loss_rel > 1e-5 or grad_rel > MAX_GRAD_REL:
+            raise AssertionError(f"{tag} phase-2 step (mmd): kernels "
+                                 f"vs plain, losses rel {loss_rel:.3e}, "
+                                 f"gradient rel {grad_rel:.3e} ({worst})")
+        step_ = train_full.FullStep(model_, cfg_.full, cfg_.losses, rf)
+        states = step_.init(params_)
+
+        def steps(it0, n):
+            for i in range(n):
+                step_(params_, states, text, lab_text, lab_y, it0 + i, draws)
+            torch.cuda.synchronize()
+
+        steps(0, 1)
+        t0 = time.perf_counter()
+        steps(1, n_wall)
+        wall = (time.perf_counter() - t0) / n_wall
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps(1 + n_wall, 1)
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in ("vae update", "attribute update",
+                                  "classifier update", "optimizer")]
+        busy = profile_train._union_us(
+            [(e.time_range.start, e.time_range.end) for e in evs])
+        prof_ = {"events_per_step": len(evs), "busy_ms_per_step": busy / 1e3,
+                 "wall_ms_per_step": 1e3 * wall,
+                 "idle_share": 1.0 - busy / 1e6 / wall if evs else None}
+        for leaf in checkpoints.flatten(params_).values():
+            leaf.requires_grad_(False)
+        return loss_rel, grad_rel, worst, k_counts, prof_
+
+    full_stats = {}
+    for tag, run6, runname, n_it, extra, model_ in (
+            ("GRU", tcfg, "smoke_p2", FULL_ITERS, (), model_t),
+            ("transformer", tcfg_t, "smoke_tfm_p2", FULL_ITERS_T, TFM_FLAGS,
+             model_t6)):
+        cfg9, l9, s9, fin9, last9, logged9 = full_run(
+            f"{tag} phase 2", run6, runname, n_it, extra)
+        n9 = n_it + 1
+        gru = tag == "GRU"
+        # B2: three recurrences in the VAE update, two in encode(soft); B4:
+        # the artifacts' encode of the amp-positive rows (two directions)
+        want9 = {"B2 fwd": 5 * n9 if gru else 0, "B2 bwd": 5 * n9 if gru
+                 else 0, "B2 wgrad": 5 * n9 if gru else 0,
+                 "B4": 2 if gru else 0, "B5 fwd": 0, "B5 bwd": 0}
+        if l9 != want9:
+            raise AssertionError(f"{tag} phase 2 launched {l9}, expected "
+                                 f"{want9}")
+        mark(f"9 {tag} phase 2 (main.main)")
+        check = full_vs_plain(tag, model_, cfg9,
+                              cfg9.full.chkpt_path.format(last9))
+        want_k = {"B2 fwd": 5 if gru else 0, "B2 bwd": 5 if gru else 0,
+                  "B2 wgrad": 5 if gru else 0, "B4": 0, "B5 fwd": 1,
+                  "B5 bwd": 1}
+        if check[3] != want_k:
+            raise AssertionError(f"{tag} phase-2 step (mmd) launched "
+                                 f"{check[3]}, expected {want_k}")
+        full_stats[tag] = (cfg9, l9, s9, fin9, n9, check, logged9)
+        lr_, gr_, worst_, kc_, pr = check
+        log(f"[9] {tag} main --phase 2 from phase 6's model_{TRAIN_ITERS}"
+            f".npz, {n9} steps at batch {cfg9.vae.batch_size}: {s9:.2f} s "
+            f"in main.main; launches {l9} (B2 "
+            f"{l9['B2 fwd'] / n9:.2f} triples a step); L_vae at the logs "
+            f"{[round(r['full_L_vae'], 4) for r in logged9]}, clf_acc "
+            f"{[round(r['full_clf_acc'], 3) for r in logged9]}; "
+            f"{fin9['full_steps_per_sec_warm']:.2f} steps/s after "
+            f"{train_vae.WARM_STEPS} steps, {fin9['full_steps_per_sec']:.2f} "
+            f"over all (host clock, logs and checkpoints included); files "
+            f"full_gen/samez/posz/interp.txt, the FASTAs, "
+            f"model_{last9}.npz with the classifier ({card})")
+        log(f"[9] {tag} one phase-2 step (--full.z_regu_loss mmd), its "
+            f"three sub-losses and every group's gradients, kernels vs "
+            f"cuda_build.plain() on the same params, batches and draws: "
+            f"losses within rel {lr_:.3e}, gradients within {gr_:.3e} of "
+            f"the tensor's max ({worst_}); launches {kc_}")
+        log(f"[9] {tag} phase-2 step (mmdrf), 3 steps on the host clock "
+            f"and 1 under torch.profiler: {pr['wall_ms_per_step']:.4f} ms a "
+            f"step, {pr['events_per_step']:.1f} device events a step, device "
+            f"busy {pr['busy_ms_per_step']:.4f} ms, idle share "
+            f"{pr['idle_share']:.4f} ({card})")
+        mark(f"9 {tag} phase-2 step, kernels vs plain, profile")
+
+    # the GRU family's phase 2 under --full.z_regu_loss mmd: B5 on the path
+    cfg9m, l9m, s9m, _, _, logged9m = full_run(
+        "GRU phase 2 mmd", tcfg, "smoke_p2_mmd", 10,
+        ["--full.z_regu_loss", "mmd"])
+    if l9m["B5 fwd"] != 11 or l9m["B5 bwd"] != 11 or l9m["B2 fwd"] != 55:
+        raise AssertionError(f"phase 2 under mmd launched {l9m}")
+    log(f"[9] GRU main --phase 2 --full.z_regu_loss mmd, 11 steps: "
+        f"{s9m:.2f} s; launches {l9m}; L_vae at the logs "
+        f"{[round(r['full_L_vae'], 4) for r in logged9m]}")
+    mark("9 GRU phase 2 under mmd")
+
+    # the mixed families: 51 phase-1 steps at cadences 25 / 50 through the
+    # chunk's CUDA graph, one step kernels vs plain, one fused round each
+    mixed_stats = {}
+    for tag, fam in (("transformer-GRU", ("transformer", "gru")),
+                     ("GRU-transformer", ("gru", "transformer"))):
+        fam_flags = ["--model.E_args.E_class", fam[0],
+                     "--model.G_args.G_class", fam[1]]
+        cfg_x, l_x, s_x, ch_x = train_run(tag, train_flags(
+            f"smoke_mixed_{fam[0]}", UNROLL_ITERS, fam_flags + [
+                "--vae.cheaplog_every", "25", "--vae.expsvlog_every", "50"]))
+        _, recon_x, _, _, model_x, params_x = check_train_outputs(
+            tag, cfg_x, UNROLL_ITERS + 1)
+        n_gru = 2 * (fam[0] == "gru") + (fam[1] == "gru")
+        n_x = UNROLL_ITERS + 1
+        want_x = {"B2 fwd": n_gru * n_x, "B2 bwd": n_gru * n_x,
+                  "B2 wgrad": n_gru * n_x, "B4": 4 * n_gru, "B5 fwd": n_x,
+                  "B5 bwd": 0}
+        if l_x != want_x or ch_x is None or ch_x[:2] != (2, 25):
+            raise AssertionError(f"{tag} training: launches {l_x} (want "
+                                 f"{want_x}), chunks {ch_x}")
+        log(f"[9] {tag} phase-1 training, {n_x} steps: {s_x:.2f} s; "
+            f"{ch_x[0]} replays of a {ch_x[1]}-step CUDA graph of {ch_x[2]} "
+            f"kernel nodes; launches {l_x}; recon at the logs "
+            f"{[round(r, 4) for r in recon_x]}")
+        step_vs_plain(tag, model_x, cfg_x, params_x)
+        mark(f"9 {tag} training and one step vs plain")
+        cfg_r, _, _ = C.parse_and_finalize(
+            flags + fam_flags, extra_args=sample_pipeline.EXTRA_ARGS)
+        round_checks(tag, cfg_r, model_x, params_x, timed=False)
+        mixed_stats[tag] = (l_x, s_x, ch_x)
+
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
     # the decoder's width; B 512 at the encoder's, the dump's chunk
@@ -2748,6 +3010,26 @@ def main():
             f"{train_vae.WARM_STEPS}, {fin_1['train_steps_per_sec']:.2f} over "
             f"all (host clock, log and checkpoint boundaries included) "
             f"({card})")
+    for tag, (cfg9, l9, s9, fin9, n9, check, _) in full_stats.items():
+        pr = check[4]
+        log(f"[7] {tag} phase-2 training at the shipped width, batch "
+            f"{cfg9.vae.batch_size}, one step at a time: "
+            f"{fin9['full_steps_per_sec_warm']:.2f} steps/s after "
+            f"{train_vae.WARM_STEPS} steps, {fin9['full_steps_per_sec']:.2f} "
+            f"over all {n9} (host clock, logs and checkpoints included); B2 "
+            f"{l9['B2 fwd'] / n9:.2f} forward, {l9['B2 bwd'] / n9:.2f} "
+            f"backward and {l9['B2 wgrad'] / n9:.2f} weight-gradient launches "
+            f"a step; {pr['events_per_step']:.1f} device events a step, busy "
+            f"{pr['busy_ms_per_step']:.4f} ms, idle share "
+            f"{pr['idle_share']:.4f} ({card})")
+    for tag, (l_x, s_x, ch_x) in mixed_stats.items():
+        log(f"[7] {tag} phase-1 training, {UNROLL_ITERS + 1} steps at "
+            f"--hw.unroll 50 at cadences 25 / 50 ({ch_x[2]} kernel nodes a "
+            f"25-step graph): "
+            f"{s_x:.2f} s in main.main, capture and checkpoint included "
+            f"({card})")
+    l9g = full_stats["GRU"][1]
+    mix_l = [v[0] for v in mixed_stats.values()]
     k_ms, p_ms, (b_ms, b_by) = times[5000]
     entries = [{
         "name": "beam_scan_gru",
@@ -2771,7 +3053,10 @@ def main():
             "source": "controlled_peptide_generation_tpu_torch/csrc/"
                       "gru_seq.cu",
             "replaces": f"controlled_peptide_generation_tpu/ops/{replaces}",
-            "launches": train_launches[f"B2 {k}"], "max_abs_err": b2_err[k],
+            "launches": (train_launches[f"B2 {k}"] + l9g[f"B2 {k}"]
+                         + l9m[f"B2 {k}"]
+                         + sum(m_[f"B2 {k}"] for m_ in mix_l)),
+            "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
     k_ms, p_ms, (b_ms, b_by) = b3_times[5000]
@@ -2795,14 +3080,16 @@ def main():
         "replaces":
             "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
         "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
-                     + se_counts2["B4"]),
+                     + se_counts2["B4"] + l9g["B4"] + l9m["B4"]
+                     + sum(m_["B4"] for m_ in mix_l)),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
         "library_ms": t4["cudnn_fwd"]})
     for k, n_launch in (("fwd", train_launches["B5 fwd"]
-                         + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]),
-                        ("bwd", mmd_launches["B5 bwd"])):
+                         + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
+                         + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)),
+                        ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"])):
         k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
         entries.append({
             "name": f"mmd_full_{k}",

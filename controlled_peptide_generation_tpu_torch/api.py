@@ -35,19 +35,8 @@ def load_trained_model(model_path, n_vocab, cfg, device="cuda"):
     model = build_model(cfg.model, n_vocab=n_vocab,
                         max_seq_len=cfg.max_seq_len)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    init = checkpoints.flatten(model.init_params(gen, device))
-    stored = checkpoints.flatten(checkpoints.load(model_path, device))
-    flat = {}
-    for path, leaf in init.items():
-        if path in stored:
-            if stored[path].shape != leaf.shape:
-                raise ValueError(
-                    f"{model_path}: {checkpoints.keystr(path)} has shape "
-                    f"{tuple(stored[path].shape)}, the model wants "
-                    f"{tuple(leaf.shape)}")
-            leaf = stored[path]
-        flat[path] = leaf
-    params = checkpoints.unflatten(flat)
+    params = checkpoints.load_params(model_path,
+                                     model.init_params(gen, device), device)
     return model, params
 
 

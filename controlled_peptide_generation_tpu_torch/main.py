@@ -1,25 +1,36 @@
-"""Phase-1 entry point of the port: config parse and save, data, model init,
-WAE/VAE training, prior samples, result.json export.
+"""Training entry point of the port (the root ``main.py`` of the JAX
+package): config parse and save, data, model init, phase-1 WAE/VAE
+training and its prior samples, phase-2 controlled-generation training
+and its artifacts, result.json export.
 
-    python -m controlled_peptide_generation_tpu_torch.main --phase 1 \\
+    python -m controlled_peptide_generation_tpu_torch.main [--phase -1] \\
         --runname myrun [--dataset synthetic] [--tiny 1] [--device cpu]
 
-The transformer family trains with ``--model.E_args.E_class transformer
---model.G_args.G_class transformer``. Runs on CUDA unless ``--device cpu``
-is given. Phase 2 (``--phase 2`` and ``--phase -1``, both phases) and the
-mixed families (a transformer encoder with a GRU decoder, or the reverse)
-are not ported yet and raise.
+``--phase 1`` trains phase 1 (``train/train_vae.py``), ``--phase 2``
+phase 2 (``train/train_full.py``) from the run's phase-1 checkpoint
+``model_<s_iter>.npz`` (``--loadpath`` names another), and ``--phase -1``,
+the default, both, phase 2 from phase 1's params with a fresh classifier.
+Phase 2 writes ``full_gen.txt`` (prior samples with their ``label:``
+lines), then ``write_phase2_artifacts``. The encoder and the decoder are
+each a GRU or a transformer (``--model.E_args.E_class``,
+``--model.G_args.G_class``: ``gru`` or ``transformer``). Runs on CUDA
+unless ``--device cpu`` is given.
 """
 
 import logging
 import os
+
+import torch
 
 from . import config as C
 from .data import synthetic
 from .data.loader import AttributeDataLoader
 from .generation import generate_sentences
 from .models.rnn_vae import build_model
-from .train.train_vae import train_vae
+from .train import checkpoints
+from .api import generate_interpolated_samples
+from .train.train_full import train_full
+from .train.train_vae import check_supported, train_vae
 from .utils import runtime
 from .utils.io import write_fasta, write_gen_samples
 from .utils.logging import MetricLogger
@@ -38,21 +49,67 @@ def load_dataset(cfg):
                                max_seq_len=cfg.max_seq_len, **spec)
 
 
+def write_phase2_artifacts(cfg, model, params, dataset, n=32):
+    """The controlled-generation artifacts at the cfg.full paths (the JAX
+    package's, root ``main.py``):
+
+    * samez: the same prior latents decoded greedily under c = 0 and c = 1
+      (attribute control);
+    * posz: greedy decodes of the encoder means of amp-positive training
+      rows (and their FASTA);
+    * interp: the tanh interpolation between two prior latents, through
+      ``api.generate_interpolated_samples``;
+    * the FASTA of ``full_gen.txt`` when it exists."""
+    dev = next(iter(checkpoints.flatten(params).values())).device
+    gen = runtime.generator(dev, cfg.seed + 3)
+    z = model.sample_z_prior(gen, n, device=dev)
+    lines = []
+    for c_val in (0, 1):
+        c = torch.zeros((n, model.c_dim), device=dev)
+        c[:, c_val] = 1.0
+        seqs, _, _ = generate_sentences(model, params, n, gen=gen, z=z, c=c,
+                                        sample_mode="greedy", device=dev)
+        sents = dataset.idx2sentences(seqs.cpu().numpy(), False)
+        lines.extend(f"c={c_val}: {s}" for s in sents)
+    write_gen_samples(lines, cfg.full.samez_samples_path)
+
+    pos_ix = dataset.get_subset_indices("amp=amp_posc,amp_posnc")
+    if len(pos_ix):
+        text = torch.from_numpy(dataset._make_batch(pos_ix[:n]).text).to(dev)
+        with torch.no_grad():
+            mu, _ = model.encode(params, text)
+        seqs, _, _ = generate_sentences(model, params, mu.shape[0], gen=gen,
+                                        z=mu, sample_mode="greedy",
+                                        device=dev)
+        sents = dataset.idx2sentences(seqs.cpu().numpy(), False)
+        write_gen_samples(sents, cfg.full.posz_samples_path)
+        write_fasta(sents, cfg.full.fasta_pos_samples_path)
+
+    za = model.sample_z_prior(gen, 1, device=dev)
+    zb = model.sample_z_prior(gen, 1, device=dev)
+    res = generate_interpolated_samples(
+        model, params, dataset.vocab, za, zb, interpolation_method="tanh",
+        interpolation_samples=9, gen=gen, sample_mode="greedy",
+        print_special_tokens=False)
+    write_gen_samples(
+        [f"w={w:.2f}: {' '.join(p[0])}"
+         for w, p in zip(res["interpolation"], res["predictions"])],
+        cfg.full.interp_samples_path)
+
+    if os.path.exists(cfg.full.gen_samples_path):
+        with open(cfg.full.gen_samples_path) as fh:
+            gen_sents = [ln for ln in fh.read().splitlines()
+                         if not ln.startswith("label:")]
+        write_fasta(gen_sents, cfg.full.fasta_gen_samples_path)
+    log.info("phase-2 artifacts written under %s", cfg.savepath)
+
+
 def main(argv=None):
     cfg, args, overrides = C.parse_and_finalize(argv, extra_args=EXTRA_ARGS)
     device = runtime.setup(args.device)
-    if cfg.phase != 1:
-        raise NotImplementedError(
-            f"--phase {cfg.phase}: phase-2 training is not ported yet "
-            f"(ROADMAP.md A7); run --phase 1")
-    families = (cfg.model.E_args.E_class, cfg.model.G_args.G_class)
-    if "transformer" in families and families != ("transformer",) * 2:
-        raise NotImplementedError(
-            f"training a transformer with a GRU (E_class {families[0]}, "
-            f"G_class {families[1]}) is not ported yet: no parity test "
-            f"covers the mixed families (ROADMAP.md A7); train "
-            f"--model.E_args.E_class transformer --model.G_args.G_class "
-            f"transformer, or the GRU family")
+    if cfg.phase not in (1, 2, -1):
+        raise ValueError(f"--phase {cfg.phase}: 1, 2 or -1 (both)")
+    check_supported(cfg)
     C.save_config(overrides, cfg, cfg.savepath)
     C.pretty_print(cfg)
     log.info("device: %s; random seed: %s", device, cfg.seed)
@@ -71,18 +128,36 @@ def main(argv=None):
                                    device)
         log.info("Model: %s", model)
 
-        params, _, steps_per_sec = train_vae(cfg, model, dataset, params,
-                                             logger)
-        log.info("train throughput: %.2f steps/sec", steps_per_sec)
+        if cfg.phase in (1, -1):
+            params, _, steps_per_sec = train_vae(cfg, model, dataset,
+                                                 params, logger)
+            log.info("train throughput: %.2f steps/sec", steps_per_sec)
 
-        log.info("Evaluating base vae...")
-        samples, _, _ = generate_sentences(
-            model, params, cfg.evals.sample_size,
-            gen=runtime.generator(device, cfg.seed + 1),
-            sample_mode="categorical", device=device)
-        sents = dataset.idx2sentences(samples.cpu().numpy(), False)
-        write_gen_samples(sents, cfg.vae.gen_samples_path)
-        write_fasta(sents, cfg.vae.fasta_gen_samples_path)
+            log.info("Evaluating base vae...")
+            samples, _, _ = generate_sentences(
+                model, params, cfg.evals.sample_size,
+                gen=runtime.generator(device, cfg.seed + 1),
+                sample_mode="categorical", device=device)
+            sents = dataset.idx2sentences(samples.cpu().numpy(), False)
+            write_gen_samples(sents, cfg.vae.gen_samples_path)
+            write_fasta(sents, cfg.vae.fasta_gen_samples_path)
+
+        if cfg.phase in (2, -1):
+            # standalone, finalize() resolved loadpath to the phase-1
+            # checkpoint; with -1 phase 1's params carry over
+            if cfg.phase == -1:
+                cfg.loadpath = ""
+            params, steps_per_sec = train_full(cfg, model, dataset, params,
+                                               logger)
+            log.info("full-phase throughput: %.2f steps/sec", steps_per_sec)
+            samples, _, c_ix = generate_sentences(
+                model, params, cfg.evals.sample_size,
+                gen=runtime.generator(device, cfg.seed + 2),
+                sample_mode="categorical", device=device)
+            write_gen_samples(
+                dataset.idx2sentences(samples.cpu().numpy(), False),
+                cfg.full.gen_samples_path, c_lab=c_ix.cpu().numpy())
+            write_phase2_artifacts(cfg, model, params, dataset)
 
         log.info("saving result.json and vae_result.json at %s",
                  cfg.savepath)

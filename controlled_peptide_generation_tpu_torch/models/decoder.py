@@ -72,7 +72,8 @@ def step_tables(params, emb_params, z, c):
 def apply_step(params, emb_params, token_hard, token_soft, z, c, h):
     """One free-running step; token_soft ([B, V] probabilities) takes
     precedence over token_hard ([B] indices). Returns (logits [B, V],
-    h' [B, H])."""
+    h' [B, H]). Under autograd (phase 2's soft sampler) the gradient
+    reaches ``dec`` and ``emb`` through the step tables."""
     tok_table, zc_gi = step_tables(params, emb_params, z, c)
     if token_soft is not None:
         gi = token_soft @ tok_table + zc_gi

@@ -2,13 +2,18 @@
 
 The port carries the shared word embedding, the biGRU encoder, the GRU
 decoder (teacher-forced pass and free-running step), the transformer
-encoder and decoder (``models/transformer.py``), the z and c priors and
-the (identity) flow: what phase-1 training and the CLaSS round run.
-Parameters are nested dicts (the transformer's blocks a list) of tensors
-named as in the JAX package, so checkpoints cross over unchanged. The CNN
-classifier (no gradient reaches it in phase 1), the deconv family, skip
-connections and flows are not ported yet (ROADMAP.md) and raise
-NotImplementedError.
+encoder and decoder (``models/transformer.py``), in any pairing of the
+two families, the text-CNN classifier (``models/classifier.py``), the z
+and c priors and the (identity) flow: what phase-1 and phase-2 training
+and the CLaSS round run. Parameters are nested dicts (the transformer's
+blocks a list) of tensors named as in the JAX package, so checkpoints
+cross over unchanged. The classifier's parameters ``clf`` are made by
+``init_classifier`` when phase 2 starts: phase 1 neither trains nor
+writes them. The deconv family, skip connections and flows are not ported
+yet (ROADMAP.md) and raise NotImplementedError.
+
+The encoder and the classifier take [B, T] tokens or [B, T, V] soft rows
+(phase 2's soft samples), embedded by ``nn.soft_embed``.
 
 Every random draw of a forward pass (the reparameterization noise, the c
 prior, the dropout masks) comes from a ``torch.Generator`` or is passed
@@ -21,6 +26,7 @@ import torch
 
 from ..data.vocab import PAD_IDX
 from ..ops import nn
+from . import classifier as clf
 from . import decoder as dec
 from . import encoder as enc
 from . import transformer as tfm
@@ -38,6 +44,7 @@ class RNNVAE:
     flow: int = 0
     E_args: dict = field(default_factory=dict)
     G_args: dict = field(default_factory=dict)
+    C_args: dict = field(default_factory=dict)
 
     def __post_init__(self):
         if self.E_class not in ("gru", "transformer"):
@@ -80,10 +87,10 @@ class RNNVAE:
         return dict(self.G_args.get("T_args", {}))
 
     def init_params(self, gen, device="cpu"):
-        """Seeded embedding, encoder and decoder parameters (the parts the
-        port runs; a checkpoint written from them loads in the JAX
-        package, whose non-strict loader keeps fresh values for the
-        missing classifier)."""
+        """Seeded embedding, encoder and decoder parameters, the phase-1
+        tree (a checkpoint written from them loads in the JAX package,
+        whose non-strict loader keeps fresh values for the missing
+        classifier)."""
         emb_p = nn.init_embedding(gen, self.n_vocab, self.emb_dim, device)
         if self.E_class == "transformer":
             enc_p = tfm.init_encoder(
@@ -109,17 +116,29 @@ class RNNVAE:
                              device=device)
         return {"emb": emb_p, "enc": enc_p, "dec": dec_p}
 
+    def init_classifier(self, gen, device="cpu"):
+        """Seeded classifier parameters, the tree's ``clf`` (phase 2)."""
+        return clf.init(gen, self.emb_dim, device, **self.C_args)
+
     # ---- encoder / latent ----------------------------------------------
 
     def encode(self, params, inputs, train=False, gen=None, keeps=None):
-        """inputs: [B, T] int tokens -> (mu [B, Z], logvar [B, Z]).
-        train, gen and ``keeps`` (one bool mask [B, T, d_model] per block)
-        only matter for the transformer encoder's block dropout."""
-        emb = nn.embed(params["emb"], inputs)
+        """inputs: [B, T] int tokens or [B, T, V] soft rows -> (mu [B, Z],
+        logvar [B, Z]). train, gen and ``keeps`` (one bool mask [B, T,
+        d_model] per block) only matter for the transformer encoder's
+        block dropout."""
+        emb = _embed(params, inputs)
         if self.E_class == "transformer":
             t_args = self.enc_tfm_args
+            if inputs.dim() == 2:
+                pad_mask = inputs != PAD_IDX
+            else:
+                # a soft row is a token unless PAD dominates it or it is
+                # all zeros (the sampler zeroes the rows after EOS)
+                pad_mask = ((inputs[..., PAD_IDX] < 0.5)
+                            & (inputs.sum(-1) > 0.5))
             return tfm.apply_encoder(
-                params["enc"], emb, inputs != PAD_IDX,
+                params["enc"], emb, pad_mask,
                 n_heads=t_args.get("n_heads", 4),
                 p_dropout=t_args.get("p_dropout", 0.0), train=train,
                 bf16=t_args.get("bf16", False), gen=gen, keeps=keeps)
@@ -174,13 +193,18 @@ class RNNVAE:
             p_out_dropout=g_args.get("p_out_dropout", 0.3), gen=gen,
             word_drop=word_drop, out_keep=out_keep)
 
-    def decode_step(self, params, token_hard, token_soft, z, c, h):
+    def decode_step(self, params, token_hard, token_soft, z, c, h,
+                    write_pos=None):
+        """One free-running step -> (logits [B, V], h'). ``write_pos``, the
+        transformer cache's position as an int, spares a step loop that
+        knows it a device sync a block."""
         if self.G_class == "transformer":
             t_args = self.dec_tfm_args
             return tfm.apply_step(params["dec"], params["emb"], token_hard,
                                   token_soft, h,
                                   n_heads=t_args.get("n_heads", 4),
-                                  bf16=t_args.get("bf16", False))
+                                  bf16=t_args.get("bf16", False),
+                                  write_pos=write_pos)
         return dec.apply_step(params["dec"], params["emb"], token_hard,
                               token_soft, z, c, h)
 
@@ -194,6 +218,15 @@ class RNNVAE:
                                   bf16=t_args.get("bf16", False))
         return dec.init_hidden(z, c)
 
+    # ---- classifier ---------------------------------------------------------
+
+    def classify(self, params, inputs, train=False, gen=None, keep=None):
+        """Logits [B, 2] of [B, T] tokens or [B, T, V] soft rows; with
+        ``train`` the dropout mask ``keep`` (drawn from ``gen`` when not
+        given)."""
+        return clf.apply(params["clf"], _embed(params, inputs), train=train,
+                         gen=gen, keep=keep, **self.C_args)
+
     # ---- full teacher-forced forward ----------------------------------------
 
     def forward(self, params, sequences, q_c="prior", sample_z=1,
@@ -205,7 +238,8 @@ class RNNVAE:
         [B, T, H] (the GRU head's mask), "enc_keeps" and "dec_keeps" (the
         transformer blocks' masks, one per block; bool); the others are
         drawn from ``gen``. ``train`` switches every dropout, the
-        encoder's included."""
+        encoder's included. q_c="classifier" takes c = softmax of the
+        classifier's logits on the sequences, without dropout."""
         draws = draws or {}
         mu, logvar = self.encode(params, sequences, train=train, gen=gen,
                                  keeps=draws.get("enc_keeps"))
@@ -222,15 +256,22 @@ class RNNVAE:
             c = (self.sample_c_prior(gen, sequences.shape[0],
                                      device=sequences.device)
                  if bits is None else self.c_from_bits(bits))
+        elif q_c == "classifier":
+            c = torch.softmax(self.classify(params, sequences), dim=1)
         else:
-            raise NotImplementedError(
-                f"q_c={q_c!r} needs the CNN classifier, not ported yet "
-                f"(ROADMAP.md A7)")
+            raise ValueError("q_c is not labels, prior, or classifier")
         dec_logits = self.decode_train(
             params, sequences, z, c, train=train, gen=gen,
             word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"),
             keeps=draws.get("dec_keeps"))
         return (mu, logvar), (z, c), dec_logits
+
+
+def _embed(params, inputs):
+    """Tokens [B, T] or soft rows [B, T, V] -> embeddings [B, T, E]."""
+    if inputs.dim() == 2:
+        return nn.embed(params["emb"], inputs)
+    return nn.soft_embed(params["emb"], inputs)
 
 
 def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:
@@ -247,4 +288,5 @@ def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:
         E_args=dict(cfg_model.E_args),
         G_args={k: (dict(v) if isinstance(v, dict) else v)
                 for k, v in cfg_model.G_args.items()},
+        C_args=dict(cfg_model.C_args),
     )

@@ -273,10 +273,13 @@ def init_cache(params, z, c, max_seq_len, n_heads=4, bf16=False):
 
 
 def apply_step(params, emb_params, token_hard, token_soft, cache, n_heads=4,
-               bf16=False):
+               bf16=False, write_pos=None):
     """One free-running step with the KV cache; token_soft ([B, V]
     probabilities) takes precedence over token_hard ([B] indices).
-    Returns (logits [B, V] f32, new cache)."""
+    ``write_pos``, the cache's (uniform) position as an int, spares each
+    block a device sync when the caller knows it. Returns (logits [B, V]
+    f32, new cache). The given cache is not modified, so autograd can run
+    through the steps."""
     if token_soft is not None:
         emb = nn.soft_embed(emb_params, token_soft)
     else:
@@ -287,6 +290,7 @@ def apply_step(params, emb_params, token_hard, token_soft, cache, n_heads=4,
     x = _entry(nn.linear(params["in"], emb), params["pos"][pos.long()], dt)
     ks, vs = list(cache["k"]), list(cache["v"])
     for li, p in enumerate(blocks):
-        x, ks[li], vs[li] = _block_step(p, x, ks[li], vs[li], pos, n_heads)
+        x, ks[li], vs[li] = _block_step(p, x, ks[li], vs[li], pos, n_heads,
+                                        write_pos)
     return (nn.linear(params["out"], final_ln(params["ln_f"], x, dt)),
             {"k": ks, "v": vs, "pos": pos + 1})

@@ -131,6 +131,23 @@ def gelu(x):
     return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)
 
 
+def init_conv1d_seq(gen, width, in_dim, n_filters, device="cpu"):
+    """A Kim-2014 text-conv filter bank over the embeddings, in the JAX
+    package's layout: w [width, in_dim, n_filters] ("WIO"), b
+    [n_filters], both ~ U(-1/sqrt(width * in_dim), ...)."""
+    bound = 1.0 / (width * in_dim) ** 0.5
+    return {"w": uniform(gen, (width, in_dim, n_filters), bound, device),
+            "b": uniform(gen, (n_filters,), bound, device)}
+
+
+def conv1d_seq(p, x):
+    """x [B, T, E] -> [B, T - width + 1, F]: the valid convolution along T
+    (a cross-correlation, as XLA's conv)."""
+    w = p["w"].permute(2, 1, 0)                      # [F, E, width]
+    y = torch.nn.functional.conv1d(x.transpose(1, 2), w)
+    return y.transpose(1, 2) + p["b"]
+
+
 def cast_tree(tree, dtype):
     """Cast the float32 leaves of nested dicts and lists to ``dtype``."""
     if isinstance(tree, dict):

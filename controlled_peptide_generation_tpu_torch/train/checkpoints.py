@@ -20,12 +20,18 @@ of the train-state pytree ``{'params', 'opt', 'step'}``:
   and ``"['opt'].count"``; in the port ``{'m', 'v', 'count'}`` (FlatAdam);
 * ``"['step']"``, the iteration it was saved at.
 
-The port writes no classifier parameters (no gradient reaches them in
-phase 1); the JAX package's non-strict loader keeps its own values for
-those. The flat m and v the port writes run over every leaf of the JAX
-package's train state in its ravel order, the classifier's included
-(their segments are 0, as in a JAX phase-1 run: ``classifier_shapes``
-copies the JAX package's ``models/classifier.py`` init rule), so a JAX
+A phase-2 file is ``{'params', 'step'}`` with the classifier's
+parameters under ``['params']['clf']`` and no optimizer state, as the JAX
+package's ``train_full`` writes it; ``load_params`` fills a template
+from a file non-strictly (a phase-1 file has no classifier).
+
+A phase-1 file the port writes holds no classifier parameters (no
+gradient reaches them in phase 1); the JAX package's non-strict loader
+keeps its own values for those. The flat m and v the port writes run
+over every leaf of the JAX package's train state in its ravel order, the
+classifier's included (their segments are 0, as in a JAX phase-1 run:
+``models/classifier.classifier_shapes`` is the JAX package's classifier
+layout), so a JAX
 resume with its full template loads them. Reading, the port cuts its own
 leaves' segments out of a file's vectors: a JAX file's, this writer's, or
 one written before the classifier's segments were (vectors over the
@@ -39,6 +45,8 @@ import re
 
 import numpy as np
 import torch
+
+from ..models.classifier import classifier_shapes
 
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 _OPTAX_ADAM = "['opt'][1][0]"
@@ -119,22 +127,6 @@ def check_opt_layout(path, tmpl_keys, file_keys):
             f"expects the {expected} layout: --hw.flat_optimizer was "
             f"flipped across a resume. Resume with the original "
             f"--hw.flat_optimizer setting, or train from scratch.")
-
-
-def classifier_shapes(emb_dim, min_filter_width=3, max_filter_width=5,
-                      num_filters=100, **_):
-    """{path under 'clf': shape} of the JAX package's text-CNN classifier
-    (``models/classifier.py`` init there): a conv bank ``conv<w>`` for
-    each width w over the embedding, then ``fc`` to 2 logits. Takes
-    ``cfg.model.C_args``; the defaults are the shipped ones."""
-    widths = range(min_filter_width, max_filter_width + 1)
-    shapes = {}
-    for w in widths:
-        shapes[f"conv{w}", "w"] = (w, emb_dim, num_filters)
-        shapes[f"conv{w}", "b"] = (num_filters,)
-    shapes["fc", "w"] = (num_filters * len(widths), 2)
-    shapes["fc", "b"] = (2,)
-    return shapes
 
 
 def _clf_sizes(emb_dim, c_args):
@@ -287,6 +279,24 @@ def _own_segments(path, data, params, c_args=None):
             parts.append(vec[offsets[p]:offsets[p] + sizes[p]])
         data[key] = np.concatenate(parts) if parts else vec[:0]
     return data
+
+
+def load_params(path, params, device="cpu"):
+    """Copies of ``params`` (nested dicts and lists of tensors) filled from
+    the file's ``['params']`` leaves by key path; leaves the file lacks
+    keep the given values and its other keys are ignored (the JAX
+    package's ``strict=False``). A leaf of another shape raises."""
+    stored = flatten(load(path, device))
+    out = {}
+    for p, leaf in flatten(params).items():
+        if p in stored:
+            if stored[p].shape != leaf.shape:
+                raise ValueError(
+                    f"{path}: {keystr(('params',) + p)} has shape "
+                    f"{tuple(stored[p].shape)}, expected {tuple(leaf.shape)}")
+            leaf = stored[p].to(leaf.dtype)
+        out[p] = leaf.detach().clone()
+    return unflatten(out)
 
 
 def load_train_state(path, params, opt_state, device="cpu", c_args=None):

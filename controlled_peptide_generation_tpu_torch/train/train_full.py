@@ -1,0 +1,319 @@
+"""Phase-2 controlled-generation training on one device (the JAX package's
+``train/train_full.py``, after Hu et al. 2017, "Toward Controlled
+Generation of Text"), for any pairing of the GRU and transformer
+families.
+
+Each iteration runs three sub-updates, each its own loss, gradient and
+clipped Adam:
+
+1. the VAE update (``vae_loss``): recon + beta * z_regu + the logvar
+   penalties, with c = softmax of the classifier on the batch; its
+   gradients step opt_E (lrE; ``emb`` and ``enc``) and opt_G (lrG;
+   ``dec``);
+2. the generator's attribute update (``g_attr_loss``), from the params
+   after (1): sentences soft-sampled from (z, c) of the priors (the soft
+   mode of ``G_soft_sample_kwargs``, the annealed softmax temperature),
+   lambda_c * CE(classifier(soft), c) + lambda_z * ||encode(soft).mu -
+   z||^2 with the encoder in eval mode; it steps opt_G again, so opt_G
+   counts two steps an iteration;
+3. the classifier update (``c_loss``, lrC; ``clf``): CE on a labelled
+   batch under the classifier's dropout, + lambda_u * (CE on hard samples
+   of the prior (``C_hard_sample_kwargs``), without gradient, against
+   their c, + lambda_e * the classifier's entropy on them).
+
+Each optimizer owns its group alone, which equals the JAX package's masked
+update over the whole tree: zero gradients with zero moments give a zero
+update, and the global norm of the clip runs over the group. On the card
+the GRU family's recurrences run B2 (three in the VAE update, two in
+``encode(soft)``, whose input gradient carries the attribute loss back
+into the soft sampler), and B5 under ``--full.z_regu_loss mmd``; the
+mmdrf term, logged as ``L_wae_mmdrf``, is computed every step (the JAX
+loss computes the full MMD too, unused unless it regularizes).
+
+Every random draw of an iteration comes from ``draw_full_step`` with the
+generator of (seed, stream, it) and can be handed in (tests feed the JAX
+package's). The loop runs every step eagerly: ``--hw.unroll`` (the JAX
+package's ``make_full_scan``, the same trajectory) has no captured graph
+of the phase-2 chunk yet (ROADMAP.md A12).
+"""
+
+import logging
+import time
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..ops import losses as L
+from ..ops import sampling
+from ..utils import runtime
+from ..utils.annealing import anneal
+from ..utils.logging import DeferredFetch
+from . import checkpoints
+from .opt import ClipAdam
+from .train_vae import WARM_STEPS, aligned_unroll, check_supported, draw_step
+
+log = logging.getLogger(__name__)
+
+# generator streams of phase 2, keyed (seed, stream, it)
+_RF_STREAM, _CLF_STREAM, _STEP_STREAM = 4, 5, 6
+# the optimizer groups: opt_E, opt_G, opt_C and the trees each updates
+GROUPS = {"E": ("emb", "enc", "flow"), "G": ("dec",), "C": ("clf",)}
+
+
+def group(params, name):
+    """The subtrees of ``params`` that optimizer ``name`` updates."""
+    return {k: params[k] for k in GROUPS[name] if k in params}
+
+
+def draw_full_step(model, gen, B, B_lab, T, device, cfgf):
+    """Every random draw of one phase-2 iteration, in three dicts:
+
+    * "vae": ``draw_step``'s (eps, word_drop, the decoder's and encoder's
+      dropout masks, z_prior_mmd, z_prior_rf; its c_bits go unused, c
+      comes from the classifier);
+    * "attr": z [B, Z] and c_bits [B] of the priors, and under
+      categorical_softmax the Gumbel noise [T, B, V];
+    * "clf": keep [B_lab, num_filters * n_widths] (the classifier's
+      dropout mask), z [B_lab, Z], c_bits [B_lab] and the hard sample's
+      noise [T, B_lab, V] when its mode is categorical."""
+    c_args = model.C_args
+    n_feats = c_args.get("num_filters", 100) * (
+        c_args.get("max_filter_width", 5) - c_args.get("min_filter_width", 3)
+        + 1)
+    p_keep = 1.0 - c_args.get("dropout", 0.5)
+    V, Z = model.n_vocab, model.z_dim
+    draws = {"vae": draw_step(model, gen, B, T, device)}
+    for name, n, mode, with_keep in (
+            ("attr", B, _soft_mode(cfgf), False),
+            ("clf", B_lab, _hard_mode(cfgf), True)):
+        d = {}
+        if with_keep:
+            d["keep"] = torch.rand((n, n_feats), generator=gen,
+                                   device=device) < p_keep
+        d["z"] = torch.randn((n, Z), generator=gen, device=device)
+        d["c_bits"] = torch.rand((n,), generator=gen, device=device) < 0.5
+        if mode in ("categorical", "categorical_softmax"):
+            d["noise"] = sampling.gumbel((T, n, V), gen, device)
+        draws[name] = d
+    return draws
+
+
+def _soft_mode(cfgf):
+    mode = cfgf.G_soft_sample_kwargs.get("sample_mode", "none_softmax")
+    if mode not in sampling.SOFT_MODES:
+        raise ValueError(f"G_soft_sample_kwargs.sample_mode {mode!r} is not "
+                         f"one of {sampling.SOFT_MODES}")
+    return mode
+
+
+def _hard_mode(cfgf):
+    mode = cfgf.C_hard_sample_kwargs.get("sample_mode", "categorical")
+    if mode not in sampling.HARD_MODES:
+        raise ValueError(f"C_hard_sample_kwargs.sample_mode {mode!r} is not "
+                         f"one of {sampling.HARD_MODES}")
+    return mode
+
+
+def _ce(logits, target):
+    """Mean cross-entropy of logits [B, 2] against int targets [B]."""
+    logp = torch.log_softmax(logits, dim=1)
+    return -torch.gather(logp, 1, target.long()[:, None]).mean()
+
+
+def make_full_losses(model, cfgf, mmd_cfg, rf_basis):
+    """The three phase-2 objectives, each -> (loss, metrics):
+    vae_loss(params, text, beta, draws), g_attr_loss(params, temp, draws)
+    and c_loss(params, lab_text, lab_y, temp, draws), ``draws`` the
+    matching dict of ``draw_full_step``. rf_basis: (rf_w, rf_b)."""
+    soft_mode, hard_mode = _soft_mode(cfgf), _hard_mode(cfgf)
+    rf_w, rf_b = rf_basis
+
+    def vae_loss(params, text, beta, draws):
+        (mu, logvar), (z, _), dec_logits = model.forward(
+            params, text, q_c="classifier", sample_z=1, train=True,
+            draws=draws)
+        recon = L.recon_dec(text, dec_logits)
+        kl = L.kl_gaussianprior(mu, logvar)
+        mmdrf = L.wae_mmd_gaussianprior_rf(z, rf_w, rf_b, mmd_cfg.sigma,
+                                           z_prior=draws["z_prior_rf"])
+        if cfgf.z_regu_loss == "mmd":
+            z_regu = L.wae_mmd_gaussianprior_full(
+                z, mmd_cfg.sigma, mmd_cfg.kernel,
+                z_prior=draws["z_prior_mmd"])
+        else:
+            z_regu = {"kl": kl, "mmdrf": mmdrf}[cfgf.z_regu_loss]
+        loss = (recon + beta * z_regu
+                + cfgf.lambda_logvar_L1 * logvar.abs().sum(1).mean()
+                + cfgf.lambda_logvar_KL * L.kl_gaussian_sharedmu(mu, logvar))
+        return loss, {"L_vae": loss, "L_vae_recon": recon, "L_vae_kl": kl,
+                      "L_wae_mmdrf": mmdrf}
+
+    def g_attr_loss(params, temp, draws):
+        z = draws["z"]
+        c = model.c_from_bits(draws["c_bits"])
+        _, soft = sampling.sample_sentences(
+            model, params, z, c, sample_mode=soft_mode, temp=temp,
+            noise=draws.get("noise"))
+        attr_c = _ce(model.classify(params, soft), draws["c_bits"])
+        mu_hat, _ = model.encode(params, soft)
+        attr_z = ((mu_hat - z) ** 2).sum(1).mean()
+        loss = cfgf.lambda_c * attr_c + cfgf.lambda_z * attr_z
+        return loss, {"L_attr_c": attr_c, "L_attr_z": attr_z}
+
+    def c_loss(params, lab_text, lab_y, temp, draws):
+        logits_s = model.classify(params, lab_text, train=True,
+                                  keep=draws["keep"])
+        sup = _ce(logits_s, lab_y)
+        gen = sampling.sample_sentences(
+            model, params, draws["z"], model.c_from_bits(draws["c_bits"]),
+            sample_mode=hard_mode, temp=temp, noise=draws.get("noise"))
+        logp_u = torch.log_softmax(model.classify(params, gen), dim=1)
+        unsup = -torch.gather(logp_u, 1,
+                              draws["c_bits"].long()[:, None]).mean()
+        ent = -(logp_u.exp() * logp_u).sum(1).mean()
+        loss = sup + cfgf.lambda_u * (unsup + cfgf.lambda_e * ent)
+        acc = (logits_s.argmax(1) == lab_y.long()).float().mean()
+        return loss, {"L_clf_sup": sup, "L_clf_unsup": unsup,
+                      "clf_entropy": ent, "clf_acc": acc}
+
+    return vae_loss, g_attr_loss, c_loss
+
+
+def group_grads(loss, params, names):
+    """{name: gradients nested like group(params, name)} of ``loss``, one
+    backward for all the names."""
+    flat = {n: checkpoints.flatten(group(params, n)) for n in names}
+    grads = iter(torch.autograd.grad(
+        loss, [t for n in names for t in flat[n].values()]))
+    return {n: checkpoints.unflatten({p: next(grads) for p in flat[n]})
+            for n in names}
+
+
+class FullStep:
+    """One phase-2 iteration: step(params, opt_states, text, lab_text,
+    lab_y, it, draws) -> metrics (0-d tensors on the device, and beta and
+    softmax_temp); updates params and the three optimizer states in place.
+    ``opt_states`` is ``init(params)``: {"E", "G", "C"}, each a ClipAdam
+    state over its group."""
+
+    def __init__(self, model, cfgf, cfg_losses, rf_basis):
+        self.cfgf = cfgf
+        self.vae_loss, self.g_attr_loss, self.c_loss = make_full_losses(
+            model, cfgf, cfg_losses.wae_mmd, rf_basis)
+        self.opts = {"E": ClipAdam(cfgf.lrE, cfgf.clip_grad),
+                     "G": ClipAdam(cfgf.lrG, cfgf.clip_grad),
+                     "C": ClipAdam(cfgf.lrC, cfgf.clip_grad)}
+
+    def init(self, params):
+        return {n: opt.init(group(params, n)) for n, opt in self.opts.items()}
+
+    def _update(self, params, opt_states, loss, names):
+        grads = group_grads(loss, params, names)
+        with record_function("optimizer"):
+            for n in names:
+                self.opts[n].step(group(params, n), grads[n], opt_states[n])
+
+    def __call__(self, params, opt_states, text, lab_text, lab_y, it, draws):
+        beta = anneal(self.cfgf.beta, it)
+        temp = anneal(self.cfgf.softmax_temp, it)
+        with record_function("vae update"):
+            loss, m1 = self.vae_loss(params, text, beta, draws["vae"])
+            self._update(params, opt_states, loss, ("E", "G"))
+        with record_function("attribute update"):
+            loss, m2 = self.g_attr_loss(params, temp, draws["attr"])
+            self._update(params, opt_states, loss, ("G",))
+        with record_function("classifier update"):
+            loss, m3 = self.c_loss(params, lab_text, lab_y, temp,
+                                   draws["clf"])
+            self._update(params, opt_states, loss, ("C",))
+        metrics = {k: v.detach() for k, v in {**m1, **m2, **m3}.items()}
+        metrics.update(beta=beta, softmax_temp=temp)
+        return metrics
+
+
+def train_full(cfg, model, dataset, params, logger=None,
+               lab_iterator="train_amp_lab"):
+    """Run the phase-2 loop on the device the params live on, from
+    ``params`` (a fresh classifier is added when they have none) or, when
+    ``cfg.loadpath`` is set, from that file, loaded non-strictly (a
+    phase-1 file has no classifier). Checkpoints ``{'params', 'step'}``
+    at every ``expsvlog_every`` after ``s_iter``. Returns (params,
+    steps_per_sec over the whole loop); the rate from step ``s_iter +
+    WARM_STEPS`` on is logged as full_steps_per_sec_warm."""
+    check_supported(cfg)
+    cfgf = cfg.full
+    dev = next(iter(checkpoints.flatten(params).values())).device
+    if "clf" not in params:
+        params = dict(params, clf=model.init_classifier(
+            runtime.generator(dev, cfg.seed, _CLF_STREAM), dev))
+    if cfg.loadpath:
+        params = checkpoints.load_params(cfg.loadpath, params, dev)
+        log.info("Loaded params from %s", cfg.loadpath)
+    for leaf in checkpoints.flatten(params).values():
+        leaf.requires_grad_(True)
+    mmd_cfg = cfg.losses.wae_mmd
+    rf_basis = L.init_rf_basis(runtime.generator(dev, cfg.seed, _RF_STREAM),
+                               model.z_dim, mmd_cfg.rf_dim, dev)
+    step = FullStep(model, cfgf, cfg.losses, rf_basis)
+    opt_states = step.init(params)
+    unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
+                            int(cfgf.cheaplog_every),
+                            int(cfgf.expsvlog_every))
+    if unroll > 1:
+        log.info("phase 2 runs one step at a time: --hw.unroll %d has no "
+                 "captured graph of the phase-2 chunk yet (ROADMAP.md A12)",
+                 unroll)
+
+    attr_name = dataset.attributes[0][0]
+
+    def sink(p_it, vals):
+        if logger is not None:
+            for k, v in vals.items():
+                logger.log_value("full_" + k, v, p_it)
+        log.info("ITER %d (phase 2). L_vae: %.4f; attr_c: %.4f; "
+                 "attr_z: %.4f; clf_sup: %.4f; clf_acc: %.3f",
+                 p_it, vals["L_vae"], vals["L_attr_c"], vals["L_attr_z"],
+                 vals["L_clf_sup"], vals["clf_acc"])
+
+    fetch = DeferredFetch(cfg.hw.get("log_flush_every", 10), sink)
+    log.info("Training full (controlled-generation) phase ...")
+    it, end_it = cfgf.s_iter, cfgf.s_iter + cfgf.n_iter
+    T = cfg.max_seq_len
+    warm_it, t_warm = None, None
+    t_start = time.perf_counter()
+    while it <= end_it:
+        if warm_it is None and it >= cfgf.s_iter + WARM_STEPS:
+            runtime.synchronize(dev)
+            warm_it, t_warm = it, time.perf_counter()
+        text = torch.from_numpy(dataset.next_batch("train_vae").text).to(dev)
+        lab = dataset.next_batch(lab_iterator)
+        lab_text = torch.from_numpy(lab.text).to(dev)
+        lab_y = torch.from_numpy(np.maximum(getattr(lab, attr_name), 0)).to(
+            dev)
+        draws = draw_full_step(
+            model, runtime.generator(dev, cfg.seed, _STEP_STREAM, it),
+            text.shape[0], lab_text.shape[0], T, dev, cfgf)
+        metrics = step(params, opt_states, text, lab_text, lab_y, it, draws)
+        cheap = it % cfgf.cheaplog_every == 0
+        expsv = it % cfgf.expsvlog_every == 0
+        if cheap or expsv:
+            fetch.add(it, metrics, force=expsv)
+        if expsv and it > cfgf.s_iter:
+            path = cfgf.chkpt_path.format(it)
+            checkpoints.save(path, params, step=it)
+            log.info("Saved model to %s", path)
+        it += 1
+    fetch.flush()
+    runtime.synchronize(dev)
+    t_end = time.perf_counter()
+    steps_per_sec = (cfgf.n_iter + 1) / max(t_end - t_start, 1e-9)
+    if logger is not None:
+        logger.log_value("full_steps_per_sec", steps_per_sec, end_it)
+        if warm_it is not None:
+            logger.log_value("full_steps_per_sec_warm",
+                             (end_it + 1 - warm_it)
+                             / max(t_end - t_warm, 1e-9), end_it)
+    for leaf in checkpoints.flatten(params).values():
+        leaf.requires_grad_(False)
+    return params, steps_per_sec

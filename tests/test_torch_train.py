@@ -352,12 +352,14 @@ def test_sampler_matches_jax(mode):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--phase", "2"], NotImplementedError),
-    (["--phase", "-1"], NotImplementedError),
+    (["--phase", "1", "--model.G_args.GRU_args.skip_connections", "1"],
+     NotImplementedError),
+    (["--phase", "1", "--model.flow", "2"], NotImplementedError),
     (["--phase", "1", "--hw.pallas_train", "off"], ValueError),
     (["--phase", "1", "--hw.dp", "2"], NotImplementedError),
-    (["--phase", "1", "--model.E_args.E_class", "transformer"],
+    (["--phase", "1", "--model.G_args.G_class", "deconv"],
      NotImplementedError),
+    (["--phase", "2", "--hw.dp", "2"], NotImplementedError),
 ])
 def test_cli_refuses_what_is_not_ported(argv, exc, tmp_path, one_thread):
     base = ["--tiny", "1", "--dataset", "synthetic", "--device", "cpu",

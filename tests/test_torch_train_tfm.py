@@ -251,12 +251,37 @@ def test_tiny_transformer_cli_run(tmp_path, one_thread):
 
 @pytest.mark.parametrize("families", [("transformer", "gru"),
                                       ("gru", "transformer")])
-def test_mixed_families_still_refuse_to_train(families, tmp_path):
-    argv = ["--tiny", "1", "--phase", "1", "--dataset", "synthetic",
-            "--device", "cpu", "--savepath_toplevel", str(tmp_path / "out"),
+def test_mixed_families_still_refuse_to_train(families, tmp_path,
+                                              one_thread):
+    """The mixed families used to refuse to train; they train now (their
+    parity with the JAX package: tests/test_torch_mixed.py). A short
+    phase-1 CLI run of each at a small width: finite logged losses and a
+    checkpoint holding both families' parts."""
+    argv = ["--phase", "1", "--dataset", "synthetic", "--device", "cpu",
+            "--runname", "mixed",
+            "--savepath_toplevel", str(tmp_path / "out"),
             "--tb_toplevel", str(tmp_path / "tb"),
             "--datapath", str(tmp_path / "data"),
             "--model.E_args.E_class", families[0],
-            "--model.G_args.G_class", families[1]]
-    with pytest.raises(NotImplementedError, match="mixed"):
-        t_main.main(argv)
+            "--model.G_args.G_class", families[1],
+            "--model.z_dim", "6", "--model.emb_dim", "10",
+            "--model.E_args.h_dim", "5", "--max_seq_len", "10",
+            "--vae.batch_size", "4", "--vae.n_iter", "4",
+            "--vae.cheaplog_every", "2", "--vae.expsvlog_every", "4",
+            "--evals.sample_size", "4"]
+    for part in ("E_args", "G_args"):
+        for k, v in (("d_model", D_MODEL), ("d_ff", 32), ("n_heads", 2),
+                     ("n_layers", 1)):
+            argv += [f"--model.{part}.T_args.{k}", str(v)]
+    cfg = t_main.main(argv)
+    with open(os.path.join(cfg.savepath, "result.json")) as fh:
+        rows = [r for r in json.load(fh) if "train_L_vae" in r]
+    assert [r["it"] for r in rows] == [0, 2, 4]
+    assert all(math.isfinite(r[k]) for r in rows for k in r)
+    with np.load(os.path.join(cfg.savepath, "model_4.npz")) as data:
+        keys = data.files
+    tfm_part = "enc" if families[0] == "transformer" else "dec"
+    gru_part = "dec" if tfm_part == "enc" else "enc"
+    assert any(k.startswith(f"['params']['{tfm_part}']['blocks'][0]")
+               for k in keys)
+    assert any(k.startswith(f"['params']['{gru_part}']['gru") for k in keys)
