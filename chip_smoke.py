@@ -211,6 +211,23 @@ Phases, each raising on failure (the script then exits non-zero):
    B5 once a step; the phase-6 output checks; one step through the
    kernels against plain(); one fused CLaSS round through B1 (B3)
    against plain=True on the same draws ([5]'s gates);
+10. the model's options at the shipped width: skip connections, a
+   posterior alternating flow of 4 layers, deconv (100 filters, kernel
+   4, 3 layers) and deconv with useRNN (its GRU at H 150, beyond the
+   kernels' H 128: the plain recurrence, counted in
+   gru_scan.plain_runs); each 51 phase-1 steps at cadences 25 / 50 (two
+   replays of a 25-step CUDA graph): B2 for the encoder's two directions
+   (and the GRU decoder), B4 for the same scans of the heldout eval, B5
+   once a step; the phase-6 output checks; one step through the kernels
+   against plain(); sample_pipeline's fused loop (rounds of 5,000 until
+   one accepted): B1 once a round for the flow, the plain beam once a
+   round for skip (outside B1's scope), the replay beam
+   (beam_search_logits) once a round for deconv; one round's draws
+   through the route and through plain=True ([5]'s gates); for skip the
+   card's plain beam against the CPU's on 256 latents; the deconv serial
+   loop (five replay beams a round, the last chunk padded); the deconv
+   server through build_server for one request of 8; the skip model's
+   phase 2 for 5 steps (B2 five times a step, B4 twice);
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -260,8 +277,13 @@ B2_SCOPE_CASES = ((252, 102, 37, 1), (16, 128, 37, 25), (16, 128, 5, 1),
                   (8, 1, 33, 25))
 MAX_HS_DELTA = 1e-4      # sequential FMAs against cuBLAS sums
 MAX_GRAD_REL = 1e-3      # of each gradient tensor's largest entry
+# the deconv decoder's gradients: of the larger of each tensor's largest
+# entry and this share of the tree's largest gradient (a gradient whose
+# exact value is 0 is rounding noise; see step_vs_plain)
+DECONV_GRAD_FLOOR = 0.1
 TRAIN_ITERS = 300
 ROUND_REPS = 21          # host-clock round timings: the host's CPU is shared
+OPT_ROUND_REPS = 5       # [10]: a round of each model option
 # B3: the transformer beam at the shipped transformer width
 TFM_FLAGS = ["--model.E_args.E_class", "transformer",
              "--model.G_args.G_class", "transformer"]
@@ -1644,7 +1666,14 @@ def main():
         """One step from the same params, batch and draws through the
         kernels and inside cuda_build.plain() (every kernel of the step as
         its plain version): loss rtol 1e-5, each gradient within
-        MAX_GRAD_REL of its tensor's largest entry."""
+        MAX_GRAD_REL of its tensor's largest entry. A deconv decoder's
+        gradient is held to MAX_GRAD_REL of the larger of its largest
+        entry and DECONV_GRAD_FLOOR of the tree's largest gradient: the
+        exact gradient of its biases ahead of a batch norm is 0 (the norm
+        takes the batch mean out), and bn_out's scale's nearly so (relu,
+        the final conv and its norm are invariant to it while bn_out's
+        bias is 0), so there both routes give the rounding noise of
+        cuDNN's backward, which sums in no fixed order."""
         for leaf in checkpoints.flatten(params_).values():
             leaf.requires_grad_(True)
         batch = torch.from_numpy(train_main.load_dataset(tcfg_).next_batch(
@@ -1667,7 +1696,13 @@ def main():
                         - res[1][1]["L_wae_mmd"].item())
         g_k = checkpoints.flatten(res[0][2])
         g_p = checkpoints.flatten(res[1][2])
-        g_errs = {checkpoints.keystr(k): rel_err(g_k[k], g_p[k]) for k in g_k}
+        floor = DECONV_GRAD_FLOOR * max(g.abs().max().item()
+                                        for g in g_p.values())
+        g_errs = {checkpoints.keystr(k): (
+            (g_k[k] - g_p[k]).abs().max().item()
+            / max(g_p[k].abs().max().item(), floor)
+            if model_.G_class == "deconv" and k[0] == "dec"
+            else rel_err(g_k[k], g_p[k])) for k in g_k}
         worst = max(g_errs, key=g_errs.get)
         log(f"[6] {tag}: one train step, kernels vs cuda_build.plain() on "
             f"the same params, batch and draws: loss {res[0][0].item():.6f} "
@@ -2612,17 +2647,17 @@ def main():
 
 
     # ---- 9. main path: phase-2 training and the mixed families ------------
-    def full_run(tag, run6, runname, n_iter, extra=()):
-        """main.main --phase 2 from the phase-6 run's last phase-1
-        checkpoint, the kernels' counts set to 0 just before and read just
-        after; the phase-2 files, finite logged losses, the last
+    def full_run(tag, run6, runname, n_iter, extra=(), n1=TRAIN_ITERS):
+        """main.main --phase 2 from the phase-1 run's last checkpoint
+        (step ``n1``), the kernels' counts set to 0 just before and read
+        just after; the phase-2 files, finite logged losses, the last
         checkpoint holding the classifier. Returns (cfg, counts, seconds,
         the last result row, the last checkpoint's iteration, the logged
         phase-2 rows)."""
         every = max(n_iter // 2, 1)
-        flags_ = train_flags(runname, TRAIN_ITERS, list(extra)) + [
+        flags_ = train_flags(runname, n1, list(extra)) + [
             "--phase", "2", "--loadpath",
-            run6.vae.chkpt_path.format(TRAIN_ITERS), "--full.n_iter",
+            run6.vae.chkpt_path.format(n1), "--full.n_iter",
             str(n_iter), "--full.cheaplog_every", str(max(every // 2, 1)),
             "--full.expsvlog_every", str(every)]
         cfg_, launches_, secs_, _ = train_run(tag, flags_)
@@ -2843,6 +2878,212 @@ def main():
         round_checks(tag, cfg_r, model_x, params_x, timed=False)
         mixed_stats[tag] = (l_x, s_x, ch_x)
 
+    # ---- 10. the model's options: skip connections, a flow, deconv ------
+    # one Q (10 components) over the synthetic latent corpus of [5], shared
+    # by the options' same-draws rounds and the deconv server
+    Q10 = pipeline.fitQ_and_test(
+        cfg, pipeline.resolve_QClass("mogQ"),
+        {"n_components": 10, "z_num_samples": 10,
+         "covariance_type": "diag"}, states, device=dev)[0]
+    Q10.init_attr_classifiers(
+        {a: pipeline.build_clfZ(cfg, a, states, device=dev)
+         for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
+
+    def beam_counts():
+        return {"B1": beam_kernel.beam_scan_gru.launches,
+                "plain beam": beam.beam_search.plain_runs,
+                "replay beam": beam.beam_search_logits.runs}
+
+    def reset_beam_counts():
+        beam_kernel.beam_scan_gru.launches = 0
+        beam.beam_search.plain_runs = 0
+        beam.beam_search_logits.runs = 0
+
+    def option_pipeline(tag, fl, model_, params_, serial=False):
+        """sample_pipeline's main path (run_from_states) on the option's
+        trained model until one accepted sample: the beams' counts set to
+        0 just before and read just after. Returns (counts, stats)."""
+        cfg_, args_, _ = C.parse_and_finalize(
+            flags + fl + ["--Q_n_components", "10", "--Q_covariance_type",
+                          "diag", "--n_samples_per_round", "5000",
+                          "--n_samples_acc", "1", "--samples_outfn_prefix",
+                          "smoke_" + tag.replace(" ", "_")]
+            + (["--hw.fused_rounds", "0"] if serial else []),
+            extra_args=sample_pipeline.EXTRA_ARGS)
+        reset_beam_counts()
+        stem_, samples_, stats_ = pipeline.run_from_states(
+            cfg_, args_, model_, params_, vocab, states, device=dev)
+        counts_ = beam_counts()
+        peps = samples_["peptide"]
+        if (not os.path.exists(stem_ + ".csv") or not len(peps)
+                or not set("".join(peps).replace(" ", "")) <= set(
+                    vocab.itos[4:])):
+            raise AssertionError(f"{tag} sample_pipeline: {len(peps)} "
+                                 f"samples, files {stem_}.*")
+        return counts_, stats_
+
+    opt_flags = {
+        "skip": ["--model.G_args.GRU_args.skip_connections", "1"],
+        "flow": ["--model.flow", "4", "--model.flow_type", "alternating",
+                 "--model.flow_mode", "posterior"],
+        "deconv": ["--model.G_args.G_class", "deconv"],
+        "deconv useRNN": ["--model.G_args.G_class", "deconv",
+                          "--model.G_args.deconv_args.useRNN", "1"]}
+    opt_stats = {}
+    for tag, fl in opt_flags.items():
+        slug = "smoke_opt_" + tag.replace(" ", "_")
+        plain_gru0 = gru_ops.gru_scan.plain_runs
+        cfg_o, l_o, s_o, ch_o = train_run(tag, train_flags(
+            slug, UNROLL_ITERS, fl + ["--vae.cheaplog_every", "25",
+                                      "--vae.expsvlog_every", "50"]))
+        plain_gru = gru_ops.gru_scan.plain_runs - plain_gru0
+        _, recon_o, _, _, model_o, params_o = check_train_outputs(
+            tag, cfg_o, UNROLL_ITERS + 1)
+        n_o = UNROLL_ITERS + 1
+        # B2: the encoder's two directions, and the GRU decoder's scan;
+        # B4: the same scans of the heldout eval's 4 batches at step 50
+        n_gru = 2 + (model_o.G_class == "gru")
+        want_o = {"B2 fwd": n_gru * n_o, "B2 bwd": n_gru * n_o,
+                  "B2 wgrad": n_gru * n_o, "B4": 4 * n_gru, "B5 fwd": n_o,
+                  "B5 bwd": 0}
+        use_rnn = model_o.deconv_args.get("useRNN", False) and (
+            model_o.G_class == "deconv")
+        if (l_o != want_o or ch_o is None or ch_o[:2] != (2, 25)
+                or (plain_gru > 0) != bool(use_rnn)):
+            raise AssertionError(f"{tag} training: launches {l_o} (want "
+                                 f"{want_o}), chunks {ch_o}, plain GRU "
+                                 f"scans {plain_gru}")
+        log(f"[10] {tag} phase-1 training, {n_o} steps: {s_o:.2f} s; "
+            f"{ch_o[0]} replays of a {ch_o[1]}-step CUDA graph of {ch_o[2]} "
+            f"kernel nodes; launches {l_o}; plain GRU scans {plain_gru}"
+            + (f" (useRNN: H {model_o.emb_dim} > {gru_kernel.MAX_H})"
+               if use_rnn else "")
+            + f"; recon at the logs {[round(r, 4) for r in recon_o]}")
+        step_vs_plain(tag, model_o, cfg_o, params_o)
+        mark(f"10 {tag} training and one step vs plain")
+
+        # the CLaSS main path: sample_pipeline's fused loop
+        c_o, st_o = option_pipeline(tag, fl, model_o, params_o)
+        n_r = st_o["rounds_launched"]
+        route = ("B1" if model_o.flow else "replay beam"
+                 if model_o.G_class == "deconv" else "plain beam")
+        want_r = {k: (n_r if k == route else 0) for k in c_o}
+        if c_o != want_r:
+            raise AssertionError(f"{tag} CLaSS loop: beams {c_o}, want "
+                                 f"{want_r} over {n_r} rounds")
+        # one round's draws through the route and through plain=True
+        draws = fused.round_draws(pipeline.round_generator(cfg_o.seed, 1,
+                                                           dev),
+                                  Q10._sampler()[1], 5000)
+        r_k = fused.fused_round(model_o, params_o, draws, Q10)
+        r_p = fused.fused_round(model_o, params_o, draws, Q10, plain=True)
+        same = (r_k[3] == r_p[3]).all(dim=1).float().mean().item()
+        if not torch.equal(r_k[2], r_p[2]) or same < MIN_SAME_ROWS:
+            raise AssertionError(f"{tag}: the round's route and plain=True "
+                                 f"differ ({same:.4f} rows identical)")
+        ts = []
+        for _ in range(OPT_ROUND_REPS):
+            t0 = time.perf_counter()
+            fused.fused_round(model_o, params_o, draws, Q10)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        round_ms_o = statistics.median(ts)
+        extra_o = ""
+        if model_o.skip_connections:
+            # the plain beam on the card against the CPU's on 256 latents
+            cpu_p = checkpoints.unflatten({
+                k: v.cpu() for k, v in checkpoints.flatten(params_o).items()})
+            z_s = r_k[0][:256]
+            cs_s = [model_o.c_from_bits(draws.cbit[:256]).cpu()]
+            tk_c, _ = pipeline.decode_top1(z_s, model_o, params_o, chunk=256,
+                                           cs=cs_s)
+            tk_h, _ = pipeline.decode_top1(z_s.cpu(), model_o, cpu_p,
+                                           chunk=256, cs=cs_s)
+            same_cpu = float((tk_c == tk_h).all(axis=1).mean())
+            if same_cpu < MIN_SAME_ROWS:
+                raise AssertionError(f"skip: the card's plain beam and the "
+                                     f"CPU's agree on {same_cpu:.4f} rows")
+            extra_o = (f"; the card's plain beam vs the CPU's on 256 "
+                       f"latents: {same_cpu:.6f} rows identical")
+        log(f"[10] {tag} sample_pipeline (fused, rounds of 5000, until one "
+            f"accepted): {n_r} round(s) launched, beams {c_o}, loop "
+            f"{st_o['seconds']:.4f} s; one round's draws through the route "
+            f"and plain=True: accept masks identical, {same:.6f} token rows "
+            f"identical{extra_o}; a decode-all round of 5000 "
+            f"{round_ms_o:.3f} ms (median of {OPT_ROUND_REPS}, host clock) "
+            f"({card})")
+        mark(f"10 {tag} CLaSS rounds")
+        opt_stats[tag] = {"train": (l_o, s_o, ch_o),
+                          "rounds": (c_o, st_o, round_ms_o),
+                          "cfg": cfg_o, "model": model_o, "params": params_o}
+
+    # the serial loop of the deconv model: chunks of 1,024, the last of a
+    # round of 5,000 zero-padded from 904 rows, one replay beam a chunk
+    od = opt_stats["deconv"]
+    c_s, st_s = option_pipeline("deconv serial", opt_flags["deconv"],
+                                   od["model"], od["params"], serial=True)
+    n_s = st_s["rounds_launched"]
+    want_s = {"B1": 0, "plain beam": 0, "replay beam": 5 * n_s}
+    if c_s != want_s:
+        raise AssertionError(f"deconv serial loop: beams {c_s}, want "
+                             f"{want_s}")
+    log(f"[10] deconv sample_pipeline --hw.fused_rounds 0: {n_s} round(s) "
+        f"of 5000 in chunks of 1024 (the last padded), beams {c_s}, loop "
+        f"{st_s['seconds']:.4f} s ({card})")
+    # the deconv server: build_server on the run dir, the [5] corpus as its
+    # states dump; one request
+    cfg_sv, args_sv, _ = C.parse_and_finalize(
+        train_flags("smoke_opt_deconv", UNROLL_ITERS, opt_flags["deconv"])
+        + ["--n_samples_per_round", "5000", "--Q_n_components", "10"],
+        extra_args=serve.EXTRA_ARGS)
+    for split, st in states.items():
+        n_rows = st["mu"].shape[0]
+        build_index._write_states(
+            build_index.states_path(cfg_sv.savepath, split,
+                                    cfg_sv.vae.n_iter), cfg_sv,
+            st["label"].shape[1],
+            {"src": np.zeros((n_rows, cfg_sv.max_seq_len), np.int64),
+             "z": st["mu"], "mu": st["mu"], "logvar": st["logvar"],
+             "label": st["label"], "split": np.zeros((n_rows, 1), np.int64)})
+    srv_d = serve.build_server(cfg_sv, args_sv, device=dev)
+    reset_beam_counts()
+    srv_d.start()
+    try:
+        t0 = time.perf_counter()
+        rows_d = srv_d.generate(8, timeout=120)
+        lat_d = time.perf_counter() - t0
+    finally:
+        srv_d.stop()
+    c_sv = beam_counts()
+    peps_d = [r["peptide"] for r in rows_d]
+    if (len(peps_d) != 8 or len(set(peps_d)) != 8
+            or c_sv != {"B1": 0, "plain beam": 0,
+                        "replay beam": srv_d._round_ix}):
+        raise AssertionError(f"the deconv server: {len(set(peps_d))} unique "
+                             f"of {len(peps_d)} rows, beams {c_sv}, rounds "
+                             f"{srv_d._round_ix}")
+    log(f"[10] deconv GenerationServer (build_server on its run dir): one "
+        f"request of 8 in {lat_d:.3f} s, {srv_d._round_ix} round(s), "
+        f"beams {c_sv} ({card})")
+    mark("10 deconv serial loop and server")
+
+    # phase 2 of the skip model: B2 five times a step, as the GRU's in [9]
+    os_ = opt_stats["skip"]
+    cfg_p2, l_p2, s_p2, _, _, logged_p2 = full_run(
+        "skip phase 2", os_["cfg"], "smoke_opt_skip_p2", 4,
+        opt_flags["skip"], n1=UNROLL_ITERS)
+    want_p2 = {"B2 fwd": 25, "B2 bwd": 25, "B2 wgrad": 25, "B4": 2,
+               "B5 fwd": 0, "B5 bwd": 0}
+    if l_p2 != want_p2:
+        raise AssertionError(f"skip phase 2 launched {l_p2}, want {want_p2}")
+    log(f"[10] skip main --phase 2 from its model_{UNROLL_ITERS}.npz, 5 "
+        f"steps: {s_p2:.2f} s in main.main; launches {l_p2}; L_vae at the "
+        f"logs {[round(r['full_L_vae'], 4) for r in logged_p2]} ({card})")
+    mark("10 skip phase 2")
+    opt_launches = {k: sum(v["train"][0][k] for v in opt_stats.values())
+                    + l_p2[k] for k in l_p2}
+    opt_b1 = opt_stats["flow"]["rounds"][0]["B1"]
+
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
     # the decoder's width; B 512 at the encoder's, the dump's chunk
@@ -3028,6 +3269,16 @@ def main():
             f"25-step graph): "
             f"{s_x:.2f} s in main.main, capture and checkpoint included "
             f"({card})")
+    for tag, st in opt_stats.items():
+        l_o, s_o, ch_o = st["train"]
+        c_o, st_o, round_ms_o = st["rounds"]
+        log(f"[7] {tag} phase-1 training, {UNROLL_ITERS + 1} steps at "
+            f"--hw.unroll 50 at cadences 25 / 50 ({ch_o[2]} kernel nodes a "
+            f"25-step graph): {s_o:.2f} s in main.main, capture and "
+            f"checkpoint included; a decode-all round of 5000 "
+            f"{round_ms_o:.3f} ms (median of {OPT_ROUND_REPS}, host clock); "
+            f"its sample_pipeline loop {st_o['seconds']:.4f} s over "
+            f"{st_o['rounds_launched']} round(s) launched ({card})")
     l9g = full_stats["GRU"][1]
     mix_l = [v[0] for v in mixed_stats.values()]
     k_ms, p_ms, (b_ms, b_by) = times[5000]
@@ -3038,7 +3289,7 @@ def main():
         "replaces": "controlled_peptide_generation_tpu/ops/pallas_beam.py:285",
         "launches": (launches["all"] + launches["accepted"]
                      + se_counts["B1"] + se_counts2["B1"]
-                     + serial_runs["GRU"][1] + serve_launches),
+                     + serial_runs["GRU"][1] + serve_launches + opt_b1),
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
@@ -3055,7 +3306,8 @@ def main():
             "replaces": f"controlled_peptide_generation_tpu/ops/{replaces}",
             "launches": (train_launches[f"B2 {k}"] + l9g[f"B2 {k}"]
                          + l9m[f"B2 {k}"]
-                         + sum(m_[f"B2 {k}"] for m_ in mix_l)),
+                         + sum(m_[f"B2 {k}"] for m_ in mix_l)
+                         + opt_launches[f"B2 {k}"]),
             "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
@@ -3081,14 +3333,15 @@ def main():
             "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
         "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
                      + se_counts2["B4"] + l9g["B4"] + l9m["B4"]
-                     + sum(m_["B4"] for m_ in mix_l)),
+                     + sum(m_["B4"] for m_ in mix_l) + opt_launches["B4"]),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
         "library_ms": t4["cudnn_fwd"]})
     for k, n_launch in (("fwd", train_launches["B5 fwd"]
                          + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
-                         + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)),
+                         + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)
+                         + opt_launches["B5 fwd"]),
                         ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"])):
         k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
         entries.append({

@@ -307,7 +307,7 @@ def default_config():
                               # on the card, eagerly on the CPU; 1 runs
                               # each step eagerly
         fused_rounds=True,    # CLaSS: one round = draw, heads, accept, decode
-                              # (port: the serial loop is not ported yet)
+                              # (0: the serial loop)
         rounds_per_dispatch=1,  # CLaSS rounds drawn per launch
         rounds_in_flight=2,   # CLaSS rounds queued ahead of host work
         decode_mode="all",    # "all" beam-decodes every candidate (reference

@@ -6,9 +6,13 @@ not given, then runs ``ops/sampling.sample_sentences`` or, in the beam
 mode, ``ops/beam.beam_search``. The beam's route is decided before the
 call, as the JAX package routes it (``ops/beam.py:209-224`` there): a
 shape inside the kernel's scope runs the kernel on CUDA tensors, a shape
-outside it (beam 15 at T 25) the plain version, which the JAX package
-runs in its XLA arm. The deconv family and flows are not ported
-(``models/rnn_vae.py`` raises for them).
+outside it (beam 15 at T 25, or a decoder with skip connections) the
+plain version, which the JAX package runs in its XLA arm. A flow under
+``flow_mode`` gen_prior maps every z before the decode (the reference's
+semantics); a posterior flow is applied by the callers that decode
+latents of Q(z) (``pipeline.decode_top1``, the fused round). The deconv
+family computes all its logits at once and replays them
+(``ops/beam.beam_search_logits``, ``ops/sampling.sample_from_logits``).
 """
 
 import torch
@@ -25,7 +29,8 @@ def generate_sentences(model, params, mbsize, gen=None, z=None, c=None,
     """Returns (sentences, z, c_ix). Hard modes: sentences [mbsize, T+1]
     int32. Beam: [mbsize, n_best, T+1] (scores dropped; call
     ``ops.beam.beam_search`` for them). Draws from ``gen`` in the order
-    z, c, sampling noise."""
+    z, c, sampling noise. The returned z is the one decoded (after a
+    gen_prior flow), as in the JAX package."""
     if z is None:
         z = model.sample_z_prior(gen, mbsize, device=device)
     if c is None:
@@ -33,7 +38,20 @@ def generate_sentences(model, params, mbsize, gen=None, z=None, c=None,
     if not mbsize == z.shape[0] == c.shape[0]:
         raise ValueError(f"sizes dont match {mbsize} {z.shape[0]} "
                          f"{c.shape[0]}")
-    if sample_mode == "beam":
+    if model.flow > 0 and model.flow_mode == "gen_prior":
+        z, _ = model.apply_flow(params, z)
+    if model.G_class == "deconv":
+        logits = model.decode_logits(params, z, c)
+        if sample_mode == "beam":
+            sentences, _ = beam_ops.beam_search_logits(
+                logits, beam_size=beam_size, n_best=n_best,
+                min_length=min_length)
+        else:
+            sentences = sampling.sample_from_logits(
+                logits, sample_mode=sample_mode, temp=temp,
+                prepend_start_idx=prepend_start_idx,
+                prevent_empty=prevent_empty, gen=gen)
+    elif sample_mode == "beam":
         plain = not beam_ops.in_kernel_scope(model, params, z, beam_size)
         sentences, _ = beam_ops.beam_search(
             model, params, z, c, beam_size=beam_size, n_best=n_best,

@@ -2,10 +2,16 @@
 
 A round draws latents from Q(z), scores every classifier head, accepts
 with probability equal to the product of the head probabilities, draws c
-from its prior and beam-decodes (beam 5, top-1 kept) - every candidate
-(capacity=None, the reference semantics) or only the accepted ones,
-compacted to the front of a fixed-capacity batch (capacity=K; the accepted
-output set is identical to the decode-all round's accepted subset).
+from its prior and beam-decodes flow(z) (the identity without a flow;
+the returned z stays the raw draw) with beam 5, top-1 kept: every
+candidate (capacity=None, the reference semantics) or only the accepted
+ones, compacted to the front of a fixed-capacity batch (capacity=K; the
+accepted output set is identical to the decode-all round's accepted
+subset; the deconv family's batch norm reads all K slots, the invalid
+ones too, as the JAX round's does). The GRU family decodes in the beam
+kernel B1 on the card where its scope covers the model, else (skip
+connections) in the plain beam, as the JAX round routes; the deconv
+family replays its logits in ``beam_search_logits``.
 
 The draws are split from the math: ``round_draws`` takes every random
 number of a round from a torch.Generator, and ``_round_body`` is a
@@ -17,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import nn
-from ..ops.beam import beam_search
+from ..ops.beam import beam_search, beam_search_logits, in_kernel_scope
 from . import class_sampler
 from . import gmm as gmm_mod
 
@@ -51,7 +57,8 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
     accepted latents to the front (stable sort on the accept mask) and
     decodes only K slots, returning (..., idx, valid) where idx[j] is the
     candidate in slot j and valid[j] marks a real accepted candidate; z,
-    probs and accum are then the K gathered rows."""
+    probs and accum are then the K gathered rows. plain=True decodes in
+    the beam kernel's plain version (for comparisons)."""
     n = draws.u.shape[0]
     # rejection math stays fp32
     z, probs, accum, accept = class_sampler.rejection_round(
@@ -70,9 +77,21 @@ def _round_body(model, params, draws, kind, q_params, clf_w, clf_b, targets,
     dec_params = params if dt == torch.float32 else nn.cast_tree(params, dt)
     z_d, c_d = z_dec.to(dt), c.to(dt)
     beam_chunk = _BEAM_CHUNK if beam_chunk is None else int(beam_chunk)
-    parts = [beam_search(model, dec_params, z_d[s:s + beam_chunk],
-                         c_d[s:s + beam_chunk], beam_size=beam_size,
-                         n_best=1, plain=plain)[0][:, 0, :]
+    # outside the beam kernel's scope (skip connections) the plain beam,
+    # as the JAX package's round decodes such models in its XLA arm
+    plain = plain or not in_kernel_scope(model, dec_params, z_d, beam_size)
+
+    def decode(z_i, c_i):
+        if model.G_class == "deconv":
+            # all logits from (z, c) at once, replayed by the beam; batch
+            # norm reads the chunk's rows together, as in the JAX round
+            return beam_search_logits(model.decode_logits(dec_params, z_i,
+                                                          c_i),
+                                      beam_size=beam_size, n_best=1)[0]
+        return beam_search(model, dec_params, z_i, c_i, beam_size=beam_size,
+                           n_best=1, plain=plain)[0]
+
+    parts = [decode(z_d[s:s + beam_chunk], c_d[s:s + beam_chunk])[:, 0, :]
              for s in range(0, z_d.shape[0], beam_chunk)]
     tokens = torch.cat(parts) if len(parts) != 1 else parts[0]
     if capacity is None:

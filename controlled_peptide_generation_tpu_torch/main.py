@@ -11,10 +11,15 @@ phase 2 (``train/train_full.py``) from the run's phase-1 checkpoint
 ``model_<s_iter>.npz`` (``--loadpath`` names another), and ``--phase -1``,
 the default, both, phase 2 from phase 1's params with a fresh classifier.
 Phase 2 writes ``full_gen.txt`` (prior samples with their ``label:``
-lines), then ``write_phase2_artifacts``. The encoder and the decoder are
-each a GRU or a transformer (``--model.E_args.E_class``,
-``--model.G_args.G_class``: ``gru`` or ``transformer``). Runs on CUDA
-unless ``--device cpu`` is given.
+lines), then ``write_phase2_artifacts``. The encoder is a GRU or a
+transformer (``--model.E_args.E_class``), the decoder a GRU (with
+``--model.G_args.GRU_args.skip_connections 1`` or without), a
+transformer or a deconv stack (``--model.G_args.G_class``); a flow on z
+(``--model.flow N --model.flow_type planar|radial|alternating
+--model.flow_mode posterior``) trains in phase 1. Phase 2 of a flow or a
+deconv model raises before any step, as the JAX package cannot run it
+(``train_full.check_phase2``). Runs on CUDA unless ``--device cpu`` is
+given.
 """
 
 import logging
@@ -29,7 +34,7 @@ from .generation import generate_sentences
 from .models.rnn_vae import build_model
 from .train import checkpoints
 from .api import generate_interpolated_samples
-from .train.train_full import train_full
+from .train.train_full import check_phase2, train_full
 from .train.train_vae import check_supported, train_vae
 from .utils import runtime
 from .utils.io import write_fasta, write_gen_samples
@@ -124,6 +129,9 @@ def main(argv=None):
 
         model = build_model(cfg.model, n_vocab=dataset.n_vocab,
                             max_seq_len=cfg.max_seq_len)
+        if cfg.phase in (2, -1):
+            # before phase 1 too: its run would end in this refusal
+            check_phase2(model)
         params = model.init_params(runtime.generator(device, cfg.seed),
                                    device)
         log.info("Model: %s", model)

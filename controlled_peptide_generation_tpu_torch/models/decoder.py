@@ -11,6 +11,11 @@ In the teacher-forced pass, word dropout turns inputs into UNK before the
 embedding, the whole sequence runs through ``gru_scan`` from h0 = zc, and
 the head applies output dropout. The dropout masks come from a
 ``torch.Generator`` or are passed in.
+
+With skip connections the head reads ``skip_x(h) + skip_z(zc)`` (two
+[H, H] linear maps, their biases zero at init but trained, as in the JAX
+package), the dropout applied after the sum; the teacher-forced pass
+broadcasts zc over T.
 """
 
 import torch
@@ -20,19 +25,30 @@ from ..ops import nn
 from ..ops.gru import init_gru_params, gru_cell_pregated, gru_scan
 
 
-def init(gen, emb_dim, output_dim, h_dim, device="cpu"):
+def init(gen, emb_dim, output_dim, h_dim, device="cpu",
+         skip_connections=False):
     """emb_dim is the FULL per-step input width (word emb + z + c)."""
-    return {
+    params = {
         "gru": init_gru_params(gen, emb_dim, h_dim, device),
         "out": nn.init_linear(gen, h_dim, output_dim, device),
     }
+    if skip_connections:
+        for name in ("skip_x", "skip_z"):
+            params[name] = nn.init_linear(gen, h_dim, h_dim, device)
+            params[name]["b"] = torch.zeros_like(params[name]["b"])
+    return params
 
 
 def init_hidden(z, c):
     return torch.cat([z, c], dim=1)
 
 
-def _head(params, rnn_out, p_out_dropout, train, gen=None, keep=None):
+def _head(params, rnn_out, zc, p_out_dropout, train, gen=None, keep=None):
+    """The logits of the GRU's outputs; with skip connections (the tree
+    holds ``skip_x``) of skip_x(h) + skip_z(zc), zc broadcast like h."""
+    if "skip_x" in params:
+        rnn_out = (nn.linear(params["skip_x"], rnn_out)
+                   + nn.linear(params["skip_z"], zc))
     rnn_out = nn.dropout(rnn_out, p_out_dropout, train, gen, keep)
     return nn.linear(params["out"], rnn_out)
 
@@ -50,7 +66,7 @@ def apply_teacher_forced(params, emb_params, tokens, z, c, train,
     zc_t = zc[:, None, :].expand(zc.shape[0], tokens.shape[1], zc.shape[1])
     inputs = torch.cat([emb, zc_t], dim=2)
     rnn_out, _ = gru_scan(params["gru"], inputs, zc)
-    return _head(params, rnn_out, p_out_dropout, train, gen, out_keep)
+    return _head(params, rnn_out, zc_t, p_out_dropout, train, gen, out_keep)
 
 
 def step_tables(params, emb_params, z, c):
@@ -80,4 +96,4 @@ def apply_step(params, emb_params, token_hard, token_soft, z, c, h):
     else:
         gi = nn.table_lookup(tok_table, token_hard) + zc_gi
     h_new = gru_cell_pregated(params["gru"], gi, h)
-    return nn.linear(params["out"], h_new), h_new
+    return _head(params, h_new, init_hidden(z, c), 0.0, False), h_new

@@ -1,16 +1,23 @@
-"""The composite sequence autoencoder: the GRU and transformer families.
+"""The composite sequence autoencoder: the GRU, transformer and deconv
+families, with the model's options.
 
 The port carries the shared word embedding, the biGRU encoder, the GRU
-decoder (teacher-forced pass and free-running step), the transformer
-encoder and decoder (``models/transformer.py``), in any pairing of the
-two families, the text-CNN classifier (``models/classifier.py``), the z
-and c priors and the (identity) flow: what phase-1 and phase-2 training
-and the CLaSS round run. Parameters are nested dicts (the transformer's
-blocks a list) of tensors named as in the JAX package, so checkpoints
-cross over unchanged. The classifier's parameters ``clf`` are made by
-``init_classifier`` when phase 2 starts: phase 1 neither trains nor
-writes them. The deconv family, skip connections and flows are not ported
-yet (ROADMAP.md) and raise NotImplementedError.
+decoder (teacher-forced pass and free-running step, with or without skip
+connections), the transformer encoder and decoder
+(``models/transformer.py``), in any pairing of the two families, the
+deconv decoder (``models/deconv.py``: all logits at once from (z, c)),
+the text-CNN classifier (``models/classifier.py``), the z and c priors and
+the planar, radial and alternating flows on z (``models/flow.py``).
+Parameters are nested dicts (the transformer's blocks a list) of tensors
+named as in the JAX package, so checkpoints cross over unchanged. The
+classifier's parameters ``clf`` are made by ``init_classifier`` when
+phase 2 starts: phase 1 neither trains nor writes them.
+
+A flow runs in one of two modes (``flow_mode``): ``gen_prior`` applies it
+to any z that is generated from, and cannot be trained (the JAX package's
+``forward`` raises in training, as here); ``posterior`` trains it on the
+flow-posterior objective (``train/train_vae.make_loss_fn``) and decodes
+flow(z) of the latents that sampling draws from Q(z).
 
 The encoder and the classifier take [B, T] tokens or [B, T, V] soft rows
 (phase 2's soft samples), embedded by ``nn.soft_embed``.
@@ -27,8 +34,10 @@ import torch
 from ..data.vocab import PAD_IDX
 from ..ops import nn
 from . import classifier as clf
+from . import deconv as deconv_mod
 from . import decoder as dec
 from . import encoder as enc
+from . import flow as flow_mod
 from . import transformer as tfm
 
 _TFM_KEYS = ("d_model", "n_layers", "d_ff", "n_heads", "p_dropout")
@@ -42,25 +51,19 @@ class RNNVAE:
     c_dim: int = 2
     emb_dim: int = 150
     flow: int = 0
+    flow_type: str = ""
+    flow_mode: str = "gen_prior"   # gen_prior | posterior
     E_args: dict = field(default_factory=dict)
     G_args: dict = field(default_factory=dict)
     C_args: dict = field(default_factory=dict)
 
     def __post_init__(self):
         if self.E_class not in ("gru", "transformer"):
-            raise NotImplementedError(
-                f"the {self.E_class} encoder family is not ported yet "
-                f"(ROADMAP.md A7)")
-        if self.G_class not in ("gru", "transformer"):
-            raise NotImplementedError(
-                f"the {self.G_class} decoder family is not ported yet "
-                f"(ROADMAP.md A7)")
-        if self.gru_args.get("skip_connections", False):
-            raise NotImplementedError(
-                "GRU skip connections are not ported yet (ROADMAP.md A7)")
-        if self.flow > 0:
-            raise NotImplementedError(
-                "flows are not ported yet (ROADMAP.md A7)")
+            raise ValueError(f"unknown encoder family {self.E_class!r}")
+        if self.G_class not in ("gru", "transformer", "deconv"):
+            raise ValueError(f"unknown decoder family {self.G_class!r}")
+        if self.flow_mode not in ("gen_prior", "posterior"):
+            raise ValueError(f"unknown flow_mode {self.flow_mode!r}")
 
     @property
     def h_dec(self):
@@ -86,11 +89,22 @@ class RNNVAE:
     def dec_tfm_args(self):
         return dict(self.G_args.get("T_args", {}))
 
+    @property
+    def deconv_args(self):
+        args = dict(self.G_args.get("deconv_args", {}))
+        args["max_seq_len"] = self.max_seq_len
+        return args
+
+    @property
+    def skip_connections(self):
+        return (self.G_class == "gru"
+                and bool(self.gru_args.get("skip_connections", False)))
+
     def init_params(self, gen, device="cpu"):
-        """Seeded embedding, encoder and decoder parameters, the phase-1
-        tree (a checkpoint written from them loads in the JAX package,
-        whose non-strict loader keeps fresh values for the missing
-        classifier)."""
+        """Seeded embedding, encoder, decoder (and flow) parameters, the
+        phase-1 tree (a checkpoint written from them loads in the JAX
+        package, whose non-strict loader keeps fresh values for the
+        missing classifier)."""
         emb_p = nn.init_embedding(gen, self.n_vocab, self.emb_dim, device)
         if self.E_class == "transformer":
             enc_p = tfm.init_encoder(
@@ -110,11 +124,21 @@ class RNNVAE:
                 max_seq_len=self.max_seq_len, device=device,
                 **{k: v for k, v in self.dec_tfm_args.items()
                    if k in _TFM_KEYS})
+        elif self.G_class == "deconv":
+            dec_p = deconv_mod.init(gen, h_dim=self.h_dec,
+                                    output_dim=self.n_vocab,
+                                    emb_dim=self.emb_dim, device=device,
+                                    **self.deconv_args)
         else:
             dec_p = dec.init(gen, emb_dim=self.emb_dim + self.h_dec,
                              output_dim=self.n_vocab, h_dim=self.h_dec,
-                             device=device)
-        return {"emb": emb_p, "enc": enc_p, "dec": dec_p}
+                             device=device,
+                             skip_connections=self.skip_connections)
+        params = {"emb": emb_p, "enc": enc_p, "dec": dec_p}
+        if self.flow > 0:
+            params["flow"] = flow_mod.init(gen, self.flow_type, self.flow,
+                                           self.z_dim, device)
+        return params
 
     def init_classifier(self, gen, device="cpu"):
         """Seeded classifier parameters, the tree's ``clf`` (phase 2)."""
@@ -167,7 +191,10 @@ class RNNVAE:
 
     def apply_flow(self, params, z):
         """z -> (z_K, sum log|det J|); the identity for flow == 0."""
-        return z, torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        if self.flow == 0:
+            return z, torch.zeros(z.shape[0], dtype=z.dtype,
+                                  device=z.device)
+        return flow_mod.apply(params["flow"], self.flow_type, z)
 
     # ---- decoder ----------------------------------------------------------
 
@@ -176,7 +203,10 @@ class RNNVAE:
         """Teacher-forced logits [B, T, V]. ``word_drop`` [B, T] is the
         word-dropout mask; ``out_keep`` [B, T, H] the GRU head's dropout
         mask; ``keeps`` the transformer blocks' masks, one [B, T + 1,
-        d_model] per block. Masks not given are drawn from ``gen``."""
+        d_model] per block. Masks not given are drawn from ``gen``. The
+        deconv family ignores the tokens and has no dropout."""
+        if self.G_class == "deconv":
+            return self.decode_logits(params, z, c)
         if self.G_class == "transformer":
             t_args = self.dec_tfm_args
             return tfm.apply_teacher_forced(
@@ -193,11 +223,21 @@ class RNNVAE:
             p_out_dropout=g_args.get("p_out_dropout", 0.3), gen=gen,
             word_drop=word_drop, out_keep=out_keep)
 
+    def decode_logits(self, params, z, c):
+        """The deconv family's logits [B, T, V] of every step at once."""
+        if self.G_class != "deconv":
+            raise ValueError("decode_logits is the deconv family's")
+        return deconv_mod.apply(params["dec"], z, c, emb_dim=self.emb_dim,
+                                **self.deconv_args)
+
     def decode_step(self, params, token_hard, token_soft, z, c, h,
                     write_pos=None):
         """One free-running step -> (logits [B, V], h'). ``write_pos``, the
         transformer cache's position as an int, spares a step loop that
-        knows it a device sync a block."""
+        knows it a device sync a block. The deconv family has no step: its
+        logits replay (``decode_logits``)."""
+        if self.G_class == "deconv":
+            raise ValueError(DECONV_NO_STEP)
         if self.G_class == "transformer":
             t_args = self.dec_tfm_args
             return tfm.apply_step(params["dec"], params["emb"], token_hard,
@@ -240,6 +280,8 @@ class RNNVAE:
         drawn from ``gen``. ``train`` switches every dropout, the
         encoder's included. q_c="classifier" takes c = softmax of the
         classifier's logits on the sequences, without dropout."""
+        if self.flow > 0 and train:
+            raise ValueError(FLOW_IN_FORWARD)
         draws = draws or {}
         mu, logvar = self.encode(params, sequences, train=train, gen=gen,
                                  keeps=draws.get("enc_keeps"))
@@ -267,6 +309,17 @@ class RNNVAE:
         return (mu, logvar), (z, c), dec_logits
 
 
+FLOW_IN_FORWARD = (
+    "flow prior during training needs the flow-KL loss term; use "
+    "apply_flow() explicitly (the JAX package's forward raises here too, "
+    "models/rnn_vae.py:272-276 there)")
+DECONV_NO_STEP = (
+    "the deconv decoder has no free-running step: its logits come at once "
+    "(decode_logits) and replay through sample_from_logits or "
+    "beam_search_logits; the JAX package's step sampler "
+    "(ops/sampling.py:sample_sentences) has no deconv arm either")
+
+
 def _embed(params, inputs):
     """Tokens [B, T] or soft rows [B, T, V] -> embeddings [B, T, E]."""
     if inputs.dim() == 2:
@@ -276,8 +329,6 @@ def _embed(params, inputs):
 
 def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:
     """Construct from the cfg.model Bunch (config.py)."""
-    if cfg_model.flow > 0:
-        raise NotImplementedError("flows are not ported yet (ROADMAP.md A7)")
     return RNNVAE(
         n_vocab=n_vocab,
         max_seq_len=max_seq_len,
@@ -285,6 +336,8 @@ def build_model(cfg_model, n_vocab, max_seq_len) -> RNNVAE:
         c_dim=cfg_model.c_dim,
         emb_dim=cfg_model.emb_dim,
         flow=cfg_model.flow,
+        flow_type=cfg_model.flow_type,
+        flow_mode=cfg_model.get("flow_mode", "gen_prior"),
         E_args=dict(cfg_model.E_args),
         G_args={k: (dict(v) if isinstance(v, dict) else v)
                 for k, v in cfg_model.G_args.items()},

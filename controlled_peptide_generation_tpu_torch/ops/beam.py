@@ -1,4 +1,5 @@
-"""Batched beam search over the GRU and transformer decoders.
+"""Batched beam search over the GRU and transformer decoders, and over
+the deconv decoder's precomputed logits (``beam_search_logits``).
 
 All (batch, beam) lanes advance together: one whole-scan kernel per
 family runs the steps (ops/beam_kernel.py for the GRU, ops/
@@ -114,6 +115,33 @@ def beam_search(model, params, z, c, beam_size=5, n_best=3, min_length=1,
 beam_search.plain_runs = 0
 
 
+def beam_search_logits(all_logits, beam_size=5, n_best=3, min_length=1):
+    """The beam over precomputed logits [B, T, V] (the deconv family's
+    replay, the JAX package's ``beam_search_logits``): every beam of a
+    sentence sees the same log-softmax at step t, there is no decoder
+    state, and the bookkeeping is the GRU beam's plain version's
+    (``beam_kernel.scan_step``). Returns (hyps [B, n_best, T+1], scores
+    [B, n_best]). It is no kernel's plain version: its calls count in
+    ``beam_search_logits.runs``, not in ``beam_search.plain_runs``."""
+    if beam_size < n_best:
+        raise ValueError("can't return more hypotheses than the beam holds")
+    beam_search_logits.runs += 1
+    B, T, V = all_logits.shape
+    K = beam_size
+    state = beam_kernel.scan_init(B, K, all_logits.device)
+    tapes = []
+    for t in range(T):
+        logp = torch.log_softmax(all_logits[:, t].float(), dim=-1)
+        state, tape, _ = beam_kernel.scan_step(
+            logp[:, None, :].expand(B, K, V), state, K=K, V=V,
+            min_length=min_length, n_best=n_best)
+        tapes.append(tape)
+    return hyps_from_tapes(beam_kernel.scan_tapes(state, tapes), n_best)
+
+
+beam_search_logits.runs = 0
+
+
 def in_kernel_scope(model, params, z, beam_size):
     """True where the family's beam kernel covers this model, beam width
     and type (``beam_kernel.applicable`` / ``tfm_beam_kernel.applicable``,
@@ -135,12 +163,14 @@ def _check_scope(model, params, z, K):
 
 
 def _scan_gru(model, params, z, c, K, T, n_best, min_length, plain):
-    if plain:
+    if not plain:
+        _check_scope(model, params, z, K)
+    inputs, dims = decode_inputs(model, params, z, c)
+    if plain or "skip" in dims:
+        # a skip model reaches here unasked only on CPU tensors
         scan = beam_kernel.beam_scan_gru_reference
     else:
         scan = beam_kernel.beam_scan_gru
-        _check_scope(model, params, z, K)
-    inputs, dims = decode_inputs(model, params, z, c)
     return scan(*inputs, T=T, K=K, V=model.n_vocab, min_length=min_length,
                 n_best=n_best, **dims)
 
@@ -189,16 +219,20 @@ def decode_inputs(model, params, z, c):
     to the weight tree's type, as the round casts them (GRU: the step
     tables, the recurrent and head weights and the initial hidden state,
     the inputs of ``beam_kernel.beam_scan_gru``; transformer:
-    ``tfm_scan_inputs``), and their dims ({"H"}, or {"S", "H", "F"})."""
+    ``tfm_scan_inputs``), and their dims ({"H"}, with skip connections
+    also "skip", the skip maps of ``beam_scan_gru_reference``; or {"S",
+    "H", "F"})."""
     wdt = params["dec"]["out"]["w"].dtype
     z, c = z.to(wdt), c.to(wdt)
     if model.G_class == "transformer":
         return tfm_scan_inputs(model, params, z, c)
     tok, zc_gi = decoder.step_tables(params["dec"], params["emb"], z, c)
     d = params["dec"]
+    dims = {"H": model.h_dec}
+    if model.skip_connections:
+        dims["skip"] = (d["skip_x"], d["skip_z"])
     return (tok, zc_gi, d["gru"]["wh"], d["gru"]["bh"], d["out"]["w"],
-            d["out"]["b"], model.init_decoder_hidden(params, z, c)), {
-                "H": model.h_dec}
+            d["out"]["b"], model.init_decoder_hidden(params, z, c)), dims
 
 
 def hyps_from_tapes(tapes, n_best):

@@ -330,23 +330,33 @@ def gru_cell_bf16_points(gi, h, wh, bh):
 
 
 def beam_scan_gru_reference(tok_table, zc_gi, wh, bh, w_out, b_out, zc0, *,
-                            T, K, V, H, min_length, n_best):
+                            T, K, V, H, min_length, n_best, skip=None):
     """Plain torch version of beam_scan_gru: the same signature, outputs
     and per-step arithmetic, in float32 or bfloat16, on any device. In
     bf16 it rounds where the JAX package's kernel does in interpret mode
     (``gru_cell_bf16_points``; the head accumulated in f32 with its bias
     and rounded once; the log-softmax in f32), which its CPU tests hold
-    token-equal."""
+    token-equal.
+
+    ``skip`` (the decoder's ``skip_x`` and ``skip_z`` linear maps) adds the
+    skip connections' head, outside the kernel's scope as in the JAX
+    package: the head reads skip_x(h) + skip_z(zc0), summed in that order
+    before ``w_out`` (folding skip_x into w_out would round otherwise and
+    move near-ties), as the JAX package's XLA beam computes it."""
     B = zc_gi.shape[0]
     dt = tok_table.dtype
     tok_table = nn.canonical_zeros(tok_table)
     h = zc0.to(dt)[:, None, :].expand(B, K, H)
+    if skip is not None:
+        zc_skip = nn.linear(skip[1], zc0.to(dt))[:, None, :]  # [B, 1, H]
     state = scan_init(B, K, zc_gi.device)
     tapes = []
     for _ in range(T):
         gi = tok_table[state[1]] + zc_gi[:, None, :]          # [B, K, 3H]
         h_new = gru_cell_bf16_points(gi, h, wh, bh)           # [B, K, H]
-        logits = (h_new.float() @ w_out.float() + b_out.float()).to(dt)
+        h_out = (h_new if skip is None
+                 else nn.linear(skip[0], h_new) + zc_skip)
+        logits = (h_out.float() @ w_out.float() + b_out.float()).to(dt)
         logp = torch.log_softmax(logits.float(), dim=-1)
         state, tape, prev_k = scan_step(logp, state, K=K, V=V,
                                         min_length=min_length, n_best=n_best)

@@ -10,7 +10,11 @@ one product hoisted out of the recurrence, and the recurrence itself is
 ``gru_kernel.gru_seq`` when autograd records it (B2) and
 ``gru_fwd_kernel.gru_fwd`` otherwise (B4): the CUDA kernels on CUDA
 tensors, their plain versions on CPU tensors or inside
-``cuda_build.plain()``.
+``cuda_build.plain()``. A hidden width beyond the kernels' scope (H >
+``gru_kernel.MAX_H``, the deconv decoder's ``useRNN`` GRU at H = emb_dim)
+takes the plain recurrence on any device, decided before any launch, as
+the JAX package sends such widths to its XLA arm (its kernels'
+``applicable``); ``gru_scan.plain_runs`` counts those scans.
 """
 
 import torch
@@ -51,20 +55,28 @@ def gru_scan(params, xs, h0, reverse=False):
 
     A scan that autograd records (grad enabled and an input requiring
     grad) runs B2's differentiable recurrence; any other scan runs the
-    forward-only kernel B4, which reads the tape in place."""
+    forward-only kernel B4, which reads the tape in place; beyond the
+    kernels' H scope either runs its plain version."""
     from . import cuda_build, gru_fwd_kernel, gru_kernel
     gi_tm = (xs @ params["wi"] + params["bi"]).transpose(0, 1)  # [T, B, 3H]
     wh, bh = params["wh"], params["bh"]
+    outside = wh.shape[0] > gru_kernel.MAX_H
+    gru_scan.plain_runs += outside
     if not (torch.is_grad_enabled() and any(
             a.requires_grad for a in (gi_tm, wh, bh, h0))):
-        fwd = (gru_fwd_kernel.gru_fwd_reference if cuda_build.in_plain()
+        fwd = (gru_fwd_kernel.gru_fwd_reference
+               if outside or cuda_build.in_plain()
                else gru_fwd_kernel.gru_fwd)
         hs_tm, h_last = fwd(wh, bh, gi_tm, h0, reverse)
         return hs_tm.transpose(0, 1), h_last
     if reverse:
         gi_tm = gi_tm.flip(0)
-    hs_tm = gru_kernel.gru_seq(wh, bh, gi_tm.contiguous(), h0)
+    seq = gru_kernel.gru_seq_reference if outside else gru_kernel.gru_seq
+    hs_tm = seq(wh, bh, gi_tm.contiguous(), h0)
     h_last = hs_tm[-1]
     if reverse:
         hs_tm = hs_tm.flip(0)
     return hs_tm.transpose(0, 1), h_last
+
+
+gru_scan.plain_runs = 0

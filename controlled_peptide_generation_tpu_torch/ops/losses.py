@@ -1,5 +1,6 @@
-"""Loss library: reconstruction CE, Gaussian KLs, WAE-MMD (full and
-random-feature), as in the JAX package's ``ops/losses.py``, quirks kept:
+"""Loss library: reconstruction CE, Gaussian KLs, the flow-posterior KL
+(``kl_flow_mc``), WAE-MMD (full and random-feature), as in the JAX
+package's ``ops/losses.py``, quirks kept:
 
 * ``mmd_full_kernel`` subtracts the diagonal vector broadcast over rows
   from H, not a zeroed diagonal (the logged ``L_wae_mmd`` depends on it);
@@ -90,3 +91,14 @@ def wae_mmd_gaussianprior_full(z, sigma, kernel="gaussian", gen=None,
 
 def wae_mmd_gaussianprior_rf(z, rf_w, rf_b, sigma, gen=None, z_prior=None):
     return mmd_rf(z, _prior_like(z, gen, z_prior), rf_w, rf_b, sigma)
+
+
+def kl_flow_mc(mu, logvar, z0, z_k, logdet):
+    """The flow-posterior KL term, one Monte-Carlo sample a row (Rezende &
+    Mohamed 2015): mean over the batch of log q0(z0 | x) - sum log|det J|
+    - log p(z_K), p = N(0, I)."""
+    log2pi = math.log(2.0 * math.pi)
+    eps2 = (z0 - mu) ** 2 / logvar.exp()
+    log_q0 = -0.5 * (log2pi + logvar + eps2).sum(1)
+    log_p = -0.5 * (log2pi + z_k ** 2).sum(1)
+    return (log_q0 - logdet - log_p).mean()

@@ -1,5 +1,6 @@
 """Free-running generation: a step loop of the decoder in every sampling
-mode.
+mode (``sample_sentences``), or the same loop over precomputed logits,
+the deconv family's replay (``sample_from_logits``).
 
 Each step: one decoder step, token selection, then the finished
 bookkeeping: rows that have emitted EOS emit PAD from the next step on.
@@ -20,6 +21,8 @@ The categorical draw is the argmax of logits / temp plus Gumbel noise, as
 type the decoder runs in. The step loop passes the transformer's cache
 position as an int (no device sync a step).
 """
+
+import contextlib
 
 import torch
 
@@ -44,6 +47,19 @@ def gumbel(shape, gen=None, device="cpu"):
     return -torch.log(-torch.log(u))
 
 
+def _check_mode(sample_mode, prevent_empty):
+    if sample_mode not in HARD_MODES + SOFT_MODES:
+        raise ValueError(f"unknown sample_mode {sample_mode!r}")
+    if sample_mode in SOFT_MODES and prevent_empty:
+        raise ValueError("cant prevent_empty when soft sampling")
+
+
+def _grad_mode(sample_mode):
+    """The soft modes run under the caller's autograd; hard modes without."""
+    return (contextlib.nullcontext() if sample_mode in SOFT_MODES
+            else torch.no_grad())
+
+
 def sample_sentences(model, params, z, c, sample_mode="categorical",
                      temp=1.0, prepend_start_idx=True, prevent_empty=False,
                      gen=None, noise=None):
@@ -51,22 +67,43 @@ def sample_sentences(model, params, z, c, sample_mode="categorical",
     steps. Hard modes: [B, T(+1)] token ids (int32). Soft modes: (tokens,
     soft rows [B, T(+1), V]). With prepend_start_idx column 0 is START
     (its soft row the START one-hot). ``noise`` [T, B, V] is the Gumbel
-    noise of the categorical modes (drawn from ``gen`` when not given)."""
-    if sample_mode not in HARD_MODES + SOFT_MODES:
-        raise ValueError(f"unknown sample_mode {sample_mode!r}")
-    if sample_mode in SOFT_MODES:
-        if prevent_empty:
-            raise ValueError("cant prevent_empty when soft sampling")
-        return _sample(model, params, z, c, sample_mode, temp,
-                       prepend_start_idx, False, gen, noise)
-    with torch.no_grad():
-        return _sample(model, params, z, c, sample_mode, temp,
+    noise of the categorical modes (drawn from ``gen`` when not given).
+    The deconv family has no step (``models/rnn_vae.py`` raises): its
+    logits replay through ``sample_from_logits``."""
+    _check_mode(sample_mode, prevent_empty)
+    h = [model.init_decoder_hidden(params, z, c)]
+
+    def step_logits(t, tok, soft_row):
+        # the transformer's cache holds the latent prefix at position 0
+        logits, h[0] = model.decode_step(params, tok, soft_row, z, c, h[0],
+                                         write_pos=t + 1)
+        return logits
+
+    with _grad_mode(sample_mode):
+        return _sample(step_logits, z.shape[0], model.max_seq_len,
+                       model.n_vocab, z.device, sample_mode, temp,
                        prepend_start_idx, prevent_empty, gen, noise)
 
 
-def _sample(model, params, z, c, sample_mode, temp, prepend_start_idx,
+def sample_from_logits(all_logits, sample_mode="categorical", temp=1.0,
+                       prepend_start_idx=True, prevent_empty=False,
+                       gen=None, noise=None):
+    """The sampler over precomputed logits [B, T, V] (the deconv family's
+    replay: step t reads row t whatever was sampled before it), with the
+    modes, the EOS/PAD bookkeeping and the outputs of
+    ``sample_sentences``; ``noise`` [T, B, V] as there."""
+    _check_mode(sample_mode, prevent_empty)
+    B, T, V = all_logits.shape
+    with _grad_mode(sample_mode):
+        return _sample(lambda t, tok, soft_row: all_logits[:, t], B, T, V,
+                       all_logits.device, sample_mode, temp,
+                       prepend_start_idx, prevent_empty, gen, noise)
+
+
+def _sample(step_logits, B, T, V, dev, sample_mode, temp, prepend_start_idx,
             prevent_empty, gen, noise):
-    B, T, V, dev = z.shape[0], model.max_seq_len, model.n_vocab, z.device
+    """The step loop: ``step_logits(t, token, soft row)`` gives step t's
+    logits [B, V] from the tokens (and soft rows) of step t - 1."""
     soft = sample_mode in SOFT_MODES
     categorical = sample_mode in ("categorical", "categorical_softmax")
     if categorical and noise is None:
@@ -74,14 +111,10 @@ def _sample(model, params, z, c, sample_mode, temp, prepend_start_idx,
     start = torch.full((B,), START_IDX, dtype=torch.long, device=dev)
     start_row = torch.nn.functional.one_hot(start, V).float()
     tok, soft_row = start, (start_row if soft else None)
-    h = model.init_decoder_hidden(params, z, c)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     toks, softs = [], []
     for t in range(T):
-        # the transformer's cache holds the latent prefix at position 0
-        logits, h = model.decode_step(params, tok, soft_row, z, c, h,
-                                      write_pos=t + 1)
-        logits = logits.float()
+        logits = step_logits(t, tok, soft_row).float()
         if prevent_empty and t == 0:
             logits = _mask_specials_first_step(logits)
         new_tok = tok

@@ -99,9 +99,8 @@ def get_encodings_from_dataloader(cfg, query, split, model, params,
     ``split`` (e.g. "train,val"), encoded straight from the dataloader in
     batches of cfg.vae.batch_size, one pass in its shuffled order. The JAX
     package encodes through ``forward(q_c="classifier", sample_z="max",
-    train=False)``; mu and logvar do not depend on c and the CNN classifier
-    is not ported, so this calls ``model.encode(train=False)``, the same
-    numbers. Without autograd the GRU encoder's scans run the forward-only
+    train=False)``; mu and logvar do not depend on c, so this calls
+    ``model.encode(train=False)``, the same numbers. Without autograd the GRU encoder's scans run the forward-only
     kernel B4 on the card."""
     if query != {"amp": 1}:
         raise ValueError(f"the dataloader encodings select amp=1 only, as "
@@ -203,9 +202,18 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
     (tokens [n, T+1] int64, scores [n] f32) as numpy arrays. On CUDA
     tensors every chunk launches the family's beam kernel (B1 or B3) where
     its scope covers the model, as ``generation.generate_sentences``
-    routes; ``plain=True`` runs the plain version (for comparisons)."""
+    routes; ``plain=True`` runs the plain version (for comparisons).
+
+    A posterior flow maps the latents before the chunking (the JAX
+    package's ``decode_from_z``: Q lives in the encoder's z0 space), a
+    gen_prior flow each padded chunk (its ``generate_sentences``). The
+    deconv family decodes a chunk's logits at once, pad rows included (its
+    batch norm reads them, as in the JAX package), and replays them in
+    ``beam_search_logits``."""
     dev = next(iter(checkpoints.flatten(params).values())).device
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    if model.flow > 0 and model.flow_mode == "posterior":
+        z = model.apply_flow(params, z)[0]
     n = z.shape[0]
     toks, scores = [], []
     for j, s in enumerate(range(0, n, chunk)):
@@ -215,11 +223,18 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
             zc = torch.cat([zc, zc.new_zeros((pad, z.shape[1]))])
         c = (model.sample_c_prior(gen, chunk, device=dev) if cs is None
              else torch.as_tensor(cs[j], dtype=torch.float32, device=dev))
-        route_plain = plain or not beam_ops.in_kernel_scope(
-            model, params, zc, beam_size)
-        hyps, sc = beam_ops.beam_search(model, params, zc, c,
-                                        beam_size=beam_size, n_best=1,
-                                        plain=route_plain)
+        if model.flow > 0 and model.flow_mode == "gen_prior":
+            zc = model.apply_flow(params, zc)[0]
+        if model.G_class == "deconv":
+            hyps, sc = beam_ops.beam_search_logits(
+                model.decode_logits(params, zc, c), beam_size=beam_size,
+                n_best=1)
+        else:
+            route_plain = plain or not beam_ops.in_kernel_scope(
+                model, params, zc, beam_size)
+            hyps, sc = beam_ops.beam_search(model, params, zc, c,
+                                            beam_size=beam_size, n_best=1,
+                                            plain=route_plain)
         toks.append(hyps[:chunk - pad, 0].cpu().numpy())
         scores.append(sc[:chunk - pad, 0].cpu().numpy())
     return np.concatenate(toks), np.concatenate(scores)
@@ -227,9 +242,7 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
 
 def decode_from_z(z, model, params, vocab, gen=None, chunk=DECODE_CHUNK,
                   beam_size=DECODE_BEAM_SIZE, cs=None):
-    """``decode_top1``'s tokens as peptide strings (specials stripped).
-    A posterior flow would map z first; flows are not ported (ROADMAP.md
-    A7) and build_model raises for them."""
+    """``decode_top1``'s tokens as peptide strings (specials stripped)."""
     LOG.info("Decoder decoding: beam search")
     tokens, _ = decode_top1(z, model, params, gen, chunk, beam_size, cs)
     return vocab.to_sentences_batch(tokens, print_special_tokens=False)
@@ -347,16 +360,24 @@ class BeamCanaryError(RuntimeError):
     """A round's unique-sequence ratio collapsed in the CUDA beam kernel."""
 
 
-def beam_canary_check(cfg, device, n_rows, n_unique, context=""):
+def beam_canary_check(cfg, device, n_rows, n_unique, context="",
+                      model=None, params=None):
     """CUDA beam kernel canary: a tape-corruption fault collapses
     within-round uniqueness. Below hw.beam_canary_floor on a CUDA device
     it raises (the JAX package flips to its XLA arm instead; here a quiet
     switch would hide the kernel). On the CPU the plain version decodes
-    and low uniqueness is the model's own. Returns False when the check
-    passes or does not apply."""
+    and low uniqueness is the model's own, as it is where ``model`` (with
+    its ``params``) decodes outside the beam kernels (skip connections, the
+    deconv family: the JAX package's canary checks only a live kernel
+    route). Returns False when the check passes or does not apply."""
     floor = float(cfg.hw.get("beam_canary_floor", 0.02))
     min_rows = int(cfg.hw.get("beam_canary_min_rows", 256))
     if floor <= 0 or n_rows < min_rows or torch.device(device).type != "cuda":
+        return False
+    if model is not None and not beam_ops.in_kernel_scope(
+            model, params, torch.empty(0, dtype=getattr(
+                torch, cfg.hw.get("gen_dtype", "float32"))),
+            DECODE_BEAM_SIZE):
         return False
     if n_unique / max(n_rows, 1) >= floor:
         return False
@@ -445,7 +466,8 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
 
         keys = list(canonical_keys(tokens))
         beam_canary_check(cfg, device, len(keys), len(set(keys)),
-                          context=f"campaign round {rounds_consumed}")
+                          context=f"campaign round {rounds_consumed}",
+                          model=model, params=params)
         keep = np.empty(tokens.shape[0], bool)
         for i, rb in enumerate(keys):
             keep[i] = rb not in seen
@@ -509,7 +531,8 @@ def _serial_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
                                                  device))
         n_accept_z_seen += int(new["accept_z"].sum())
         beam_canary_check(cfg, device, len(new), new["peptide"].nunique(),
-                          context=f"serial round {round_ix}")
+                          context=f"serial round {round_ix}", model=model,
+                          params=params)
         new = new.loc[new.peptide.drop_duplicates().index]
         new = new[~new["peptide"].isin(samples["peptide"])]
         samples = pd.concat([samples, new], ignore_index=True, sort=False)

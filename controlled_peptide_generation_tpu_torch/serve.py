@@ -47,6 +47,7 @@ import torch
 from . import config as C
 from . import pipeline
 from .evals.peptide_evals import modlamp_from_tokens
+from .ops import beam as beam_ops
 from .utils import runtime
 
 LOG = logging.getLogger("GenerationServer")
@@ -321,7 +322,8 @@ class GenerationServer:
         row_keys = list(pipeline.canonical_keys(tokens_np))
         pipeline.beam_canary_check(
             self.cfg, self.device, len(row_keys), len(set(row_keys)),
-            context=f"serve round {self._round_ix}")
+            context=f"serve round {self._round_ix}", model=self.model,
+            params=self.params)
         keep = np.empty(tokens_np.shape[0], bool)
         for i, rb in enumerate(row_keys):
             keep[i] = rb not in self._seen
@@ -446,8 +448,9 @@ def make_http_server(server, host="127.0.0.1", port=8800, max_n=100_000,
 def build_server(cfg, args, device="cuda"):
     """Load a trained run dir (model, vocab, the states dump), fit Q and
     the two attribute heads as ``pipeline.run_from_states`` does, build
-    the family's beam kernel on the card (nvcc runs here, not inside the
-    first request; nothing is launched), and return an unstarted
+    the family's beam kernel on the card where the model runs it (nvcc
+    runs here, not inside the first request; nothing is launched), and
+    return an unstarted
     GenerationServer. Runs on CUDA unless ``device`` is the CPU."""
     from .api import get_model_and_vocab_path, load_trained_model, load_vocab
     device = runtime.setup(device)
@@ -469,7 +472,10 @@ def build_server(cfg, args, device="cuda"):
     Q.init_attr_classifiers(
         {attr: pipeline.build_clfZ(cfg, attr, states, attributes, device)
          for attr in ("amp", "tox")}, clf_targets={"amp": 1, "tox": 0})
-    if device.type == "cuda":
+    # a model outside the kernels' scope (skip connections, the deconv
+    # family) never launches one: build none for it
+    if device.type == "cuda" and beam_ops.in_kernel_scope(
+            model, params, torch.empty(0), pipeline.DECODE_BEAM_SIZE):
         if model.G_class == "transformer":
             from .ops import tfm_beam_kernel as kernel
         else:

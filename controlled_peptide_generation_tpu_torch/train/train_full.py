@@ -232,6 +232,28 @@ class FullStep:
         return metrics
 
 
+def check_phase2(model):
+    """Raise a ValueError for the models whose phase 2 the JAX package
+    cannot run either, before any step: a flow (its phase-2 ``vae_loss``
+    calls ``model.forward(train=True)``, which raises for a flow,
+    ``models/rnn_vae.py:272-276`` there) and the deconv family (its soft
+    sampler, ``ops/sampling.py:69`` there, calls ``model.decode_step``,
+    which has no deconv arm: a KeyError on its first step)."""
+    if model.flow > 0:
+        raise ValueError(
+            "phase 2 with a flow is not a capability of the JAX package: "
+            "its vae_loss calls model.forward(train=True), which raises "
+            "'flow prior during training needs the flow-KL loss term' "
+            "(models/rnn_vae.py:272-276 there); train a flow model with "
+            "--phase 1")
+    if model.G_class == "deconv":
+        raise ValueError(
+            "phase 2 with G_class deconv is not a capability of the JAX "
+            "package: its soft sampler (ops/sampling.py:69, "
+            "sample_sentences) steps model.decode_step, which has no deconv "
+            "arm; train a deconv model with --phase 1")
+
+
 def train_full(cfg, model, dataset, params, logger=None,
                lab_iterator="train_amp_lab"):
     """Run the phase-2 loop on the device the params live on, from
@@ -240,8 +262,10 @@ def train_full(cfg, model, dataset, params, logger=None,
     phase-1 file has no classifier). Checkpoints ``{'params', 'step'}``
     at every ``expsvlog_every`` after ``s_iter``. Returns (params,
     steps_per_sec over the whole loop); the rate from step ``s_iter +
-    WARM_STEPS`` on is logged as full_steps_per_sec_warm."""
+    WARM_STEPS`` on is logged as full_steps_per_sec_warm. A flow or the
+    deconv family raises (``check_phase2``)."""
     check_supported(cfg)
+    check_phase2(model)
     cfgf = cfg.full
     dev = next(iter(checkpoints.flatten(params).values())).device
     if "clf" not in params:

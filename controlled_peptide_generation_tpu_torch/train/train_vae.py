@@ -1,5 +1,6 @@
-"""Phase-1 WAE/VAE training on one device, of the GRU family and of the
-transformer family (both parts transformer).
+"""Phase-1 WAE/VAE training on one device, of every family and option of
+the model: GRU or transformer encoders; GRU (with or without skip
+connections), transformer or deconv decoders; a posterior flow on z.
 
 Adam over the autoencoder's parameters with a linearly annealed beta:
 loss = recon + beta * z_regu + lambda1 * |logvar|_1 + lambda2 *
@@ -60,7 +61,7 @@ SINK_KEYS = ("z_mu_L1", "z_logvar", "z_logvar_L1", "z_logvar_KL_penalty",
 
 def check_supported(cfg):
     """Raise NotImplementedError for what the port's trainer does not run
-    yet (ROADMAP.md A9); flows raise where the model is built."""
+    yet (ROADMAP.md A9)."""
     hw = cfg.hw
     for name in ("dp", "tp", "pp"):
         if int(hw.get(name, 1) or 1) > 1:
@@ -134,7 +135,7 @@ def draw_step(model, gen, B, T, device, rf_dim=None, out=None):
         "c_bits": d.below("c_bits", (B,), 0.5),
         "word_drop": d.below("word_drop", (B, T), p_wd),
     }
-    if not tfm_dec:
+    if model.G_class == "gru":
         p_keep = 1.0 - g_args.get("p_out_dropout", 0.3)
         draws["out_keep"] = d.below("out_keep", (B, T, model.h_dec), p_keep)
     for name, on, t_args, S in (
@@ -154,16 +155,50 @@ def draw_step(model, gen, B, T, device, rf_dim=None, out=None):
     return draws
 
 
+def flow_forward(model, params, text, train, draws, gen=None):
+    """The flow-posterior forward (the JAX package's flow arm): z0 ~ q(z |
+    x), z_K = flow(z0) decoded with c of the prior. ``draws`` as in
+    ``model.forward`` ("eps", "c_bits" and the dropout masks; the others
+    from ``gen``). Returns (mu, logvar, z_K, the decoder's logits, the
+    flow posterior's KL, ``losses.kl_flow_mc``)."""
+    mu, logvar = model.encode(params, text, train=train, gen=gen,
+                              keeps=draws.get("enc_keeps"))
+    z0 = model.sample_z(mu, logvar, gen, draws.get("eps"))
+    z, logdet = model.apply_flow(params, z0)
+    bits = draws.get("c_bits")
+    c = (model.sample_c_prior(gen, text.shape[0], device=text.device)
+         if bits is None else model.c_from_bits(bits))
+    dec_logits = model.decode_train(
+        params, text, z, c, train=train, gen=gen,
+        word_drop=draws.get("word_drop"), out_keep=draws.get("out_keep"),
+        keeps=draws.get("dec_keeps"))
+    return mu, logvar, z, dec_logits, L.kl_flow_mc(mu, logvar, z0, z,
+                                                   logdet)
+
+
 def make_loss_fn(model, cfgv, mmd_cfg, rf_basis):
     """The phase-1 objective: loss_fn(params, text, beta, draws) ->
     (loss, metrics). rf_basis: the fixed (rf_w, rf_b), or None to take
-    the basis from the draws (rf_resample)."""
+    the basis from the draws (rf_resample). A model with a flow (under
+    flow_mode 'posterior') decodes z_K = flow(z0), and its 'kl' term is
+    the flow posterior's (``losses.kl_flow_mc``), the JAX package's flow
+    arm; its MMD terms act on z_K."""
     z_regu_name = cfgv.z_regu_loss
+    if model.flow > 0 and model.flow_mode != "posterior":
+        raise ValueError(
+            "training with a flow requires model.flow_mode='posterior' "
+            "(gen_prior matches the reference, whose forward raises during "
+            "training, model.py:173-177)")
 
     def loss_fn(params, text, beta, draws):
-        (mu, logvar), (z, c), dec_logits = model.forward(
-            params, text, q_c="prior", sample_z=1, train=True, draws=draws)
-        kl = L.kl_gaussianprior(mu, logvar)
+        if model.flow > 0:
+            mu, logvar, z, dec_logits, kl = flow_forward(model, params,
+                                                         text, True, draws)
+        else:
+            (mu, logvar), (z, c), dec_logits = model.forward(
+                params, text, q_c="prior", sample_z=1, train=True,
+                draws=draws)
+            kl = L.kl_gaussianprior(mu, logvar)
         recon = L.recon_dec(text, dec_logits)
         mmd = L.wae_mmd_gaussianprior_full(z, mmd_cfg.sigma, mmd_cfg.kernel,
                                            z_prior=draws["z_prior_mmd"])
@@ -403,22 +438,37 @@ def make_train_chunk(model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
 
 
 @torch.no_grad()
+def heldout_batch(model, params, text, gen=None, draws=None):
+    """One heldout batch without dropout: (recon, kl, mu, logvar). A
+    posterior flow decodes flow(z0) and its KL is the flow posterior's,
+    as in the JAX package's heldout eval. ``draws`` may hold "eps" and
+    "c_bits" (tests feed the JAX package's); the others come from
+    ``gen``, eps first."""
+    draws = draws or {}
+    if model.flow > 0 and model.flow_mode == "posterior":
+        mu, lv, _, logits, kl = flow_forward(model, params, text, False,
+                                             draws, gen)
+        return L.recon_dec(text, logits), kl, mu, lv
+    (mu, lv), _, logits = model.forward(params, text, q_c="prior",
+                                        sample_z=1, train=False, gen=gen,
+                                        draws=draws)
+    return L.recon_dec(text, logits), L.kl_gaussianprior(mu, lv), mu, lv
+
+
 def evaluate_heldout(model, params, dataset, gen, n_batches=4,
                      iterator="hld_vae"):
-    """Mean heldout recon/KL over a few val batches, and the Frobenius
-    distance of Cov_q(z) over their encodings to I. None when the dataset
-    has no such iterator."""
+    """Mean heldout recon/KL over a few val batches (``heldout_batch``),
+    and the Frobenius distance of Cov_q(z) over their encodings to I.
+    None when the dataset has no such iterator."""
     if iterator not in dataset._iters:
         return None
     dev = next(iter(checkpoints.flatten(params).values())).device
     recons, kls, mus, lvs = [], [], [], []
     for _ in range(n_batches):
         text = torch.from_numpy(dataset.next_batch(iterator).text).to(dev)
-        (mu, lv), _, logits = model.forward(params, text, q_c="prior",
-                                            sample_z=1, train=False,
-                                            gen=gen)
-        recons.append(L.recon_dec(text, logits))
-        kls.append(L.kl_gaussianprior(mu, lv))
+        recon, kl, mu, lv = heldout_batch(model, params, text, gen)
+        recons.append(recon)
+        kls.append(kl)
         mus.append(mu)
         lvs.append(lv)
     C, _, _ = cov_q(torch.cat(mus), torch.cat(lvs))

@@ -136,7 +136,11 @@ def test_http_api(server):
 
 def _bare(round_size=16, model=None, cls=S.GenerationServer, cfg=None):
     cfg = cfg or types.SimpleNamespace(seed=0, hw=TC.default_config().hw)
-    return cls(cfg=cfg, model=model or types.SimpleNamespace(G_class="gru"),
+    # a stand-in GRU model inside the beam kernel's scope (the canary
+    # checks only rounds that a kernel decodes)
+    fake = types.SimpleNamespace(G_class="gru", gru_args={}, max_seq_len=25,
+                                 n_vocab=24, h_dec=102)
+    return cls(cfg=cfg, model=model or fake,
                params=None, vocab=None, Q=None, round_size=round_size,
                device="cpu")
 
