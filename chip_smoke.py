@@ -192,8 +192,10 @@ Phases, each raising on failure (the script then exits non-zero):
 9. phase-2 training as a user runs it: ``main.main --phase 2`` of the GRU
    family at the shipped width (classifier 3 x 100 filters, batch 32,
    ``--dataset amp``) from phase 6's model_300.npz for FULL_ITERS + 1
-   steps, and of the transformer family from phase 6t's for FULL_ITERS_T
-   + 1: full_gen.txt with its label lines, full_samez/posz/interp.txt,
+   steps (cadences 25 / 50: four replays of a 25-step CUDA graph), and of
+   the transformer family from phase 6t's for FULL_ITERS_T + 1 (cadences
+   7 / 15: every step eager): full_gen.txt with its label lines,
+   full_samez/posz/interp.txt,
    the FASTAs and a last checkpoint with the classifier, finite logged
    losses; B2 launched 5 times a GRU step each (three recurrences in the
    VAE update, two in encode(soft)), B4 twice (the artifacts' encode),
@@ -211,6 +213,24 @@ Phases, each raising on failure (the script then exits non-zero):
    B5 once a step; the phase-6 output checks; one step through the
    kernels against plain(); one fused CLaSS round through B1 (B3)
    against plain=True on the same draws ([5]'s gates);
+9u. the phase-2 chunk (--hw.unroll): phase 2 of the GRU family, 51
+   steps at cadences 25 / 50 (two replays of a 25-step graph), of the
+   transformer, 21 steps at cadences 10 / 20 (two replays of a 10-step
+   graph), and of the GRU-transformer pairing under --full.z_regu_loss
+   mmd (21 steps at cadences 10 / 10), each at the default --hw.unroll
+   against --hw.unroll 1 from one seed: the same launches (B2 5 x steps
+   each way for the GRU, 4 for the pairing; B5 once a step each way
+   under mmd, counted through the replays), every array of the last
+   checkpoint within MAX_UNROLL_REL of its largest entry (bitwise is
+   expected; a miss runs unroll 1 again and prints whether the per-step
+   path repeats itself), the logged losses within rtol 1e-5; each graph's
+   kernel nodes, capture and instantiate seconds; then both families'
+   chunks at the default unroll 50 (cadences 50 / 50, one capture and one
+   replay): nodes, capture and instantiate seconds, the graph pool's and
+   the executable's bytes; then 26 phase-1 GRU steps under
+   --hw.profile_dir (one replay of a 25-step graph): one trace file whose
+   kernel events hold B2's and B5's kernels beyond the eager steps' (the
+   replay's);
 10. the model's options at the shipped width: skip connections, a
    posterior alternating flow of 4 layers, deconv (100 filters, kernel
    4, 3 layers) and deconv with useRNN (its GRU at H 150, beyond the
@@ -367,18 +387,24 @@ class FigureLog(logging.Handler):
 
 
 class ChunkLog(logging.Handler):
-    """Reads the trainer's "<n> replays of a <unroll>-step CUDA graph of
-    <k> kernel nodes" record (train/train_vae.py) of the last run."""
+    """Reads the trainers' "<n> replays of a <unroll>-step CUDA graph of
+    <k> kernel nodes" record (train/train_vae.py, train/train_full.py) of
+    the last run, and the "CUDA graph {...}" record after it (the graph's
+    nodes, capture and instantiate seconds, pool and executable bytes,
+    train/chunk.py GraphChunk.stats)."""
 
     def __init__(self):
         super().__init__()
-        self.last = None
+        self.last = self.stats = None
 
     def emit(self, record):
-        words = record.getMessage().split()
+        msg = record.getMessage()
+        words = msg.split()
         if "replays" in words and "CUDA" in words:
             self.last = (int(words[0]), int(words[4].split("-")[0]),
                          int(words[-3]))
+        elif msg.startswith("CUDA graph {"):
+            self.stats = json.loads(msg[len("CUDA graph "):])
 
 
 def log(msg):
@@ -1606,8 +1632,9 @@ def main():
                 "B5 bwd": mmd_kernel.mmd_full_bwd.launches}
 
     chunk_log = ChunkLog()
-    train_vae.log.addHandler(chunk_log)
-    train_vae.log.setLevel("INFO")
+    for trainer in (train_vae, train_full):
+        trainer.log.addHandler(chunk_log)
+        trainer.log.setLevel("INFO")
 
     def train_run(tag, flags_):
         """main.main on the flags, the kernels' counts set to 0 just before
@@ -1615,7 +1642,7 @@ def main():
         (replays, steps a replay, kernel nodes of the graph) or None when
         every step ran eagerly."""
         reset_counts()
-        chunk_log.last = None
+        chunk_log.last = chunk_log.stats = None
         t0 = time.perf_counter()
         cfg_ = train_main.main(flags_)
         return cfg_, counts(), time.perf_counter() - t0, chunk_log.last
@@ -2647,20 +2674,24 @@ def main():
 
 
     # ---- 9. main path: phase-2 training and the mixed families ------------
-    def full_run(tag, run6, runname, n_iter, extra=(), n1=TRAIN_ITERS):
+    def full_run(tag, run6, runname, n_iter, extra=(), n1=TRAIN_ITERS,
+                 cadences=None):
         """main.main --phase 2 from the phase-1 run's last checkpoint
         (step ``n1``), the kernels' counts set to 0 just before and read
         just after; the phase-2 files, finite logged losses, the last
-        checkpoint holding the classifier. Returns (cfg, counts, seconds,
-        the last result row, the last checkpoint's iteration, the logged
-        phase-2 rows)."""
+        checkpoint holding the classifier. ``cadences`` (cheap, expsv)
+        default to n_iter / 4 and n_iter / 2. Returns (cfg, counts,
+        seconds, the last result row, the last checkpoint's iteration, the
+        logged phase-2 rows, the chunks (replays, steps a replay, kernel
+        nodes) or None)."""
         every = max(n_iter // 2, 1)
+        cheap, every = cadences or (max(every // 2, 1), every)
         flags_ = train_flags(runname, n1, list(extra)) + [
             "--phase", "2", "--loadpath",
             run6.vae.chkpt_path.format(n1), "--full.n_iter",
-            str(n_iter), "--full.cheaplog_every", str(max(every // 2, 1)),
+            str(n_iter), "--full.cheaplog_every", str(cheap),
             "--full.expsvlog_every", str(every)]
-        cfg_, launches_, secs_, _ = train_run(tag, flags_)
+        cfg_, launches_, secs_, chunks_ = train_run(tag, flags_)
         fc = cfg_.full
         last_it = fc.s_iter + n_iter
         missing = [p_ for p_ in (
@@ -2668,6 +2699,8 @@ def main():
             fc.interp_samples_path, fc.fasta_gen_samples_path,
             fc.fasta_pos_samples_path, fc.chkpt_path.format(last_it))
             if not os.path.exists(p_)]
+        if missing:
+            raise AssertionError(f"{tag}: missing {missing}")
         with open(os.path.join(cfg_.savepath, "result.json")) as fh:
             rows_ = json.load(fh)
         logged_ = [r for r in rows_ if "full_L_vae" in r]
@@ -2678,14 +2711,14 @@ def main():
             step_ = int(data["['step']"])
         with open(fc.gen_samples_path) as fh:
             gen_lines = fh.read().splitlines()
-        if (missing or bad or not logged_ or not has_clf or step_ != last_it
+        if (bad or not logged_ or not has_clf or step_ != last_it
                 or len(gen_lines) != 2 * cfg_.evals.sample_size
                 or not set(gen_lines[::2]) <= {"label: 0", "label: 1"}):
-            raise AssertionError(f"{tag}: missing {missing}, non-finite "
+            raise AssertionError(f"{tag}: non-finite "
                                  f"{bad}, logged {len(logged_)} rows, clf "
                                  f"{has_clf}, step {step_}, "
                                  f"{len(gen_lines)} full_gen.txt lines")
-        return cfg_, launches_, secs_, rows_[-1], last_it, logged_
+        return cfg_, launches_, secs_, rows_[-1], last_it, logged_, chunks_
 
     def full_vs_plain(tag, model_, cfg_, ckpt_, n_wall=3):
         """The three phase-2 sub-losses and every group's gradients under
@@ -2790,7 +2823,7 @@ def main():
             ("GRU", tcfg, "smoke_p2", FULL_ITERS, (), model_t),
             ("transformer", tcfg_t, "smoke_tfm_p2", FULL_ITERS_T, TFM_FLAGS,
              model_t6)):
-        cfg9, l9, s9, fin9, last9, logged9 = full_run(
+        cfg9, l9, s9, fin9, last9, logged9, ch9 = full_run(
             f"{tag} phase 2", run6, runname, n_it, extra)
         n9 = n_it + 1
         gru = tag == "GRU"
@@ -2799,9 +2832,13 @@ def main():
         want9 = {"B2 fwd": 5 * n9 if gru else 0, "B2 bwd": 5 * n9 if gru
                  else 0, "B2 wgrad": 5 * n9 if gru else 0,
                  "B4": 2 if gru else 0, "B5 fwd": 0, "B5 bwd": 0}
-        if l9 != want9:
+        # the GRU's cadences 25 / 50: iteration 300 alone, then four
+        # replays of a 25-step graph; the transformer's 7 / 15: unroll 1
+        want_ch9 = (4, 25) if gru else None
+        if l9 != want9 or (ch9 and ch9[:2]) != want_ch9:
             raise AssertionError(f"{tag} phase 2 launched {l9}, expected "
-                                 f"{want9}")
+                                 f"{want9}; chunks {ch9}, expected "
+                                 f"{want_ch9}")
         mark(f"9 {tag} phase 2 (main.main)")
         check = full_vs_plain(tag, model_, cfg9,
                               cfg9.full.chkpt_path.format(last9))
@@ -2811,11 +2848,14 @@ def main():
         if check[3] != want_k:
             raise AssertionError(f"{tag} phase-2 step (mmd) launched "
                                  f"{check[3]}, expected {want_k}")
-        full_stats[tag] = (cfg9, l9, s9, fin9, n9, check, logged9)
+        full_stats[tag] = (cfg9, l9, s9, fin9, n9, check, logged9, ch9)
         lr_, gr_, worst_, kc_, pr = check
         log(f"[9] {tag} main --phase 2 from phase 6's model_{TRAIN_ITERS}"
             f".npz, {n9} steps at batch {cfg9.vae.batch_size}: {s9:.2f} s "
-            f"in main.main; launches {l9} (B2 "
+            f"in main.main ("
+            + (f"{ch9[0]} replays of a {ch9[1]}-step CUDA graph of {ch9[2]} "
+               f"kernel nodes" if ch9 else "every step eager") +
+            f"); launches {l9} (B2 "
             f"{l9['B2 fwd'] / n9:.2f} triples a step); L_vae at the logs "
             f"{[round(r['full_L_vae'], 4) for r in logged9]}, clf_acc "
             f"{[round(r['full_clf_acc'], 3) for r in logged9]}; "
@@ -2837,7 +2877,7 @@ def main():
         mark(f"9 {tag} phase-2 step, kernels vs plain, profile")
 
     # the GRU family's phase 2 under --full.z_regu_loss mmd: B5 on the path
-    cfg9m, l9m, s9m, _, _, logged9m = full_run(
+    cfg9m, l9m, s9m, _, _, logged9m, _ = full_run(
         "GRU phase 2 mmd", tcfg, "smoke_p2_mmd", 10,
         ["--full.z_regu_loss", "mmd"])
     if l9m["B5 fwd"] != 11 or l9m["B5 bwd"] != 11 or l9m["B2 fwd"] != 55:
@@ -2849,7 +2889,7 @@ def main():
 
     # the mixed families: 51 phase-1 steps at cadences 25 / 50 through the
     # chunk's CUDA graph, one step kernels vs plain, one fused round each
-    mixed_stats = {}
+    mixed_stats, mixed_cfgs = {}, {}
     for tag, fam in (("transformer-GRU", ("transformer", "gru")),
                      ("GRU-transformer", ("gru", "transformer"))):
         fam_flags = ["--model.E_args.E_class", fam[0],
@@ -2877,6 +2917,144 @@ def main():
             flags + fam_flags, extra_args=sample_pipeline.EXTRA_ARGS)
         round_checks(tag, cfg_r, model_x, params_x, timed=False)
         mixed_stats[tag] = (l_x, s_x, ch_x)
+        mixed_cfgs[tag] = cfg_x
+
+    # ---- 9u. the phase-2 chunk (--hw.unroll) against the per-step path ----
+    def full_logged(cfg_):
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            return {r["it"]: {k: v for k, v in r.items()
+                              if k.startswith("full_")
+                              and "steps_per_sec" not in k}
+                    for r in json.load(fh) if "full_L_vae" in r}
+
+    full_u = {}
+    for tag, run6, n1, extra, n_it, cad, want_u in (
+            ("GRU", tcfg, TRAIN_ITERS, (), UNROLL_ITERS, (25, 50), (2, 25)),
+            ("transformer", tcfg_t, TRAIN_ITERS, TFM_FLAGS, 20, (10, 20),
+             (2, 10)),
+            ("GRU-transformer mmd", mixed_cfgs["GRU-transformer"],
+             UNROLL_ITERS, ["--model.E_args.E_class", "gru",
+                            "--model.G_args.G_class", "transformer",
+                            "--full.z_regu_loss", "mmd"], 20, (10, 10),
+             (2, 10))):
+        runs_9u = {}
+        for unroll in (None, 1):
+            runs_9u[unroll] = full_run(
+                f"{tag} 9u", run6, f"p2u{unroll or 'd'}_{tag[:3]}_{tag[-3:]}",
+                n_it, list(extra) + (["--hw.unroll", "1"] if unroll else []),
+                n1=n1, cadences=cad)
+            if unroll is None:
+                graph_9u = chunk_log.stats
+        (cfg_c, l_c, s_c, _, last_c, _, ch_c), (cfg_1, l_1, s_1, *_) = (
+            runs_9u[None], runs_9u[1])
+        n_c = n_it + 1
+        gru_enc, gru_dec = tag.startswith("GRU"), tag == "GRU"
+        n_b2 = 2 * gru_enc * 2 + gru_dec * 1
+        mmd = "mmd" in tag
+        want_l = {"B2 fwd": n_b2 * n_c, "B2 bwd": n_b2 * n_c,
+                  "B2 wgrad": n_b2 * n_c, "B4": 2 * gru_enc,
+                  "B5 fwd": n_c * mmd, "B5 bwd": n_c * mmd}
+        if (ch_c is None or ch_c[:2] != want_u or runs_9u[1][6] is not None
+                or l_c != want_l or l_1 != want_l):
+            raise AssertionError(f"9u {tag}: chunks {ch_c} (want {want_u}), "
+                                 f"launches {l_c} and unroll 1's {l_1} "
+                                 f"(want {want_l})")
+        rel, key, bitwise = state_delta(cfg_c.full.chkpt_path.format(last_c),
+                                        cfg_1.full.chkpt_path.format(last_c))
+        rows_c, rows_1 = full_logged(cfg_c), full_logged(cfg_1)
+        loss_rel = max(abs(rows_c[i][k] - v) / max(abs(v), 1e-30)
+                       for i, r in rows_1.items() for k, v in r.items())
+        cause = ""
+        if not bitwise:
+            # before blaming the graph: is the per-step path repeatable?
+            cfg_2 = full_run(f"{tag} 9u again", run6,
+                             f"p2u1b_{tag[:3]}_{tag[-3:]}", n_it,
+                             list(extra) + ["--hw.unroll", "1"], n1=n1,
+                             cadences=cad)[0]
+            rel_2, key_2, bit_2 = state_delta(
+                cfg_2.full.chkpt_path.format(last_c),
+                cfg_1.full.chkpt_path.format(last_c))
+            cause = (f"; unroll 1 twice: largest difference {rel_2:.3e} "
+                     f"({key_2}), bitwise "
+                     f"{'equal' if bit_2 else 'different'}")
+        if (rel > MAX_UNROLL_REL or set(rows_c) != set(rows_1)
+                or loss_rel > 1e-5):
+            raise AssertionError(f"9u {tag}: the chunk against unroll 1: "
+                                 f"model_{last_c}.npz {key} apart by "
+                                 f"{rel:.3e}, logged losses by "
+                                 f"{loss_rel:.3e}{cause}")
+        full_u[tag] = (l_c, s_c, s_1, ch_c, graph_9u)
+        log(f"[9u] {tag} phase 2, {n_c} steps at cadences {cad[0]} / "
+            f"{cad[1]}, the default --hw.unroll ({ch_c[0]} replays of a "
+            f"{ch_c[1]}-step CUDA graph of {ch_c[2]} kernel nodes, "
+            f"{graph_9u['nodes']} nodes; capture {graph_9u['capture_s']:.3f}"
+            f" s, instantiate {graph_9u['instantiate_s']:.3f} s) against "
+            f"--hw.unroll 1: model_{last_c}.npz largest difference "
+            f"{rel:.3e} of the array's largest entry ({key}), bitwise "
+            f"{'equal' if bitwise else 'different'}{cause}; logged losses "
+            f"within {loss_rel:.3e}; launches {l_c} (want {want_l}); "
+            f"{s_c:.2f} s against {s_1:.2f} s in main.main ({card})")
+        mark(f"9u {tag} unroll against unroll 1")
+
+    # both families' chunks at the default unroll 50 (cadences 50 / 50:
+    # iteration 0 alone, then one capture and one replay of 50 steps)
+    full_u50 = {}
+    for tag, run6, extra in (("GRU", tcfg, ()),
+                             ("transformer", tcfg_t, TFM_FLAGS)):
+        cfg_50, l_50, s_50, _, _, _, ch_50 = full_run(
+            f"{tag} 9u-50", run6, f"p2u50_{tag[:3]}", 50, list(extra),
+            cadences=(50, 50))
+        st = chunk_log.stats
+        if ch_50 is None or ch_50[:2] != (1, 50):
+            raise AssertionError(f"9u {tag} unroll 50: chunks {ch_50}")
+        full_u50[tag] = (l_50, s_50, st)
+        log(f"[9u] {tag} phase-2 chunk at the default --hw.unroll 50: "
+            f"{st['kernel_nodes']} kernel nodes ({st['kernel_nodes'] / 50:.1f}"
+            f" a step) of {st['nodes']} nodes; capture {st['capture_s']:.3f}"
+            f" s, instantiate {st['instantiate_s']:.3f} s; graph pool "
+            f"{st['pool_bytes']} bytes, executable {st['exec_bytes']} bytes; "
+            f"51 steps in {s_50:.2f} s in main.main ({card})")
+        mark(f"9u {tag} unroll 50")
+
+    # a phase-1 run under --hw.profile_dir: the trace holds B2's and B5's
+    # kernels from inside the replays (26 steps at cadences 25 / 25: step 0
+    # alone, then one replay of a 25-step graph)
+    trace_dir = os.path.join(train_top, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cfg_tr, l_tr, s_tr, ch_tr = train_run("GRU traced", train_flags(
+        "smoke_trace", 25, ["--vae.cheaplog_every", "25",
+                            "--vae.expsvlog_every", "25",
+                            "--hw.profile_dir", trace_dir]))
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")] if os.path.isdir(
+                  trace_dir) else []
+    if len(traces) != 1 or ch_tr is None or ch_tr[:2] != (1, 25):
+        raise AssertionError(f"the traced phase-1 run: trace files {traces}, "
+                             f"chunks {ch_tr}")
+    with open(traces[0]) as fh:
+        trace_events = json.load(fh)["traceEvents"]
+    k_events = [e for e in trace_events if e.get("cat") == "kernel"]
+    in_trace = {k: sum(name in e.get("name", "") for e in k_events)
+                for k, name in (("B2 fwd", "gru_scan_kernel"),
+                                ("B2 bwd", "gru_bwd_kernel"),
+                                ("B2 wgrad", "gru_wgrad_kernel"),
+                                ("B5 fwd", "mmd_fwd_kernel"))}
+    # step 0 and the warm-up's two steps run eagerly: 3 each of B2 a step,
+    # one B5; the replay 25 steps' worth
+    eager_tr = {"B2 fwd": 9, "B2 bwd": 9, "B2 wgrad": 9, "B5 fwd": 3}
+    short = {k: v for k, v in in_trace.items()
+             if v < eager_tr[k] + 25 * eager_tr[k] // 3}
+    if short:
+        raise AssertionError(f"the trace under --hw.profile_dir holds "
+                             f"{in_trace} of B2's and B5's kernels: short "
+                             f"of the replay's {short}")
+    log(f"[9u] phase-1 training under --hw.profile_dir, 26 steps (one "
+        f"replay of a 25-step graph): {s_tr:.2f} s; trace "
+        f"{os.path.basename(traces[0])}, {os.path.getsize(traces[0])} "
+        f"bytes, {len(k_events)} kernel events; B2 / B5 kernels in it "
+        f"{in_trace} (eager {eager_tr}, the rest from the replay); launches "
+        f"{l_tr}")
+    mark("9u phase-1 trace under --hw.profile_dir")
 
     # ---- 10. the model's options: skip connections, a flow, deconv ------
     # one Q (10 components) over the synthetic latent corpus of [5], shared
@@ -3069,7 +3247,7 @@ def main():
 
     # phase 2 of the skip model: B2 five times a step, as the GRU's in [9]
     os_ = opt_stats["skip"]
-    cfg_p2, l_p2, s_p2, _, _, logged_p2 = full_run(
+    cfg_p2, l_p2, s_p2, _, _, logged_p2, _ = full_run(
         "skip phase 2", os_["cfg"], "smoke_opt_skip_p2", 4,
         opt_flags["skip"], n1=UNROLL_ITERS)
     want_p2 = {"B2 fwd": 25, "B2 bwd": 25, "B2 wgrad": 25, "B4": 2,
@@ -3251,10 +3429,12 @@ def main():
             f"{train_vae.WARM_STEPS}, {fin_1['train_steps_per_sec']:.2f} over "
             f"all (host clock, log and checkpoint boundaries included) "
             f"({card})")
-    for tag, (cfg9, l9, s9, fin9, n9, check, _) in full_stats.items():
+    for tag, (cfg9, l9, s9, fin9, n9, check, _, ch9) in full_stats.items():
         pr = check[4]
         log(f"[7] {tag} phase-2 training at the shipped width, batch "
-            f"{cfg9.vae.batch_size}, one step at a time: "
+            f"{cfg9.vae.batch_size}, "
+            + (f"{ch9[1]}-step graphs" if ch9 else "one step at a time")
+            + ": "
             f"{fin9['full_steps_per_sec_warm']:.2f} steps/s after "
             f"{train_vae.WARM_STEPS} steps, {fin9['full_steps_per_sec']:.2f} "
             f"over all {n9} (host clock, logs and checkpoints included); B2 "
@@ -3263,6 +3443,18 @@ def main():
             f"a step; {pr['events_per_step']:.1f} device events a step, busy "
             f"{pr['busy_ms_per_step']:.4f} ms, idle share "
             f"{pr['idle_share']:.4f} ({card})")
+    for tag, (l_c, s_c, s_1, ch_c, st) in full_u.items():
+        log(f"[7] {tag} phase-2 training, [9u]'s steps: {s_c:.2f} s at the "
+            f"default --hw.unroll ({ch_c[1]}-step graphs, the capture "
+            f"{st['capture_s']:.3f} s and instantiation "
+            f"{st['instantiate_s']:.3f} s included) against {s_1:.2f} s at "
+            f"--hw.unroll 1, in main.main ({card})")
+    for tag, (l_50, s_50, st) in full_u50.items():
+        log(f"[7] {tag} phase-2 chunk of 50 steps: capture "
+            f"{st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f}"
+            f" s, {st['kernel_nodes']} kernel nodes, graph pool "
+            f"{st['pool_bytes'] / 2 ** 20:.1f} MiB, executable "
+            f"{st['exec_bytes'] / 2 ** 20:.1f} MiB ({card})")
     for tag, (l_x, s_x, ch_x) in mixed_stats.items():
         log(f"[7] {tag} phase-1 training, {UNROLL_ITERS + 1} steps at "
             f"--hw.unroll 50 at cadences 25 / 50 ({ch_x[2]} kernel nodes a "
@@ -3280,7 +3472,9 @@ def main():
             f"its sample_pipeline loop {st_o['seconds']:.4f} s over "
             f"{st_o['rounds_launched']} round(s) launched ({card})")
     l9g = full_stats["GRU"][1]
-    mix_l = [v[0] for v in mixed_stats.values()]
+    mix_l = ([v[0] for v in mixed_stats.values()]
+             + [v[0] for v in full_u.values()]
+             + [v[0] for v in full_u50.values()] + [l_tr])
     k_ms, p_ms, (b_ms, b_by) = times[5000]
     entries = [{
         "name": "beam_scan_gru",
@@ -3342,7 +3536,8 @@ def main():
                          + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
                          + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)
                          + opt_launches["B5 fwd"]),
-                        ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"])):
+                        ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"]
+                         + sum(m_["B5 bwd"] for m_ in mix_l))):
         k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
         entries.append({
             "name": f"mmd_full_{k}",

@@ -301,11 +301,11 @@ def default_config():
         zero=False,
         donate_state=True,    # parse only: buffer donation of jit, no
                               # counterpart in the port
-        unroll=50,            # phase-1 steps per dispatch: runs of up to
-                              # this many steps (aligned to the log
-                              # cadences) replay as one captured CUDA graph
-                              # on the card, eagerly on the CPU; 1 runs
-                              # each step eagerly
+        unroll=50,            # train steps per dispatch, both phases:
+                              # runs of up to this many steps (aligned to
+                              # the log cadences) replay as one captured
+                              # CUDA graph on the card, eagerly on the CPU;
+                              # 1 runs each step eagerly
         fused_rounds=True,    # CLaSS: one round = draw, heads, accept, decode
                               # (0: the serial loop)
         rounds_per_dispatch=1,  # CLaSS rounds drawn per launch
@@ -338,7 +338,8 @@ def default_config():
                                  # clamps rounds_per_dispatch
                                  # (pipeline.transformer_dispatch_budget)
         log_hbm_analysis=False,
-        profile_dir="",
+        profile_dir="",       # non-empty: a torch.profiler trace of the
+                              # phase-1 loop written there
         heldout_eval=True,
         log_flush_every=10,
     )

@@ -40,11 +40,13 @@ def _mask_specials_first_step(logits):
     return out
 
 
-def gumbel(shape, gen=None, device="cpu"):
-    """Standard Gumbel noise -log(-log(U)), U ~ U(tiny, 1)."""
+def gumbel(shape, gen=None, device="cpu", out=None):
+    """Standard Gumbel noise -log(-log(U)), U ~ U(tiny, 1); with ``out``
+    (float32, ``shape``) written into it, the same bits."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=gen, device=device).clamp_min(tiny)
-    return -torch.log(-torch.log(u))
+    u = torch.empty(shape, device=device) if out is None else out
+    u.uniform_(generator=gen).clamp_min_(tiny)
+    return torch.log(u, out=u).neg_().log_().neg_()
 
 
 def _check_mode(sample_mode, prevent_empty):

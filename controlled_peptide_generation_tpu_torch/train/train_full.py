@@ -32,11 +32,20 @@ loss computes the full MMD too, unused unless it regularizes).
 
 Every random draw of an iteration comes from ``draw_full_step`` with the
 generator of (seed, stream, it) and can be handed in (tests feed the JAX
-package's). The loop runs every step eagerly: ``--hw.unroll`` (the JAX
-package's ``make_full_scan``, the same trajectory) has no captured graph
-of the phase-2 chunk yet (ROADMAP.md A12).
+package's).
+
+``--hw.unroll`` (default 50) is the JAX package's ``make_full_scan``: the
+loop takes each run of ``aligned_unroll`` iterations that needs no host
+work before its last one as one ``FullChunk``, on the card one captured
+CUDA graph of the whole run (all three sub-updates of every iteration, B2
+and B5 inside it), replayed after its inputs (the batches, the betas and
+softmax temperatures, every iteration's draws) are staged; on the CPU the
+same iterations run eagerly. The updates are the per-step path's: beta
+and the temperature reach both paths as 0-d device tensors.
+``--hw.unroll 1`` runs every iteration eagerly.
 """
 
+import json
 import logging
 import time
 
@@ -50,8 +59,10 @@ from ..utils import runtime
 from ..utils.annealing import anneal
 from ..utils.logging import DeferredFetch
 from . import checkpoints
+from .chunk import GraphChunk
 from .opt import ClipAdam
-from .train_vae import WARM_STEPS, aligned_unroll, check_supported, draw_step
+from .train_vae import (WARM_STEPS, Drawer, aligned_unroll,
+                        check_supported, draw_step)
 
 log = logging.getLogger(__name__)
 
@@ -66,7 +77,7 @@ def group(params, name):
     return {k: params[k] for k in GROUPS[name] if k in params}
 
 
-def draw_full_step(model, gen, B, B_lab, T, device, cfgf):
+def draw_full_step(model, gen, B, B_lab, T, device, cfgf, out=None):
     """Every random draw of one phase-2 iteration, in three dicts:
 
     * "vae": ``draw_step``'s (eps, word_drop, the decoder's and encoder's
@@ -76,26 +87,30 @@ def draw_full_step(model, gen, B, B_lab, T, device, cfgf):
       categorical_softmax the Gumbel noise [T, B, V];
     * "clf": keep [B_lab, num_filters * n_widths] (the classifier's
       dropout mask), z [B_lab, Z], c_bits [B_lab] and the hard sample's
-      noise [T, B_lab, V] when its mode is categorical."""
+      noise [T, B_lab, V] when its mode is categorical.
+
+    With ``out`` (the dicts of an earlier call at the same shapes) the
+    draws are written into its tensors, bit for bit the same."""
     c_args = model.C_args
     n_feats = c_args.get("num_filters", 100) * (
         c_args.get("max_filter_width", 5) - c_args.get("min_filter_width", 3)
         + 1)
     p_keep = 1.0 - c_args.get("dropout", 0.5)
     V, Z = model.n_vocab, model.z_dim
-    draws = {"vae": draw_step(model, gen, B, T, device)}
+    draws = {"vae": draw_step(model, gen, B, T, device,
+                              out=None if out is None else out["vae"])}
     for name, n, mode, with_keep in (
             ("attr", B, _soft_mode(cfgf), False),
             ("clf", B_lab, _hard_mode(cfgf), True)):
-        d = {}
+        d = Drawer(gen, device, None if out is None else out[name])
+        drawn = {}
         if with_keep:
-            d["keep"] = torch.rand((n, n_feats), generator=gen,
-                                   device=device) < p_keep
-        d["z"] = torch.randn((n, Z), generator=gen, device=device)
-        d["c_bits"] = torch.rand((n,), generator=gen, device=device) < 0.5
+            drawn["keep"] = d.below("keep", (n, n_feats), p_keep)
+        drawn["z"] = d.normal("z", (n, Z))
+        drawn["c_bits"] = d.below("c_bits", (n,), 0.5)
         if mode in ("categorical", "categorical_softmax"):
-            d["noise"] = sampling.gumbel((T, n, V), gen, device)
-        draws[name] = d
+            drawn["noise"] = d.gumbel("noise", (T, n, V))
+        draws[name] = drawn
     return draws
 
 
@@ -214,9 +229,22 @@ class FullStep:
             for n in names:
                 self.opts[n].step(group(params, n), grads[n], opt_states[n])
 
+    def schedule(self, it):
+        """(beta, softmax_temp) of iteration ``it``, Python floats."""
+        return (anneal(self.cfgf.beta, it),
+                anneal(self.cfgf.softmax_temp, it))
+
     def __call__(self, params, opt_states, text, lab_text, lab_y, it, draws):
-        beta = anneal(self.cfgf.beta, it)
-        temp = anneal(self.cfgf.softmax_temp, it)
+        beta, temp = (torch.full((), v, device=text.device)
+                      for v in self.schedule(it))
+        return self.update(params, opt_states, text, lab_text, lab_y, beta,
+                           temp, draws)
+
+    def update(self, params, opt_states, text, lab_text, lab_y, beta, temp,
+               draws):
+        """One iteration at ``beta`` and ``temp``, 0-d float32 tensors on
+        the device (the per-step path fills them, a chunk's graph reads
+        them from its staged inputs: the same arithmetic either way)."""
         with record_function("vae update"):
             loss, m1 = self.vae_loss(params, text, beta, draws["vae"])
             self._update(params, opt_states, loss, ("E", "G"))
@@ -230,6 +258,60 @@ class FullStep:
         metrics = {k: v.detach() for k, v in {**m1, **m2, **m3}.items()}
         metrics.update(beta=beta, softmax_temp=temp)
         return metrics
+
+
+class FullChunk(GraphChunk):
+    """``unroll`` phase-2 iterations, it0 .. it0 + unroll - 1, on texts
+    [unroll, B, T], labelled texts [unroll, B_lab, T] and their labels
+    [unroll, B_lab]: the JAX package's ``make_full_scan``. Each iteration
+    takes the draws of the per-step path (``draw_full_step`` with the
+    generator of (seed, _STEP_STREAM, it)) and the beta and softmax
+    temperature of its own it, so the updates are those of ``unroll``
+    calls of ``FullStep``. Returns the last iteration's metrics. On the
+    card one captured CUDA graph of all three sub-updates of every
+    iteration (``train/chunk.py``), its inputs the batches and the two
+    schedules; on CPU tensors the iterations run eagerly, and ``draws``
+    (one dict of ``draw_full_step`` per iteration) may replace the
+    generators' draws."""
+
+    def __init__(self, model, cfgf, cfg_losses, rf_basis, unroll, seed=0):
+        super().__init__(unroll)
+        self.model, self.cfgf, self.seed = model, cfgf, seed
+        self.step = FullStep(model, cfgf, cfg_losses, rf_basis)
+
+    def __call__(self, params, opt_states, texts, lab_texts, lab_ys, it0,
+                 draws=None):
+        return self.run({"params": params, "opt": opt_states},
+                        (texts, lab_texts, lab_ys), it0, draws)
+
+    def stage(self, texts, lab_texts, lab_ys, it0):
+        """Fill the captured graph's inputs for iterations it0 .. it0 +
+        unroll - 1 (a measurement of the staging alone,
+        tools/profile_train.py)."""
+        self._stage(self._inputs(it0, texts, lab_texts, lab_ys), it0)
+
+    def _inputs(self, it0, texts, lab_texts, lab_ys):
+        beta, temp = zip(*(self.step.schedule(it0 + i)
+                           for i in range(self.unroll)))
+        return {"text": torch.as_tensor(texts),
+                "lab_text": torch.as_tensor(lab_texts),
+                "lab_y": torch.as_tensor(lab_ys),
+                "beta": torch.tensor(beta, dtype=torch.float32),
+                "temp": torch.tensor(temp, dtype=torch.float32)}
+
+    def _draws(self, it0, inputs, dev, out=None):
+        B, T = inputs["text"].shape[1:]
+        B_lab = inputs["lab_text"].shape[1]
+        return [draw_full_step(
+            self.model, runtime.generator(dev, self.seed, _STEP_STREAM,
+                                          it0 + i),
+            B, B_lab, T, dev, self.cfgf, out=None if out is None else out[i])
+            for i in range(self.unroll)]
+
+    def _update(self, state, x, draws):
+        return self.step.update(state["params"], state["opt"], x["text"],
+                                x["lab_text"], x["lab_y"], x["beta"],
+                                x["temp"], draws)
 
 
 def check_phase2(model):
@@ -281,13 +363,14 @@ def train_full(cfg, model, dataset, params, logger=None,
                                model.z_dim, mmd_cfg.rf_dim, dev)
     step = FullStep(model, cfgf, cfg.losses, rf_basis)
     opt_states = step.init(params)
+    # runs of `unroll` iterations as one chunk, aligned to the log cadences
     unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
                             int(cfgf.cheaplog_every),
                             int(cfgf.expsvlog_every))
+    chunk = None
     if unroll > 1:
-        log.info("phase 2 runs one step at a time: --hw.unroll %d has no "
-                 "captured graph of the phase-2 chunk yet (ROADMAP.md A12)",
-                 unroll)
+        chunk = FullChunk(model, cfgf, cfg.losses, rf_basis, unroll,
+                          cfg.seed)
 
     attr_name = dataset.attributes[0][0]
 
@@ -301,6 +384,25 @@ def train_full(cfg, model, dataset, params, logger=None,
                  vals["L_clf_sup"], vals["clf_acc"])
 
     fetch = DeferredFetch(cfg.hw.get("log_flush_every", 10), sink)
+
+    def needs_host(j):
+        return j % cfgf.cheaplog_every == 0 or j % cfgf.expsvlog_every == 0
+
+    def do_host(it, metrics):
+        cheap = it % cfgf.cheaplog_every == 0
+        expsv = it % cfgf.expsvlog_every == 0
+        if cheap or expsv:
+            fetch.add(it, metrics, force=expsv)
+        if expsv and it > cfgf.s_iter:
+            path = cfgf.chkpt_path.format(it)
+            checkpoints.save(path, params, step=it)
+            log.info("Saved model to %s", path)
+
+    def batch():
+        text = dataset.next_batch("train_vae").text
+        lab = dataset.next_batch(lab_iterator)
+        return text, lab.text, np.maximum(getattr(lab, attr_name), 0)
+
     log.info("Training full (controlled-generation) phase ...")
     it, end_it = cfgf.s_iter, cfgf.s_iter + cfgf.n_iter
     T = cfg.max_seq_len
@@ -310,28 +412,31 @@ def train_full(cfg, model, dataset, params, logger=None,
         if warm_it is None and it >= cfgf.s_iter + WARM_STEPS:
             runtime.synchronize(dev)
             warm_it, t_warm = it, time.perf_counter()
-        text = torch.from_numpy(dataset.next_batch("train_vae").text).to(dev)
-        lab = dataset.next_batch(lab_iterator)
-        lab_text = torch.from_numpy(lab.text).to(dev)
-        lab_y = torch.from_numpy(np.maximum(getattr(lab, attr_name), 0)).to(
-            dev)
+        # a chunk whenever no iteration inside it needs the host except
+        # possibly its last; the batches and draws are the same either way
+        if chunk is not None and it + unroll - 1 <= end_it and not any(
+                needs_host(it + j) for j in range(unroll - 1)):
+            batches = [np.stack(b) for b in zip(*(batch()
+                                                  for _ in range(unroll)))]
+            metrics = chunk(params, opt_states, *batches, it)
+            it += unroll
+            do_host(it - 1, metrics)
+            continue
+        text, lab_text, lab_y = (torch.from_numpy(b).to(dev)
+                                 for b in batch())
         draws = draw_full_step(
             model, runtime.generator(dev, cfg.seed, _STEP_STREAM, it),
             text.shape[0], lab_text.shape[0], T, dev, cfgf)
         metrics = step(params, opt_states, text, lab_text, lab_y, it, draws)
-        cheap = it % cfgf.cheaplog_every == 0
-        expsv = it % cfgf.expsvlog_every == 0
-        if cheap or expsv:
-            fetch.add(it, metrics, force=expsv)
-        if expsv and it > cfgf.s_iter:
-            path = cfgf.chkpt_path.format(it)
-            checkpoints.save(path, params, step=it)
-            log.info("Saved model to %s", path)
+        do_host(it, metrics)
         it += 1
     fetch.flush()
     runtime.synchronize(dev)
     t_end = time.perf_counter()
     steps_per_sec = (cfgf.n_iter + 1) / max(t_end - t_start, 1e-9)
+    if chunk is not None and chunk.node_kinds is not None:
+        log.info(chunk.summary())
+        log.info("CUDA graph %s", json.dumps(chunk.stats()))
     if logger is not None:
         logger.log_value("full_steps_per_sec", steps_per_sec, end_it)
         if warm_it is not None:

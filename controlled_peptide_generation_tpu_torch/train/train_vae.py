@@ -29,6 +29,7 @@ per-step path's. ``--hw.unroll 1`` runs every step eagerly.
 ``hw.donate_state`` (jit's buffer donation) has no counterpart.
 """
 
+import json
 import logging
 import math
 import sys
@@ -41,11 +42,14 @@ from torch.profiler import record_function
 from .. import config as C
 from ..generation import generate_sentences
 from ..ops import losses as L
+from ..ops import sampling
 from ..utils import runtime
 from ..utils.annealing import anneal
 from ..utils.logging import DeferredFetch
+from ..utils.profiling import trace
 from ..vis.covar import cov_q, frobenius_to_identity
 from . import checkpoints
+from .chunk import GraphChunk
 from .opt import make_optimizer
 
 log = logging.getLogger(__name__)
@@ -72,8 +76,6 @@ def check_supported(cfg):
                                   "(ROADMAP.md A9)")
     if hw.get("zero", False):
         raise NotImplementedError("hw.zero is not ported (ROADMAP.md A9)")
-    if hw.get("profile_dir", ""):
-        raise NotImplementedError("hw.profile_dir is not ported")
 
 
 def aligned_unroll(unroll, *cadences):
@@ -87,7 +89,7 @@ def aligned_unroll(unroll, *cadences):
     return 1
 
 
-class _Drawer:
+class Drawer:
     """The random draws of ``draw_step``, each either a new tensor or
     written into the tensor of ``out`` under its name (bitwise the same:
     ``torch.randn`` and ``torch.rand`` are ``normal_`` and ``uniform_`` of
@@ -105,6 +107,12 @@ class _Drawer:
     def normal(self, name, shape):
         return self._into(name, None, shape, torch.float32).normal_(
             generator=self.gen)
+
+    def gumbel(self, name, shape):
+        """Standard Gumbel noise (``sampling.gumbel``)."""
+        return sampling.gumbel(shape, self.gen, self.device,
+                               None if self.out is None
+                               else self.out[name])
 
     def below(self, name, shape, p, i=None):
         """A bool mask, True where a uniform draw is below p."""
@@ -129,7 +137,7 @@ def draw_step(model, gen, B, T, device, rf_dim=None, out=None):
     g_args = model.dec_tfm_args if tfm_dec else model.gru_args
     p_wd = g_args.get("p_word_dropout", 0.3)
     Z = model.z_dim
-    d = _Drawer(gen, device, out)
+    d = Drawer(gen, device, out)
     draws = {
         "eps": d.normal("eps", (B, Z)),
         "c_bits": d.below("c_bits", (B,), 0.5),
@@ -271,162 +279,52 @@ def make_train_step(model, cfgv, cfg_losses, rf_basis, flat=False):
     return train_step, optimizer
 
 
-def launch_counters():
-    """The train step's kernel wrappers, whose ``launches`` counts a
-    replay of a chunk's graph cannot reach (the chunk adds them)."""
-    from ..ops import gru_fwd_kernel, gru_kernel, mmd_kernel
-    return (gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
-            gru_kernel.gru_seq_wgrad, gru_fwd_kernel.gru_fwd,
-            mmd_kernel.mmd_full_fwd, mmd_kernel.mmd_full_bwd)
-
-
-class TrainChunk:
+class TrainChunk(GraphChunk):
     """``unroll`` train steps, it0 .. it0 + unroll - 1, on texts [unroll,
     B, T]: the JAX package's ``make_train_scan``. Each step takes the
     draws of the per-step path (``draw_step`` with the generator of
     (seed, it)) and the beta of its own it, so the updates are those of
     ``unroll`` calls of the train step. Returns the last step's metrics.
-
-    On CUDA tensors the steps are one CUDA graph, captured on the first
-    call and replayed on every later one. Its inputs are static buffers
-    filled before each replay: the texts and the betas by one copy each
-    from pinned host buffers, every step's draws drawn into theirs by the
-    per-step generators. The graph holds the addresses of the params and
-    the optimizer state, so a call with other tensors raises. Before the
-    capture two steps run on copies of the state on the capture stream,
-    so the libraries, the kernels' set-up and B5's completion counter for
-    that stream exist and the trajectory does not move. The launch
-    counters skip that set-up and the capture; each replay adds the
-    launches the capture made. A capture that fails raises. On CPU tensors
-    the steps run eagerly, and ``draws`` (one dict per step) may replace
-    the generators' draws, as tests feed the JAX package's."""
+    On the card one captured CUDA graph (``train/chunk.py``), its inputs
+    the texts and the betas; on CPU tensors the steps run eagerly, and
+    ``draws`` (one dict per step) may replace the generators' draws."""
 
     def __init__(self, model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
                  flat=False):
         if rf_basis is None:
             raise ValueError("a train chunk needs a fixed RF basis: under "
                              "rf_resample the loop runs unroll 1")
-        self.model, self.cfgv, self.unroll, self.seed = (
-            model, cfgv, int(unroll), seed)
+        super().__init__(unroll)
+        self.model, self.cfgv, self.seed = model, cfgv, seed
         self.optimizer = make_optimizer(cfgv, flat)
-        self._update = _make_update(model, cfgv, cfg_losses, rf_basis,
-                                    self.optimizer)
-        self.graph = None
-        self.node_kinds = None     # the captured graph's node kinds
-        self.captured = {}         # launches per replay, by counter
-        self.replays = 0
+        self._step = _make_update(model, cfgv, cfg_losses, rf_basis,
+                                  self.optimizer)
 
-    def _betas(self, it0):
-        return torch.tensor([anneal(self.cfgv.beta, it0 + i)
-                             for i in range(self.unroll)],
-                            dtype=torch.float32)
+    def __call__(self, params, opt_state, texts, it0, draws=None):
+        return self.run({"params": params, "opt": opt_state}, (texts,), it0,
+                        draws)
 
-    def _draws(self, it0, B, T, dev, out=None):
+    def stage(self, texts, it0):
+        """Fill the captured graph's inputs for steps it0 .. it0 + unroll -
+        1 (a measurement of the staging alone, tools/profile_train.py)."""
+        self._stage(self._inputs(it0, texts), it0)
+
+    def _inputs(self, it0, texts):
+        return {"text": torch.as_tensor(texts),
+                "beta": torch.tensor([anneal(self.cfgv.beta, it0 + i)
+                                      for i in range(self.unroll)],
+                                     dtype=torch.float32)}
+
+    def _draws(self, it0, inputs, dev, out=None):
+        B, T = inputs["text"].shape[1:]
         return [draw_step(self.model,
                           runtime.generator(dev, self.seed, it0 + i), B, T,
                           dev, out=None if out is None else out[i])
                 for i in range(self.unroll)]
 
-    def __call__(self, params, opt_state, texts, it0, draws=None):
-        texts = torch.as_tensor(texts)
-        if texts.shape[0] != self.unroll:
-            raise ValueError(f"{texts.shape[0]} batches for a chunk of "
-                             f"{self.unroll}")
-        dev = next(iter(checkpoints.flatten(params).values())).device
-        if dev.type == "cuda":
-            if draws is not None:
-                raise ValueError("a chunk on the card draws its own: "
-                                 "injected draws run on CPU tensors")
-            return self._replay(params, opt_state, texts, it0, dev)
-        texts, betas = texts.to(dev), self._betas(it0)
-        if draws is None:
-            draws = self._draws(it0, *texts.shape[1:], dev)
-        for i in range(self.unroll):
-            metrics = self._update(params, opt_state, texts[i], betas[i],
-                                   draws[i])
-        return metrics
-
-    def _state_ptrs(self, params, opt_state):
-        return [t.data_ptr() for t in checkpoints.flatten(
-            {"params": params, "opt": opt_state}).values()]
-
-    def stage(self, texts, it0):
-        """Fill the captured graph's inputs for steps it0 .. it0 + unroll -
-        1: the texts [unroll, B, T] and the betas (one copy each from the
-        pinned host buffers, once the last stage's copies are done), and
-        every step's draws from the per-step generators."""
-        with record_function("chunk stage"):
-            texts = torch.as_tensor(texts)
-            self._copied.synchronize()
-            self._host_texts.copy_(texts)
-            self._host_betas.copy_(self._betas(it0))
-            self._texts.copy_(self._host_texts, non_blocking=True)
-            self._betas_dev.copy_(self._host_betas, non_blocking=True)
-            self._copied.record()
-            self._draws(it0, *texts.shape[1:], self._texts.device,
-                        out=self._static_draws)
-
-    def _replay(self, params, opt_state, texts, it0, dev):
-        if self.graph is None:
-            self._capture(params, opt_state, texts, it0, dev)
-        elif self._ptrs != self._state_ptrs(params, opt_state):
-            raise ValueError("the chunk's graph was captured on other "
-                             "params or optimizer state tensors")
-        else:
-            self.stage(texts, it0)
-        with record_function("chunk replay"):
-            self.graph.replay()
-        self.replays += 1
-        for fn, n in self.captured.items():
-            fn.launches += n
-        return dict(zip(self._keys, self._packed.clone().unbind(0)))
-
-    def _capture(self, params, opt_state, texts, it0, dev):
-        counters = launch_counters()
-        counts = [fn.launches for fn in counters]
-        self._texts = torch.empty(texts.shape, dtype=texts.dtype, device=dev)
-        self._betas_dev = torch.empty((self.unroll,), device=dev)
-        self._host_texts = torch.empty(texts.shape, dtype=texts.dtype,
-                                       pin_memory=True)
-        self._host_betas = torch.empty((self.unroll,), pin_memory=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
-        self._static_draws = self._draws(it0, *texts.shape[1:], dev)
-        self.stage(texts, it0)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            copies = checkpoints.unflatten({
-                p: t.detach().clone().requires_grad_(t.requires_grad)
-                for p, t in checkpoints.flatten(params).items()})
-            opt_copy = checkpoints.unflatten({
-                p: t.clone() for p, t in
-                checkpoints.flatten(opt_state).items()})
-            for i in range(2):
-                self._update(copies, opt_copy, self._texts[i % self.unroll],
-                             self._betas_dev[i % self.unroll],
-                             self._static_draws[i % self.unroll])
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        del copies, opt_copy
-        for fn, n in zip(counters, counts):
-            fn.launches = n
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=stream):
-            for i in range(self.unroll):
-                metrics = self._update(params, opt_state, self._texts[i],
-                                       self._betas_dev[i],
-                                       self._static_draws[i])
-            self._keys = sorted(metrics)
-            self._packed = torch.stack([metrics[k] for k in self._keys])
-        self.captured = {fn: fn.launches - n
-                         for fn, n in zip(counters, counts)
-                         if fn.launches != n}
-        for fn, n in zip(counters, counts):
-            fn.launches = n
-        self.node_kinds = runtime.graph_node_kinds(graph.raw_cuda_graph())
-        graph.instantiate()
-        self.graph = graph
-        self._ptrs = self._state_ptrs(params, opt_state)
+    def _update(self, state, x, draws):
+        return self._step(state["params"], state["opt"], x["text"],
+                          x["beta"], draws)
 
 
 def make_train_chunk(model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
@@ -561,35 +459,41 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     warm_it, t_warm = None, None
     t_start = time.perf_counter()
     B, T = cfgv.batch_size, cfg.max_seq_len
-    while it <= end_it:
-        if warm_it is None and it >= cfgv.s_iter + WARM_STEPS:
-            # the first step (or chunk boundary) at or after WARM_STEPS
-            runtime.synchronize(dev)
-            warm_it, t_warm = it, time.perf_counter()
-        # a chunk whenever no step inside it needs the host except
-        # possibly its last; the batches and draws are the same either way
-        if chunk is not None and it + unroll - 1 <= end_it and not any(
-                needs_host(it + j) for j in range(unroll - 1)):
-            texts = np.stack([dataset.next_batch("train_vae").text
-                              for _ in range(unroll)])
-            metrics = chunk(params, opt_state, texts, it)
-            it += unroll
-            do_host(it - 1, metrics)
-            continue
-        text = torch.from_numpy(dataset.next_batch("train_vae").text).to(dev)
-        draws = draw_step(model, runtime.generator(dev, cfg.seed, it), B, T,
-                          dev, None if rf_basis is not None
-                          else mmd_cfg.rf_dim)
-        metrics = train_step(params, opt_state, text, it, draws)
-        do_host(it, metrics)
-        it += 1
-    fetch.flush()
-    runtime.synchronize(dev)
+    # a torch.profiler trace of the loop under hw.profile_dir (the JAX
+    # package's jax.profiler trace): the chunks' captures and replays too
+    profile_dir = cfg.hw.get("profile_dir", "")
+    with trace(profile_dir, enabled=bool(profile_dir)):
+        while it <= end_it:
+            if warm_it is None and it >= cfgv.s_iter + WARM_STEPS:
+                # the first step (or chunk boundary) at or after WARM_STEPS
+                runtime.synchronize(dev)
+                warm_it, t_warm = it, time.perf_counter()
+            # a chunk whenever no step inside it needs the host except
+            # possibly its last; the batches and draws are the same either
+            # way
+            if chunk is not None and it + unroll - 1 <= end_it and not any(
+                    needs_host(it + j) for j in range(unroll - 1)):
+                texts = np.stack([dataset.next_batch("train_vae").text
+                                  for _ in range(unroll)])
+                metrics = chunk(params, opt_state, texts, it)
+                it += unroll
+                do_host(it - 1, metrics)
+                continue
+            text = torch.from_numpy(
+                dataset.next_batch("train_vae").text).to(dev)
+            draws = draw_step(model, runtime.generator(dev, cfg.seed, it), B,
+                              T, dev, None if rf_basis is not None
+                              else mmd_cfg.rf_dim)
+            metrics = train_step(params, opt_state, text, it, draws)
+            do_host(it, metrics)
+            it += 1
+        fetch.flush()
+        runtime.synchronize(dev)
     t_end = time.perf_counter()
     steps_per_sec = (cfgv.n_iter + 1) / max(t_end - t_start, 1e-9)
     if chunk is not None and chunk.node_kinds is not None:
-        log.info("%d replays of a %d-step CUDA graph of %d kernel nodes",
-                 chunk.replays, unroll, chunk.node_kinds.count("kernel"))
+        log.info(chunk.summary())
+        log.info("CUDA graph %s", json.dumps(chunk.stats()))
     if logger is not None:
         logger.log_value("train_steps_per_sec", steps_per_sec, end_it)
         if warm_it is not None:
