@@ -248,6 +248,28 @@ Phases, each raising on failure (the script then exits non-zero):
    loop (five replay beams a round, the last chunk padded); the deconv
    server through build_server for one request of 8; the skip model's
    phase 2 for 5 steps (B2 five times a step, B4 twice);
+11. data parallelism (parallel/), on the one card, each rank a process of
+   parallel.dist.spawn running dp_rank_jobs, which reports the kernels'
+   counts of each run: [11] main.main --hw.dp 2 (batch 32, 16 rows a
+   rank, --hw.unroll 1) on 2 gloo ranks on cuda:0 (NCCL refuses two ranks
+   on one device) for GRU phase 1 (41 steps), the transformer (11 steps)
+   and GRU phase 2 (11 iterations from phase 6's run), each against
+   --hw.dp 1 of the same flags: every checkpoint array within rtol 2e-4 /
+   atol 2e-5, the logged losses within rtol 1e-4, each rank's B2 and B5
+   counts those of the one-rank run; [11z] the same GRU run under
+   --hw.zero 1 (gloo reduce-scatters and all-gathers CUDA tensors) against
+   the one-rank run; [11g] under an NCCL group of world 1 through the DP
+   path (--hw.dp 0), phase 6's 301 GRU steps and 9u's 51 phase-2
+   iterations at --hw.unroll 50: the chunk's graph holds NCCL's kernels
+   (the gradients' and the metrics' averages) and replays, the checkpoint
+   within MAX_UNROLL_REL of the run without a group (bitwise is
+   expected), the same launches; a traced run's NCCL share of kernel
+   time; [11r] the round of both families over [cuda:0, cuda:0]
+   (parallel.rounds) against one device on the same draws, decode-all and
+   accepted-only: accept, tokens, idx and valid bitwise equal, B1 / B3
+   once a device a round, and run_from_states over that list; [11s] the
+   server built on the same list answers one request of 64 unique
+   peptides;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -359,6 +381,13 @@ BF16_T25_SAME_ROWS = 0.70
 BF16_UNIQ_RATIO = (0.99, 1.01)
 
 
+# [11]: data parallelism on the one card; steps of the 2-rank runs, GRU and
+# transformer/phase 2, and the bound of a DP run against its one-rank run
+# of the same flags (the tier-1 tests' bound for the DP step, rtol 2e-4 /
+# atol 2e-5, and their losses' 1e-4)
+DP_ITERS, DP_ITERS_T = 40, 10
+DP_RTOL, DP_ATOL, DP_LOSS_RTOL = 2e-4, 2e-5, 1e-4
+
 LOG_FILE = []          # the full log, also under chiprun_out/ (gitignored)
 
 
@@ -405,6 +434,55 @@ class ChunkLog(logging.Handler):
                          int(words[-3]))
         elif msg.startswith("CUDA graph {"):
             self.stats = json.loads(msg[len("CUDA graph "):])
+
+
+def reset_train_counts():
+    """Set the train steps' kernel counts (B2, B4, B5) to 0."""
+    from controlled_peptide_generation_tpu_torch.ops import (
+        gru_fwd_kernel, gru_kernel, mmd_kernel)
+    gru_kernel.reset_launches()
+    gru_fwd_kernel.gru_fwd.launches = 0
+    mmd_kernel.reset_launches()
+
+
+def train_counts():
+    """The train steps' kernel counts since reset_train_counts."""
+    from controlled_peptide_generation_tpu_torch.ops import (
+        gru_fwd_kernel, gru_kernel, mmd_kernel)
+    return {"B2 fwd": gru_kernel.gru_seq_fwd.launches,
+            "B2 bwd": gru_kernel.gru_seq_bwd.launches,
+            "B2 wgrad": gru_kernel.gru_seq_wgrad.launches,
+            "B4": gru_fwd_kernel.gru_fwd.launches,
+            "B5 fwd": mmd_kernel.mmd_full_fwd.launches,
+            "B5 bwd": mmd_kernel.mmd_full_bwd.launches}
+
+
+def dp_rank_jobs(jobs, out_dir):
+    """One rank of a group that parallel.dist.spawn started ([11]): main.main
+    on each job's flags in turn, the train kernels' counts set to 0 just
+    before each run and read just after; writes {name: {counts, seconds,
+    chunks, graph}} to out_dir/rank<r>.json (chunks and graph as ChunkLog
+    reads them)."""
+    import torch.distributed as tdist
+    from controlled_peptide_generation_tpu_torch import main as train_main
+    from controlled_peptide_generation_tpu_torch.train import (
+        train_full, train_vae)
+    chunk_log = ChunkLog()
+    for trainer in (train_vae, train_full):
+        trainer.log.addHandler(chunk_log)
+        trainer.log.setLevel("INFO")
+    out = {}
+    for name, argv in jobs:
+        reset_train_counts()
+        chunk_log.last = chunk_log.stats = None
+        t0 = time.perf_counter()
+        train_main.main(argv)
+        out[name] = {"counts": train_counts(),
+                     "seconds": time.perf_counter() - t0,
+                     "chunks": chunk_log.last, "graph": chunk_log.stats}
+    with open(os.path.join(out_dir, f"rank{tdist.get_rank()}.json"),
+              "w") as fh:
+        json.dump(out, fh)
 
 
 def log(msg):
@@ -552,6 +630,9 @@ def main():
     from controlled_peptide_generation_tpu_torch.ops import losses
     from controlled_peptide_generation_tpu_torch.ops import mmd_kernel
     from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+    from controlled_peptide_generation_tpu_torch.parallel import dist as pdist
+    from controlled_peptide_generation_tpu_torch.parallel import (
+        rounds as dp_rounds)
     from controlled_peptide_generation_tpu_torch.train import checkpoints
     from controlled_peptide_generation_tpu_torch.train import opt as train_opt
     from controlled_peptide_generation_tpu_torch.tools import beam_split
@@ -1521,9 +1602,10 @@ def main():
              for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
         draws = fused.round_draws(pipeline.round_generator(cfg_.seed, 1, dev),
                                   Q._sampler()[1], 5000)
-        r_kernel = fused.fused_round(model_, params_, draws, Q,
+        one_ = dp_rounds.shards_of(params_)
+        r_kernel = fused.fused_round(model_, one_, draws, Q,
                                      decode_dtype=decode_dtype)
-        r_plain = fused.fused_round(model_, params_, draws, Q, plain=True,
+        r_plain = fused.fused_round(model_, one_, draws, Q, plain=True,
                                     decode_dtype=decode_dtype)
         if not torch.equal(r_kernel[2], r_plain[2]):
             raise AssertionError(f"{tag}: accept masks differ between the "
@@ -1564,7 +1646,7 @@ def main():
                 d = fused.round_draws(
                     pipeline.round_generator(cfg_.seed, 2, dev),
                     Q._sampler()[1], 5000)
-                out = fused.fused_round(model_, params_, d, Q, capacity=cap,
+                out = fused.fused_round(model_, one_, d, Q, capacity=cap,
                                         decode_dtype=decode_dtype)
                 torch.cuda.synchronize()
                 return out
@@ -1618,18 +1700,7 @@ def main():
                 "--vae.cheaplog_every", "100", "--vae.expsvlog_every",
                 "150"] + list(extra)
 
-    def reset_counts():
-        gru_kernel.reset_launches()
-        gru_fwd_kernel.gru_fwd.launches = 0
-        mmd_kernel.reset_launches()
-
-    def counts():
-        return {"B2 fwd": gru_kernel.gru_seq_fwd.launches,
-                "B2 bwd": gru_kernel.gru_seq_bwd.launches,
-                "B2 wgrad": gru_kernel.gru_seq_wgrad.launches,
-                "B4": gru_fwd_kernel.gru_fwd.launches,
-                "B5 fwd": mmd_kernel.mmd_full_fwd.launches,
-                "B5 bwd": mmd_kernel.mmd_full_bwd.launches}
+    reset_counts, counts = reset_train_counts, train_counts
 
     chunk_log = ChunkLog()
     for trainer in (train_vae, train_full):
@@ -2452,8 +2523,9 @@ def main():
         Q_s = fitted_Q(cfg_)
         z_s = Q_s.rejection_sample(
             pipeline.round_generator(cfg_.seed, 1, dev), 5000)[0]
+        one_ = dp_rounds.shards_of(params_)
         dec = [pipeline.decode_top1(
-            z_s, model_, params_, pipeline.round_generator(cfg_.seed, 2, dev),
+            z_s, model_, one_, pipeline.round_generator(cfg_.seed, 2, dev),
             plain=plain_) for plain_ in (False, True)]
         same = (dec[0][0] == dec[1][0]).all(axis=1)
         d_score = float(np.abs(dec[0][1] - dec[1][1])[same].max())
@@ -2469,12 +2541,12 @@ def main():
         # fused decode-all round (its results copied to the host)
         def serial_round():
             pipeline.one_sampling_round(
-                model_, params_, vocab, Q_s, 5000,
+                model_, one_, vocab, Q_s, 5000,
                 pipeline.round_generator(cfg_.seed, 3, dev))
 
         def fused_round_():
             host_, ev_ = pipeline.launch_round(
-                cfg_, model_, params_, Q_s, 5000,
+                cfg_, model_, one_, Q_s, 5000,
                 pipeline.round_generator(cfg_.seed, 3, dev))
             ev_.synchronize()
         for name, fn in (("serial", serial_round), ("fused", fused_round_)):
@@ -2583,7 +2655,7 @@ def main():
     # the first round outside the server: one launch_round with round 1's
     # generator, its accepted rows deduped in order
     host_1, ev_1 = pipeline.launch_round(
-        cfg_8, srv.model, srv.params, srv.Q, 5000,
+        cfg_8, srv.model, srv.shards, srv.Q, 5000,
         pipeline.round_generator(cfg_8.seed, 1, dev))
     ev_1.synchronize()
     acc_1 = host_1[2].numpy()
@@ -3153,8 +3225,9 @@ def main():
         draws = fused.round_draws(pipeline.round_generator(cfg_o.seed, 1,
                                                            dev),
                                   Q10._sampler()[1], 5000)
-        r_k = fused.fused_round(model_o, params_o, draws, Q10)
-        r_p = fused.fused_round(model_o, params_o, draws, Q10, plain=True)
+        one_o = dp_rounds.shards_of(params_o)
+        r_k = fused.fused_round(model_o, one_o, draws, Q10)
+        r_p = fused.fused_round(model_o, one_o, draws, Q10, plain=True)
         same = (r_k[3] == r_p[3]).all(dim=1).float().mean().item()
         if not torch.equal(r_k[2], r_p[2]) or same < MIN_SAME_ROWS:
             raise AssertionError(f"{tag}: the round's route and plain=True "
@@ -3162,7 +3235,7 @@ def main():
         ts = []
         for _ in range(OPT_ROUND_REPS):
             t0 = time.perf_counter()
-            fused.fused_round(model_o, params_o, draws, Q10)
+            fused.fused_round(model_o, one_o, draws, Q10)
             torch.cuda.synchronize()
             ts.append(1e3 * (time.perf_counter() - t0))
         round_ms_o = statistics.median(ts)
@@ -3173,9 +3246,10 @@ def main():
                 k: v.cpu() for k, v in checkpoints.flatten(params_o).items()})
             z_s = r_k[0][:256]
             cs_s = [model_o.c_from_bits(draws.cbit[:256]).cpu()]
-            tk_c, _ = pipeline.decode_top1(z_s, model_o, params_o, chunk=256,
+            tk_c, _ = pipeline.decode_top1(z_s, model_o, one_o, chunk=256,
                                            cs=cs_s)
-            tk_h, _ = pipeline.decode_top1(z_s.cpu(), model_o, cpu_p,
+            tk_h, _ = pipeline.decode_top1(z_s.cpu(), model_o,
+                                           dp_rounds.shards_of(cpu_p),
                                            chunk=256, cs=cs_s)
             same_cpu = float((tk_c == tk_h).all(axis=1).mean())
             if same_cpu < MIN_SAME_ROWS:
@@ -3261,6 +3335,338 @@ def main():
     opt_launches = {k: sum(v["train"][0][k] for v in opt_stats.values())
                     + l_p2[k] for k in l_p2}
     opt_b1 = opt_stats["flow"]["rounds"][0]["B1"]
+
+    # ---- 11. data parallelism (ROADMAP A9 parts 1-3) ---------------------
+    # NCCL refuses two ranks on one device, so on the one card: [11] and
+    # [11z] run 2 ranks on cuda:0 over gloo (every step eager: gloo's
+    # collectives cannot be captured), [11g] the chunk's captured
+    # collectives under an NCCL group of world 1 through the DP path, [11r]
+    # and [11s] the round and the server over the list [cuda:0, cuda:0].
+    # Each rank is a process of parallel.dist.spawn running dp_rank_jobs;
+    # the ranks report their counts, zeroed before each run and read after
+    dp_dir = os.path.join(train_top, "dp")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    os.makedirs(dp_dir)
+    dp_on = ["--device", f"cuda:{dev.index or 0}"]
+    p2_from6 = ["--phase", "2", "--loadpath",
+                tcfg.vae.chkpt_path.format(TRAIN_ITERS)]
+    gloo_jobs = {
+        "GRU": train_flags("dp_gru", DP_ITERS, [
+            "--vae.cheaplog_every", "10", "--vae.expsvlog_every",
+            str(DP_ITERS), "--hw.unroll", "1"]),
+        "transformer": train_flags("dp_tfm", DP_ITERS_T, TFM_FLAGS + [
+            "--vae.cheaplog_every", "5", "--vae.expsvlog_every",
+            str(DP_ITERS_T), "--hw.unroll", "1"]),
+        "GRU phase 2": train_flags("dp_p2", TRAIN_ITERS) + p2_from6 + [
+            "--full.n_iter", str(DP_ITERS_T), "--full.cheaplog_every", "5",
+            "--full.expsvlog_every", str(DP_ITERS_T), "--hw.unroll", "1"]}
+    gloo_jobs["GRU ZeRO-1"] = [
+        "dp_zero" if a == "dp_gru" else a
+        for a in gloo_jobs["GRU"]] + ["--hw.zero", "1"]
+
+    def rank_results(world, backend, jobs):
+        out_dir = os.path.join(dp_dir, f"{backend}{world}")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        pdist.spawn(dp_rank_jobs, world,
+                    [(k, v + ["--hw.dp", "0"] + dp_on)
+                     for k, v in jobs.items()], out_dir, backend=backend,
+                    threads=0)
+        secs = time.perf_counter() - t0
+        res = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        return res, secs
+
+    gloo, gloo_s = rank_results(2, "gloo", gloo_jobs)
+    mark("11 two gloo ranks on the card (spawn and runs)")
+    one_runs = {}
+    for tag in ("GRU", "transformer", "GRU phase 2"):
+        flags_1 = [a + "_1" if a in ("dp_gru", "dp_tfm", "dp_p2") else a
+                   for a in gloo_jobs[tag]] + ["--hw.dp", "1"]
+        one_runs[tag] = train_run(f"{tag} dp 1", flags_1)
+    mark("11 the one-rank runs of the same flags")
+
+    def dp_delta(path_a, path_b, cfg_, n_steps):
+        """state_delta, and the arrays outside rtol DP_RTOL / atol
+        DP_ATOL (the tier-1 tests' bound for a DP step against its
+        one-device step). The attention keys' bias has an exact gradient
+        of 0 (softmax ignores a shift shared by all keys), so Adam turns
+        its rounding noise into steps of up to lr either way: its entries
+        (head-major [heads, q k v, dh]) are held within 2 lr a step
+        instead, and their moments, noise, are left out."""
+        rel, key, bitwise = state_delta(path_a, path_b)
+        out = []
+        with np.load(path_a) as a, np.load(path_b) as b:
+            for k in b.files:
+                x, y = a[k], b[k]
+                if k.endswith("['qkv']['b']"):
+                    part = "E_args" if "['enc']" in k else "G_args"
+                    heads = cfg_.model[part].T_args.get("n_heads", 4)
+                    keys = np.zeros(y.shape, bool)
+                    keys.reshape(heads, 3, -1)[:, 1] = True
+                    if "['opt']" in k:
+                        x, y = x[~keys], y[~keys]
+                    elif np.abs(x - y)[keys].max() > 2 * 1e-3 * n_steps:
+                        out.append(k)
+                        continue
+                    else:
+                        x, y = x[~keys], y[~keys]
+                if not np.allclose(x, y, rtol=DP_RTOL, atol=DP_ATOL):
+                    out.append(k)
+        return rel, key, bitwise, out
+
+    def losses_delta(cfg_a, cfg_b, prefix):
+        rows = []
+        for cfg_ in (cfg_a, cfg_b):
+            with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+                rows.append({r["it"]: {k: v for k, v in r.items()
+                                       if k.startswith(prefix + "L_")}
+                             for r in json.load(fh) if prefix + "L_vae" in r})
+        if set(rows[0]) != set(rows[1]) or not rows[1]:
+            raise AssertionError(f"logged rows {sorted(rows[0])} against "
+                                 f"{sorted(rows[1])}")
+        return max(abs(rows[0][i][k] - v) / max(abs(v), 1e-30)
+                   for i, r in rows[1].items() for k, v in r.items())
+
+    b2_keys = ("B2 fwd", "B2 bwd", "B2 wgrad", "B5 fwd", "B5 bwd")
+    dp_counts = []
+    for tag, job in gloo_jobs.items():
+        ref_tag = "GRU" if tag == "GRU ZeRO-1" else tag
+        cfg_1, counts_1, secs_1, _ = one_runs[ref_tag]
+        cfg_2, _, _ = C.parse_and_finalize(job)
+        phase2 = "phase 2" in tag
+        last = (cfg_1.full.s_iter + DP_ITERS_T if phase2
+                else cfg_1.vae.n_iter)
+        path_2 = (cfg_2.full if phase2 else cfg_2.vae).chkpt_path.format(last)
+        path_1 = (cfg_1.full if phase2 else cfg_1.vae).chkpt_path.format(last)
+        rel, key, bitwise, outside = dp_delta(path_2, path_1, cfg_1,
+                                              last - (cfg_1.full.s_iter
+                                                      if phase2 else 0) + 1)
+        loss_rel = losses_delta(cfg_2, cfg_1, "full_" if phase2 else "train_")
+        per_rank = [g[tag]["counts"] for g in gloo]
+        dp_counts += per_rank
+        bad_counts = [r for r, c in enumerate(per_rank)
+                      if any(c[k] != counts_1[k] for k in b2_keys)]
+        log(f"[11{'z' if 'ZeRO' in tag else ''}] {tag}: main.main --hw.dp 2 "
+            f"on 2 gloo ranks on {dp_on[1]} (batch 32, 16 rows a rank, every "
+            f"step eager) against --hw.dp 1 of the same flags: "
+            f"model_{last}.npz "
+            f"largest difference {rel:.3e} of the array's largest entry "
+            f"({key}), bitwise {'equal' if bitwise else 'different'}, "
+            f"arrays outside rtol {DP_RTOL} / atol {DP_ATOL} (the keys' "
+            f"bias within 2 lr a step): {outside}; "
+            f"logged losses within {loss_rel:.3e}; launches per rank "
+            f"{per_rank} against --hw.dp 1's {counts_1}; "
+            f"{[round(g[tag]['seconds'], 2) for g in gloo]} s a rank against "
+            f"{secs_1:.2f} s in main.main ({card})")
+        if outside or loss_rel > DP_LOSS_RTOL or bad_counts:
+            raise AssertionError(f"[11] {tag}: the DP run against --hw.dp "
+                                 f"1: arrays {outside}, losses "
+                                 f"{loss_rel:.3e}, ranks {bad_counts} with "
+                                 f"other B2/B5 launches")
+    # steps/s of the GRU phase-1 runs, 2 gloo ranks against 1 rank, both
+    # every step eager: the host staging of gloo's collectives
+    rates = {}
+    for tag, cfg_ in (("dp 2", C.parse_and_finalize(gloo_jobs["GRU"])[0]),
+                      ("dp 1", one_runs["GRU"][0])):
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            rates[tag] = [r["train_steps_per_sec_warm"] for r in json.load(fh)
+                          if "train_steps_per_sec_warm" in r][-1]
+    log(f"[11] GRU phase 1, {DP_ITERS + 1} steps every step eager: "
+        f"{rates['dp 2']:.2f} steps/s on 2 gloo ranks of one card against "
+        f"{rates['dp 1']:.2f} at --hw.dp 1; {gloo_s:.1f} s for the spawn "
+        f"and the ranks' four runs ({card})")
+    mark("11 checks")
+
+    # [11g]: an NCCL group of world 1 through the DP path (hw.dp 0 under a
+    # group): the chunk's graph holds the collectives, against phase 6's
+    # and 9u's runs of the same flags without a group
+    trace_nccl = os.path.join(train_top, "trace_nccl")
+    shutil.rmtree(trace_nccl, ignore_errors=True)
+    p2_50 = train_flags("p2u50_GRU", TRAIN_ITERS) + p2_from6 + [
+        "--full.n_iter", "50", "--full.cheaplog_every", "50",
+        "--full.expsvlog_every", "50"]
+    nccl_jobs = {
+        "GRU phase 1": train_flags("smoke_nccl", TRAIN_ITERS),
+        "GRU phase 2": ["p2u50_GRU_nccl" if a == "p2u50_GRU" else a
+                        for a in p2_50],
+        "GRU traced": train_flags("smoke_trace_nccl", 25, [
+            "--vae.cheaplog_every", "25", "--vae.expsvlog_every", "25",
+            "--hw.profile_dir", trace_nccl])}
+    (nccl,), nccl_s = rank_results(1, "nccl", nccl_jobs)
+    mark("11g an NCCL group of world 1 (spawn and runs)")
+    cfg_9u = C.parse_and_finalize(p2_50)[0]
+    for tag, cfg_ref, counts_ref, want_ch in (
+            ("GRU phase 1", tcfg, train_launches, (TRAIN_ITERS // 50, 50)),
+            ("GRU phase 2", cfg_9u, full_u50["GRU"][0], (1, 50))):
+        cfg_n, _, _ = C.parse_and_finalize(nccl_jobs[tag])
+        phase2 = "2" in tag
+        last = (cfg_n.full.s_iter + 50) if phase2 else TRAIN_ITERS
+        rel, key, bitwise = state_delta(
+            (cfg_n.full if phase2 else cfg_n.vae).chkpt_path.format(last),
+            (cfg_ref.full if phase2 else cfg_ref.vae).chkpt_path.format(last))
+        res = nccl[tag]
+        st, ch = res["graph"], res["chunks"]
+        if (ch is None or tuple(ch[:2]) != want_ch or not st
+                or not st["collective_nodes"] or rel > MAX_UNROLL_REL
+                or any(res["counts"][k] != counts_ref[k] for k in b2_keys)):
+            raise AssertionError(f"[11g] {tag}: chunks {ch} (want "
+                                 f"{want_ch}), graph {st}, model_{last}.npz "
+                                 f"{key} apart by {rel:.3e}, launches "
+                                 f"{res['counts']} (want {counts_ref})")
+        log(f"[11g] {tag}: main.main --hw.dp 0 under an NCCL group of world "
+            f"1 (the DP path): {ch[0]} replays of a {ch[1]}-step CUDA graph "
+            f"of {ch[2]} kernel nodes, {st['collective_nodes']} of them "
+            f"NCCL's ({st['collective_nodes'] / ch[1]:.0f} a step), "
+            f"{st['memcpy_nodes']} copy nodes, {st['nodes']} nodes; capture "
+            f"{st['capture_s']:.3f} s; against the same flags without a "
+            f"group: model_{last}.npz largest difference {rel:.3e} ({key}), "
+            f"bitwise {'equal' if bitwise else 'different'}; launches "
+            f"{res['counts']}; {res['seconds']:.2f} s in main.main ({card})")
+        dp_counts.append(res["counts"])
+    rates_g = {}
+    for tag, cfg_ in (("nccl", C.parse_and_finalize(
+            nccl_jobs["GRU phase 1"])[0]), ("none", tcfg)):
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            rates_g[tag] = [r["train_steps_per_sec_warm"]
+                            for r in json.load(fh)
+                            if "train_steps_per_sec_warm" in r][-1]
+    traces_n = [os.path.join(trace_nccl, f) for f in os.listdir(trace_nccl)
+                if f.endswith(".pt.trace.json")]
+    with open(traces_n[0]) as fh:
+        k_ev = [e for e in json.load(fh)["traceEvents"]
+                if e.get("cat") == "kernel"]
+    coll_us = sum(e.get("dur", 0) for e in k_ev
+                  if runtime.is_collective(e.get("name", "")))
+    all_us = sum(e.get("dur", 0) for e in k_ev)
+    n_coll = sum(runtime.is_collective(e.get("name", "")) for e in k_ev)
+    if not n_coll or len(traces_n) != 1:
+        raise AssertionError(f"[11g] the traced DP run: {len(traces_n)} "
+                             f"traces, {n_coll} NCCL kernels in it")
+    log(f"[11g] GRU phase 1 at --hw.unroll 50, cadences 100 / 150: "
+        f"{rates_g['nccl']:.2f} steps/s (warm) through the DP path under "
+        f"NCCL world 1 against {rates_g['none']:.2f} without a group "
+        f"(phase 6); the traced DP run (26 steps, one replay of a 25-step "
+        f"graph): {n_coll} NCCL kernels, {coll_us:.1f} us of {all_us:.1f} "
+        f"us of kernel time ({100 * coll_us / max(all_us, 1e-9):.2f}%); "
+        f"{nccl_s:.1f} s for the spawn and the rank's three runs ({card})")
+    mark("11g checks")
+
+    # [11r]: the sharded round over [cuda:0, cuda:0] against the one-device
+    # round on the same draws, and run_from_states over that list
+    two = [dev, dev]
+    dp_rounds_launches = {"B1": 0, "B3": 0}
+    round_ms_dp = {}
+    for tag, cfg_r, model_r, params_r, counter, kkey in (
+            ("GRU", cfg, model, params, beam_kernel.beam_scan_gru, "B1"),
+            ("transformer", cfg_t5, model_t3, params_t3,
+             tfm_beam_kernel.beam_scan_tfm, "B3")):
+        Q = pipeline.fitQ_and_test(
+            cfg_r, pipeline.resolve_QClass("mogQ"),
+            {"n_components": 100, "z_num_samples": 10,
+             "covariance_type": "diag"}, states, device=dev)[0]
+        Q.init_attr_classifiers(
+            {a: pipeline.build_clfZ(cfg_r, a, states, device=dev)
+             for a in ("amp", "tox")}, {"amp": 1, "tox": 0})
+        two_r = dp_rounds.shards_of(params_r, two)
+        one_r = dp_rounds.shards_of(params_r)
+        draws = fused.round_draws(pipeline.round_generator(cfg_r.seed, 1,
+                                                           dev),
+                                  Q._sampler()[1], 5000)
+        for cap in (None, 2500):
+            one_dev = fused.fused_round(model_r, one_r, draws, Q,
+                                        capacity=cap)
+            counter.launches = 0
+            shd = fused.fused_round(model_r, two_r, draws, Q, capacity=cap)
+            n_l = counter.launches
+            same = [torch.equal(a, b) for a, b in zip(
+                (shd[2], shd[3]) + tuple(shd[4:]),
+                (one_dev[2], one_dev[3]) + tuple(one_dev[4:]))]
+            z_d = (shd[0] - one_dev[0]).abs().max().item()
+            s_d = max((shd[1][k] - v).abs().max().item()
+                      for k, v in one_dev[1].items())
+            log(f"[11r] {tag} round of 5000, capacity {cap}, over "
+                f"[{dp_on[1]}, {dp_on[1]}] against one device on the same "
+                f"draws: "
+                f"accept, tokens{', idx, valid' if cap else ''} bitwise "
+                f"{'equal' if all(same) else 'DIFFERENT'}; z max |delta| "
+                f"{z_d:.3e}, scores {s_d:.3e}; {kkey} launches {n_l}")
+            if not all(same) or n_l != 2:
+                raise AssertionError(f"[11r] {tag} capacity {cap}: equal "
+                                     f"{same}, launches {n_l} (want 2)")
+
+            def timed(fn):
+                fn()
+                ts = []
+                for _ in range(ROUND_REPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ts.append(1e3 * (time.perf_counter() - t0))
+                return statistics.median(ts)
+            round_ms_dp[tag, cap] = (
+                timed(lambda: fused.fused_round(model_r, two_r, draws, Q,
+                                                capacity=cap)),
+                timed(lambda: fused.fused_round(model_r, one_r, draws, Q,
+                                                capacity=cap)))
+        for mode in ("all", "accepted"):
+            cfg_m, args_m, _ = C.parse_and_finalize(
+                (flags if tag == "GRU" else tflags_t) + [
+                    "--hw.decode_mode", mode, "--Q_n_components", "100",
+                    "--Q_covariance_type", "diag", "--n_samples_per_round",
+                    "5000", "--n_samples_acc", "100",
+                    "--samples_outfn_prefix", f"smoke_dp_{mode}"],
+                extra_args=sample_pipeline.EXTRA_ARGS)
+            counter.launches = 0
+            _, samples_m, stats_m = pipeline.run_from_states(
+                cfg_m, args_m, model_r, params_r, vocab, states, device=dev,
+                devices=two)
+            n_l = counter.launches
+            peps = samples_m["peptide"]
+            n_acc = len({p for p, a in zip(peps, samples_m["accept"]) if a})
+            if n_l != 2 * stats_m["rounds_launched"] or n_acc < 100:
+                raise AssertionError(f"[11r] {tag} {mode}: {n_l} launches "
+                                     f"for {stats_m['rounds_launched']} "
+                                     f"rounds, {n_acc} accepted")
+            dp_rounds_launches[kkey] += n_l
+            log(f"[11r] {tag} run_from_states over [{dp_on[1]}, {dp_on[1]}], "
+                f"decode_mode={mode}: {stats_m['rounds_launched']} rounds "
+                f"launched, {kkey} launches {n_l} (one a device a round), "
+                f"{n_acc} unique accepted, loop {stats_m['seconds']:.4f} s")
+        mark(f"11r {tag} sharded rounds")
+    log("[11r] a round of 5000 on one card, median of "
+        f"{ROUND_REPS} (host clock), sharded over [{dp_on[1]}, {dp_on[1]}] "
+        f"against "
+        "one device: " + ", ".join(
+            f"{t} capacity {c}: {a:.3f} ms against {b:.3f} ms"
+            for (t, c), (a, b) in round_ms_dp.items()) + f" ({card})")
+
+    # [11s]: the server on the same two-entry list
+    srv_dp = serve.build_server(cfg_8, args_8, device=dev, devices=two)
+    beam_kernel.beam_scan_gru.launches = 0
+    srv_dp.start()
+    try:
+        t0 = time.perf_counter()
+        rows_dp = srv_dp.generate(64, timeout=300)
+        lat_dp = time.perf_counter() - t0
+    finally:
+        srv_dp.stop()
+    n_l = beam_kernel.beam_scan_gru.launches
+    peps_dp = [r["peptide"] for r in rows_dp]
+    if (len(set(peps_dp)) != 64 or n_l != 2 * srv_dp._round_ix
+            or srv_dp.n_dev != 2):
+        raise AssertionError(f"[11s] the server over two devices: "
+                             f"{len(set(peps_dp))} unique of 64, B1 "
+                             f"launches {n_l} for {srv_dp._round_ix} rounds")
+    dp_rounds_launches["B1"] += n_l
+    log(f"[11s] GenerationServer on the phase-6 run over [{dp_on[1]}, "
+        f"{dp_on[1]}]: one request of 64 unique peptides in {lat_dp:.3f} s, "
+        f"{srv_dp._round_ix} round(s), B1 launches {n_l} ({card})")
+    mark("11s the server over two devices")
+    dp_launches = {k: sum(c[k] for c in dp_counts) for k in dp_counts[0]}
+    dp_launches.update(dp_rounds_launches)
 
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
@@ -3483,7 +3889,8 @@ def main():
         "replaces": "controlled_peptide_generation_tpu/ops/pallas_beam.py:285",
         "launches": (launches["all"] + launches["accepted"]
                      + se_counts["B1"] + se_counts2["B1"]
-                     + serial_runs["GRU"][1] + serve_launches + opt_b1),
+                     + serial_runs["GRU"][1] + serve_launches + opt_b1
+                     + dp_launches["B1"]),
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
@@ -3501,7 +3908,7 @@ def main():
             "launches": (train_launches[f"B2 {k}"] + l9g[f"B2 {k}"]
                          + l9m[f"B2 {k}"]
                          + sum(m_[f"B2 {k}"] for m_ in mix_l)
-                         + opt_launches[f"B2 {k}"]),
+                         + opt_launches[f"B2 {k}"] + dp_launches[f"B2 {k}"]),
             "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
@@ -3514,7 +3921,7 @@ def main():
             "controlled_peptide_generation_tpu/ops/pallas_tfm_beam.py:395",
         "launches": (launches_t["all"] + launches_t["accepted"]
                      + se_counts_t["B3"] + serial_runs["transformer"][1]
-                     + serve_launches_t),
+                     + serve_launches_t + dp_launches["B3"]),
         "max_abs_err": b3_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
@@ -3527,7 +3934,8 @@ def main():
             "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
         "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
                      + se_counts2["B4"] + l9g["B4"] + l9m["B4"]
-                     + sum(m_["B4"] for m_ in mix_l) + opt_launches["B4"]),
+                     + sum(m_["B4"] for m_ in mix_l) + opt_launches["B4"]
+                     + dp_launches["B4"]),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
@@ -3535,9 +3943,10 @@ def main():
     for k, n_launch in (("fwd", train_launches["B5 fwd"]
                          + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
                          + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)
-                         + opt_launches["B5 fwd"]),
+                         + opt_launches["B5 fwd"] + dp_launches["B5 fwd"]),
                         ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"]
-                         + sum(m_["B5 bwd"] for m_ in mix_l))):
+                         + sum(m_["B5 bwd"] for m_ in mix_l)
+                         + dp_launches["B5 bwd"])):
         k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
         entries.append({
             "name": f"mmd_full_{k}",

@@ -294,11 +294,15 @@ def default_config():
     # command line drives either package. Options the port does not run
     # yet raise NotImplementedError where they are read (ROADMAP.md).
     cfg.hw = Bunch(
-        dp=1,                 # data-parallel devices (port: 1 only)
-        tp=1,
-        pp=1,
-        mesh_axis="data",
-        zero=False,
+        dp=1,                 # data-parallel devices: training, the ranks
+                              # of a process group (torchrun, one a
+                              # device; 0 = the group's size); sampling and
+                              # the server, the first dp devices (0 = all)
+        tp=1,                 # tensor and pipeline parallelism: not
+        pp=1,                 # ported (ROADMAP.md A9), > 1 raises
+        mesh_axis="data",     # the JAX mesh's axis name; no role here
+        zero=False,           # ZeRO-1 (phase 1 under dp): Adam's moments
+                              # sharded over the ranks
         donate_state=True,    # parse only: buffer donation of jit, no
                               # counterpart in the port
         unroll=50,            # train steps per dispatch, both phases:

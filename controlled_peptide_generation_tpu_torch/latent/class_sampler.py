@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import rounds
 from . import gmm as gmm_mod
 
 
@@ -50,6 +51,34 @@ def rejection_round(draws, sampler, clf_w, clf_b, targets):
     probs = torch.where(targets[None, :] == 1, p1, 1.0 - p1)
     accum = torch.prod(probs, dim=1)
     return z, probs, accum, draws.u < accum
+
+
+def round_scores(names, Q, accum, probs, prefix="clfZ"):
+    """A round's score columns: ``<prefix>_prob_accum`` and
+    ``<prefix>_<attr>=<target>`` of each head."""
+    scores = {f"{prefix}_prob_accum": accum}
+    for i, a in enumerate(names):
+        scores[f"{prefix}_{a}={Q.clf_targets[a]}"] = probs[:, i]
+    return scores
+
+
+def sample_round(devices, draws, Q):
+    """``rejection_round`` of Q's sampler and heads on ``draws`` over
+    ``devices`` (the JAX package's ``dp_rejection_round``; one device is a
+    list of one): each device scores its n / D rows. Returns (z, scores
+    dict, accept) joined on the draws' device."""
+    n, home = draws.u.shape[0], draws.u.device
+    rounds.check(n, devices)
+    names, clf_w, clf_b, targets = clf_args(Q)
+    kind, q_params = Q._sampler()
+    heads = (q_params, clf_w, clf_b, targets)
+    outs = []
+    for d, dev in zip(rounds.split(draws, devices), devices):
+        q, w, b, t = rounds.to(heads, dev)
+        outs.append(rejection_round(d, (kind, q), w, b, t))
+    z, probs, accum, accept = (rounds.join([o[j] for o in outs], home)
+                               for j in range(4))
+    return z, round_scores(names, Q, accum, probs), accept
 
 
 def accepted_z(z, accept, max_accepted):

@@ -47,16 +47,10 @@ class RejSampleMixin:
         ``gen`` (or the injected ``class_sampler.RejectionDraws``).
         Returns (z, scores dict, accept): scores are ``clfZ_prob_accum``
         and ``clfZ_<attr>=<target>``."""
-        names, clf_w, clf_b, targets = class_sampler.clf_args(self)
         if draws is None:
             draws = class_sampler.rejection_draws(gen, self.params,
                                                   n_samples)
-        z, probs, accum, accept = class_sampler.rejection_round(
-            draws, self._sampler(), clf_w, clf_b, targets)
-        scores = {"clfZ_prob_accum": accum}
-        for i, a in enumerate(names):
-            scores[f"clfZ_{a}={self.clf_targets[a]}"] = probs[:, i]
-        return z, scores, accept
+        return class_sampler.sample_round([draws.u.device], draws, self)
 
     def _sampler(self):
         """(kind, GMMParams) consumed by the rounds."""

@@ -20,6 +20,17 @@ transformer or a deconv stack (``--model.G_args.G_class``); a flow on z
 deconv model raises before any step, as the JAX package cannot run it
 (``train_full.check_phase2``). Runs on CUDA unless ``--device cpu`` is
 given.
+
+Data parallelism over one process a device (``parallel/dist.py``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m controlled_peptide_generation_tpu_torch.main ... --hw.dp N
+
+trains phases 1, 2 and -1 as the JAX package's ``hw.dp N`` does: every
+rank steps on the global batch's rows it owns, the gradients averaged
+over the ranks (``--hw.zero 1``: ZeRO-1 in phase 1); rank 0 alone writes
+the config, vocab, logs, checkpoints, samples and result.json. Without
+torchrun, ``--hw.dp 1`` runs as before and ``--hw.dp N`` raises.
 """
 
 import logging
@@ -32,6 +43,7 @@ from .data import synthetic
 from .data.loader import AttributeDataLoader
 from .generation import generate_sentences
 from .models.rnn_vae import build_model
+from .parallel import dist as pdist
 from .train import checkpoints
 from .api import generate_interpolated_samples
 from .train.train_full import check_phase2, train_full
@@ -115,17 +127,24 @@ def main(argv=None):
     if cfg.phase not in (1, 2, -1):
         raise ValueError(f"--phase {cfg.phase}: 1, 2 or -1 (both)")
     check_supported(cfg)
-    C.save_config(overrides, cfg, cfg.savepath)
-    C.pretty_print(cfg)
-    log.info("device: %s; random seed: %s", device, cfg.seed)
+    pdist.init_from_env(device)
+    writer = pdist.is_writer()
+    if writer:
+        C.save_config(overrides, cfg, cfg.savepath)
+        C.pretty_print(cfg)
+    log.info("device: %s; random seed: %s; rank %d of %d", device, cfg.seed,
+             pdist.rank(), pdist.world_size())
 
     result_json = (os.path.join(cfg.savepath, "result.json")
                    if cfg.resume_result_json else None)
-    logger = MetricLogger(cfg.tbpath, result_json)
+    logger = MetricLogger(cfg.tbpath, result_json) if writer else None
     try:
-        dataset = load_dataset(cfg)
-        dataset.print_stats(out=log.info)
-        dataset.vocab.save(cfg.vocab_path)
+        # rank 0 first: it may write the synthetic corpus the others read
+        with pdist.writer_first():
+            dataset = load_dataset(cfg)
+        if writer:
+            dataset.print_stats(out=log.info)
+            dataset.vocab.save(cfg.vocab_path)
 
         model = build_model(cfg.model, n_vocab=dataset.n_vocab,
                             max_seq_len=cfg.max_seq_len)
@@ -141,14 +160,15 @@ def main(argv=None):
                                                  params, logger)
             log.info("train throughput: %.2f steps/sec", steps_per_sec)
 
-            log.info("Evaluating base vae...")
-            samples, _, _ = generate_sentences(
-                model, params, cfg.evals.sample_size,
-                gen=runtime.generator(device, cfg.seed + 1),
-                sample_mode="categorical", device=device)
-            sents = dataset.idx2sentences(samples.cpu().numpy(), False)
-            write_gen_samples(sents, cfg.vae.gen_samples_path)
-            write_fasta(sents, cfg.vae.fasta_gen_samples_path)
+            if writer:
+                log.info("Evaluating base vae...")
+                samples, _, _ = generate_sentences(
+                    model, params, cfg.evals.sample_size,
+                    gen=runtime.generator(device, cfg.seed + 1),
+                    sample_mode="categorical", device=device)
+                sents = dataset.idx2sentences(samples.cpu().numpy(), False)
+                write_gen_samples(sents, cfg.vae.gen_samples_path)
+                write_fasta(sents, cfg.vae.fasta_gen_samples_path)
 
         if cfg.phase in (2, -1):
             # standalone, finalize() resolved loadpath to the phase-1
@@ -158,22 +178,26 @@ def main(argv=None):
             params, steps_per_sec = train_full(cfg, model, dataset, params,
                                                logger)
             log.info("full-phase throughput: %.2f steps/sec", steps_per_sec)
-            samples, _, c_ix = generate_sentences(
-                model, params, cfg.evals.sample_size,
-                gen=runtime.generator(device, cfg.seed + 2),
-                sample_mode="categorical", device=device)
-            write_gen_samples(
-                dataset.idx2sentences(samples.cpu().numpy(), False),
-                cfg.full.gen_samples_path, c_lab=c_ix.cpu().numpy())
-            write_phase2_artifacts(cfg, model, params, dataset)
+            if writer:
+                samples, _, c_ix = generate_sentences(
+                    model, params, cfg.evals.sample_size,
+                    gen=runtime.generator(device, cfg.seed + 2),
+                    sample_mode="categorical", device=device)
+                write_gen_samples(
+                    dataset.idx2sentences(samples.cpu().numpy(), False),
+                    cfg.full.gen_samples_path, c_lab=c_ix.cpu().numpy())
+                write_phase2_artifacts(cfg, model, params, dataset)
 
-        log.info("saving result.json and vae_result.json at %s",
-                 cfg.savepath)
-        logger.export_to_json(os.path.join(cfg.savepath, "result.json"))
-        logger.export_to_json(os.path.join(cfg.savepath, "vae_result.json"),
-                              it_filter=lambda k, v: k <= cfg.vae.n_iter)
+        if writer:
+            log.info("saving result.json and vae_result.json at %s",
+                     cfg.savepath)
+            logger.export_to_json(os.path.join(cfg.savepath, "result.json"))
+            logger.export_to_json(
+                os.path.join(cfg.savepath, "vae_result.json"),
+                it_filter=lambda k, v: k <= cfg.vae.n_iter)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return cfg
 
 

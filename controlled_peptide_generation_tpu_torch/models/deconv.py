@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..ops import nn
 from ..ops.gru import gru_scan, init_gru_params
+from ..parallel import collectives
 
 
 def _layers(max_seq_len, kernel_size, num_deconv_layers):
@@ -86,9 +87,18 @@ def conv2d(x, p, pad_h):
 
 
 def batchnorm2d(x, p, eps=1e-5):
-    """Batch statistics over (B, H, W), the population variance."""
-    mean = x.mean(dim=(0, 2, 3), keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    """Batch statistics over (B, H, W), the population variance; inside a
+    data-parallel step (``collectives.active``) over the global batch,
+    each statistic's sums all-reduced over the ranks."""
+    shard = collectives.current()
+    if shard is None:
+        mean = x.mean(dim=(0, 2, 3), keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    else:
+        n = x.shape[0] * x.shape[2] * x.shape[3] * shard.world
+        mean = shard.sum(x.sum(dim=(0, 2, 3), keepdim=True)) / n
+        var = shard.sum(((x - mean) ** 2).sum(dim=(0, 2, 3),
+                                              keepdim=True)) / n
     xn = (x - mean) * torch.rsqrt(var + eps)
     return (xn * p["scale"][None, :, None, None]
             + p["bias"][None, :, None, None])

@@ -20,18 +20,34 @@ from ..data.vocab import PAD_IDX
 from . import cuda_build, mmd_kernel
 
 
-def recon_dec(sequences, logits):
+def _targets(sequences):
+    pad_col = torch.full((sequences.shape[0], 1), PAD_IDX,
+                         dtype=sequences.dtype, device=sequences.device)
+    return torch.cat([sequences[:, 1:], pad_col], dim=1).long()
+
+
+def token_count(sequences):
+    """The non-PAD targets of ``recon_dec`` in [B, T] int sequences (at
+    least 1), a 0-d float32 tensor."""
+    return (_targets(sequences) != PAD_IDX).sum().to(
+        torch.float32).clamp_min(1.0)
+
+
+def recon_dec(sequences, logits, count=None):
     """NLL of next-token predictions, ignoring PAD targets.
 
     sequences: [B, T] int; logits: [B, T, V]. Inputs '<start> A C ...
-    <eos>' predict targets 'A C ... <eos> <pad>'."""
-    pad_col = torch.full((sequences.shape[0], 1), PAD_IDX,
-                         dtype=sequences.dtype, device=sequences.device)
-    targets = torch.cat([sequences[:, 1:], pad_col], dim=1).long()
+    <eos>' predict targets 'A C ... <eos> <pad>'. The NLL sum is divided
+    by the batch's non-PAD target count, or by ``count`` (a data-parallel
+    rank's rows divide by the global batch's count over the world size,
+    ``parallel/collectives.py``)."""
+    targets = _targets(sequences)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     mask = (targets != PAD_IDX).to(logits.dtype)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    if count is None:
+        count = mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / count
 
 
 def kl_gaussianprior(mu, logvar):

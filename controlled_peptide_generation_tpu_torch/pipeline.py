@@ -16,6 +16,12 @@ per peptide, in a pandas frame.
 
 Each round draws from its own torch.Generator seeded from (cfg.seed,
 round_ix), so the candidate stream does not depend on the schedule.
+
+``hw.dp`` > 1 (0: every visible device) shards each round over the first
+``hw.dp`` devices of this process (``parallel/rounds.py``, the JAX
+package's ``dp_fused_round`` and ``dp_rejection_round``): the same draws,
+n / D candidates a device, the same tokens and accept masks as one
+device; ``run_from_states`` also takes the device list itself.
 """
 
 import datetime
@@ -34,9 +40,11 @@ from .api import (load_trained_model, get_model_and_vocab_path,
                   get_result_for_model, load_vocab)
 from .data.loader import AttributeDataLoader
 from .evals.peptide_evals import compute_modlamp, modlamp_from_tokens
-from .latent import density, fused, logreg
+from .latent import class_sampler, density, fused, logreg
 from .ops import beam as beam_ops
+from .parallel import rounds as dp_rounds
 from .train import checkpoints
+from .train.train_vae import check_supported
 from .utils import runtime
 from .vis import build_index
 
@@ -194,7 +202,7 @@ def build_clfZ(cfg, attr, states, attributes=None, device="cpu"):
 # rounds
 # ---------------------------------------------------------------------------
 
-def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
+def decode_top1(z, model, shards, gen=None, chunk=DECODE_CHUNK,
                 beam_size=DECODE_BEAM_SIZE, cs=None, plain=False):
     """Beam-decode latents in chunks of ``chunk``, the last zero-padded to
     the full width; c per chunk drawn from ``gen`` (``cs``: the chunks'
@@ -209,11 +217,13 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
     gen_prior flow each padded chunk (its ``generate_sentences``). The
     deconv family decodes a chunk's logits at once, pad rows included (its
     batch norm reads them, as in the JAX package), and replays them in
-    ``beam_search_logits``."""
-    dev = next(iter(checkpoints.flatten(params).values())).device
+    ``beam_search_logits``. ``shards`` (``parallel.rounds.Shards``, one
+    entry for one device) holds the params: chunk j decodes on device j
+    mod D, its c drawn on the first device whatever D is."""
+    dev = shards.devices[0]
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
     if model.flow > 0 and model.flow_mode == "posterior":
-        z = model.apply_flow(params, z)[0]
+        z = model.apply_flow(shards.replicas[0], z)[0]
     n = z.shape[0]
     toks, scores = [], []
     for j, s in enumerate(range(0, n, chunk)):
@@ -223,6 +233,9 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
             zc = torch.cat([zc, zc.new_zeros((pad, z.shape[1]))])
         c = (model.sample_c_prior(gen, chunk, device=dev) if cs is None
              else torch.as_tensor(cs[j], dtype=torch.float32, device=dev))
+        i = j % len(shards.devices)
+        params = shards.replicas[i]
+        zc, c = zc.to(shards.devices[i]), c.to(shards.devices[i])
         if model.flow > 0 and model.flow_mode == "gen_prior":
             zc = model.apply_flow(params, zc)[0]
         if model.G_class == "deconv":
@@ -240,22 +253,25 @@ def decode_top1(z, model, params, gen=None, chunk=DECODE_CHUNK,
     return np.concatenate(toks), np.concatenate(scores)
 
 
-def decode_from_z(z, model, params, vocab, gen=None, chunk=DECODE_CHUNK,
+def decode_from_z(z, model, shards, vocab, gen=None, chunk=DECODE_CHUNK,
                   beam_size=DECODE_BEAM_SIZE, cs=None):
     """``decode_top1``'s tokens as peptide strings (specials stripped)."""
     LOG.info("Decoder decoding: beam search")
-    tokens, _ = decode_top1(z, model, params, gen, chunk, beam_size, cs)
+    tokens, _ = decode_top1(z, model, shards, gen, chunk, beam_size, cs)
     return vocab.to_sentences_batch(tokens, print_special_tokens=False)
 
 
-def get_new_samples(model, params, vocab, Q, n_samples, gen):
+def get_new_samples(model, shards, vocab, Q, n_samples, gen):
     """One serial round: rejection-sample n latents, decode all of them,
     and return the per-sample frame (peptide, z as float16 rows, accept_z,
     the score columns). ``gen`` draws the rejection round, then each
-    decode chunk's c."""
+    decode chunk's c. The rejection round and the decode chunks run over
+    the devices of ``shards``."""
     import pandas as pd
-    z, scores, accept = Q.rejection_sample(gen, n_samples)
-    peptides = decode_from_z(z, model, params, vocab, gen=gen)
+    z, scores, accept = class_sampler.sample_round(
+        shards.devices, class_sampler.rejection_draws(
+            gen, Q._sampler()[1], n_samples), Q)
+    peptides = decode_from_z(z, model, shards, vocab, gen=gen)
     return pd.DataFrame({
         "peptide": peptides,
         "z": list(z.to(torch.float16).cpu().numpy()),
@@ -264,25 +280,29 @@ def get_new_samples(model, params, vocab, Q, n_samples, gen):
     })
 
 
-def one_sampling_round(model, params, vocab, Q, n_samples_per_round, gen):
-    df = get_new_samples(model, params, vocab, Q, n_samples_per_round, gen)
+def one_sampling_round(model, shards, vocab, Q, n_samples_per_round, gen):
+    df = get_new_samples(model, shards, vocab, Q, n_samples_per_round, gen)
     df = compute_modlamp(df)
     df["accept"] = df["accept_z"]
     return df
 
 
-def round_capacity(cfg, n_samples):
+def round_capacity(cfg, n_samples, n_dev=1):
     """Decode-slot capacity for hw.decode_mode="accepted", or None for the
-    decode-all reference contract."""
+    decode-all reference contract; over ``n_dev`` devices rounded up to a
+    multiple of them (n_samples is one too), as the JAX package's."""
     if cfg.hw.get("decode_mode", "all") != "accepted":
         return None
     frac = float(cfg.hw.get("accept_cap_frac", 0.5))
-    return min(max(int(round(n_samples * frac)), 1), n_samples)
+    capacity = max(int(round(n_samples * frac)), 1)
+    capacity += (-capacity) % max(int(n_dev), 1)
+    return min(capacity, n_samples)
 
 
-def transformer_dispatch_budget(cfg, model):
+def transformer_dispatch_budget(cfg, model, n_dp=1):
     """Max candidates per launch for the transformer decoder family, or
-    None (other families): hw.tfm_lane_budget_gb over 6x the raw KV-cache
+    None (other families): hw.tfm_lane_budget_gb (a device's) times the
+    ``n_dp`` devices a round is sharded over, over 6x the raw KV-cache
     bytes per candidate, the JAX package's rule (its factor is its
     measured program overhead on the TPU; the port keeps it so that one
     setting means the same on both). run_from_states clamps
@@ -290,7 +310,8 @@ def transformer_dispatch_budget(cfg, model):
     per_cand = transformer_cache_bytes_per_candidate(cfg, model)
     if per_cand is None:
         return None
-    budget = int(float(cfg.hw.get("tfm_lane_budget_gb", 4.0)) * 2**30)
+    budget = int(float(cfg.hw.get("tfm_lane_budget_gb", 4.0)) * 2**30) * max(
+        int(n_dp), 1)
     return max(int(budget / max(6 * per_cand, 1)), 1)
 
 
@@ -316,19 +337,22 @@ def round_generator(seed, round_ix, device):
     return runtime.generator(device, seed, round_ix)
 
 
-def launch_round(cfg, model, params, Q, n_samples, gen):
+def launch_round(cfg, model, shards, Q, n_samples, gen):
     """Enqueue one round's device work and an asynchronous copy of its
     results to the host.
 
     Returns (host, event): host = (z, scores, accept, tokens, valid) as CPU
     tensors, readable once ``event`` (None on the CPU) has completed.
     Under hw.decode_mode="all" valid is None; under "accepted" z, scores
-    and tokens hold the compacted slots and valid marks real ones."""
-    capacity = round_capacity(cfg, n_samples)
+    and tokens hold the compacted slots and valid marks real ones. The
+    round runs over the devices of ``shards`` (``parallel.rounds.Shards``,
+    one entry for one device)."""
+    capacity = round_capacity(cfg, n_samples, len(shards.devices))
     draws = fused.round_draws(gen, Q._sampler()[1], n_samples)
-    out = fused.fused_round(
-        model, params, draws, Q, beam_size=DECODE_BEAM_SIZE,
-        decode_dtype=cfg.hw.get("gen_dtype", "float32"), capacity=capacity)
+    kwargs = dict(beam_size=DECODE_BEAM_SIZE,
+                  decode_dtype=cfg.hw.get("gen_dtype", "float32"),
+                  capacity=capacity)
+    out = fused.fused_round(model, shards, draws, Q, **kwargs)
     z, scores, accept, tokens = out[:4]
     valid = out[5] if capacity is not None else None
     # z is kept only as a float16 artifact column, token ids fit a byte
@@ -399,7 +423,7 @@ def _log_round_rates(n_accept_z, n_accept, n_total, dropped):
              n_accept, n_total, 100.0 * n_accept / max(n_total, 1))
 
 
-def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
+def _fused_sampling_loop(cfg, args, model, shards, vocab, Q, round_size,
                          device):
     """Rounds until n_samples_acc unique accepted samples exist.
 
@@ -424,12 +448,13 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
         # other error propagates
         while True:
             try:
-                out = launch_round(cfg, model, params, Q, round_size,
+                out = launch_round(cfg, model, shards, Q, round_size,
                                    round_generator(cfg.seed, round_ix,
                                                    device))
                 break
             except Exception as e:
                 shrink = round_size // 2
+                shrink -= shrink % len(shards.devices)
                 if not is_device_oom(e) or shrink < 1:
                     raise
                 LOG.warning("round out of device memory at %d candidates; "
@@ -467,7 +492,7 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
         keys = list(canonical_keys(tokens))
         beam_canary_check(cfg, device, len(keys), len(set(keys)),
                           context=f"campaign round {rounds_consumed}",
-                          model=model, params=params)
+                          model=model, params=shards.replicas[0])
         keep = np.empty(tokens.shape[0], bool)
         for i, rb in enumerate(keys):
             keep[i] = rb not in seen
@@ -506,7 +531,7 @@ def _fused_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
     return samples, stats
 
 
-def _serial_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
+def _serial_sampling_loop(cfg, args, model, shards, vocab, Q, round_size,
                           device):
     """The reference-shaped strict round-by-round loop
     (``hw.fused_rounds=0``): each round's frame deduplicated by peptide
@@ -526,13 +551,13 @@ def _serial_sampling_loop(cfg, args, model, params, vocab, Q, round_size,
         round_ix += 1
         LOG.info("Round #%d (x%d candidates per dispatch)", round_ix,
                  round_size)
-        new = one_sampling_round(model, params, vocab, Q, round_size,
+        new = one_sampling_round(model, shards, vocab, Q, round_size,
                                  round_generator(cfg.seed, round_ix,
                                                  device))
         n_accept_z_seen += int(new["accept_z"].sum())
         beam_canary_check(cfg, device, len(new), new["peptide"].nunique(),
                           context=f"serial round {round_ix}", model=model,
-                          params=params)
+                          params=shards.replicas[0])
         new = new.loc[new.peptide.drop_duplicates().index]
         new = new[~new["peptide"].isin(samples["peptide"])]
         samples = pd.concat([samples, new], ignore_index=True, sort=False)
@@ -602,9 +627,22 @@ def save_samples(samples, basedir, fn_prefix):
 # ---------------------------------------------------------------------------
 
 def _check_slice(cfg):
-    if int(cfg.hw.get("dp", 1)) != 1:
-        raise NotImplementedError(
-            "hw.dp != 1 is not ported yet (ROADMAP.md A9)")
+    """Raise NotImplementedError for what the port's sampling does not run
+    yet: tensor and pipeline parallelism (ROADMAP.md A9)."""
+    check_supported(cfg)
+
+
+def make_shards(cfg, params, device, devices=None):
+    """The ``parallel.rounds.Shards`` a round runs over: ``devices`` when
+    given (a list naming one device twice is two shards on it), else
+    ``hw.dp``'s (``rounds.devices_for``, which raises for more devices
+    than are visible)."""
+    if devices is None:
+        devices = dp_rounds.devices_for(cfg, device)
+    if len(devices) > 1:
+        LOG.info("CLaSS rounds sharded over %d devices (%s)", len(devices),
+                 ", ".join(map(str, devices)))
+    return dp_rounds.shards_of(params, devices)
 
 
 def run(cfg, args, device="cuda"):
@@ -631,7 +669,7 @@ def run(cfg, args, device="cuda"):
 
 
 def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
-                    dataset=None):
+                    dataset=None, devices=None):
     """Everything run does after its file reads: fit Q and the heads on
     ``states`` ({'train': ..., 'test': ...} with mu, logvar, label),
     sample, write the sample files. Returns (path stem, samples, stats).
@@ -639,9 +677,11 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
     ``--Q_from_full_dataloader`` Q is fitted on the encodings of
     ``dataset`` (``load_dataloader(cfg)``, which the caller passes); the
     eval points and the heads still come from ``states``, as in the JAX
-    package."""
+    package. ``devices`` (default: ``hw.dp``'s) shards every round over
+    a device list (``make_shards``)."""
     _check_slice(cfg)
     device = runtime.setup(device)
+    shards = make_shards(cfg, params, device, devices)
     if args.Q_from_full_dataloader and dataset is None:
         raise ValueError("--Q_from_full_dataloader needs the dataset: pass "
                          "dataset=load_dataloader(cfg)")
@@ -664,21 +704,23 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
     Q.init_attr_classifiers(z_clfs, clf_targets={"amp": 1, "tox": 0})
 
     rpd = max(int(cfg.hw.get("rounds_per_dispatch", 1)), 1)
-    budget = transformer_dispatch_budget(cfg, model)
+    n_dev = len(shards.devices)
+    budget = transformer_dispatch_budget(cfg, model, n_dev)
     if budget is not None:
         max_rpd = max(budget // args.n_samples_per_round, 1)
         if rpd > max_rpd:
             LOG.info("transformer decoder: clamping rounds_per_dispatch "
-                     "%d -> %d (KV-cache lane budget %.1f GB)", rpd, max_rpd,
-                     float(cfg.hw.get("tfm_lane_budget_gb", 4.0)))
+                     "%d -> %d (KV-cache lane budget %.1f GB x %d devices)",
+                     rpd, max_rpd,
+                     float(cfg.hw.get("tfm_lane_budget_gb", 4.0)), n_dev)
             rpd = max_rpd
     round_size = args.n_samples_per_round * rpd
     t_sampling = time.perf_counter()
     if cfg.hw.get("fused_rounds", True):
-        samples, stats = _fused_sampling_loop(cfg, args, model, params,
+        samples, stats = _fused_sampling_loop(cfg, args, model, shards,
                                               vocab, Q, round_size, device)
     else:
-        frame, stats = _serial_sampling_loop(cfg, args, model, params, vocab,
+        frame, stats = _serial_sampling_loop(cfg, args, model, shards, vocab,
                                              Q, round_size, device)
         samples = _frame_columns(frame)
     dt = time.perf_counter() - t_sampling

@@ -82,7 +82,7 @@ class GenerationServer:
     ``device`` is the CPU; without CUDA it raises."""
 
     def __init__(self, cfg, model, params, vocab, Q, round_size=5000,
-                 device="cuda"):
+                 device="cuda", devices=None):
         self.device = runtime.setup(device)
         pipeline._check_slice(cfg)
         self.cfg = cfg
@@ -91,6 +91,13 @@ class GenerationServer:
         self.vocab = vocab
         self.Q = Q
         self.round_size = int(round_size)
+        # rounds sharded over a device list (hw.dp's, or ``devices``): n /
+        # D candidates a device, so every round size divides over them
+        self.shards = pipeline.make_shards(cfg, params, self.device, devices)
+        self.n_dev = len(self.shards.devices)
+        if self.round_size % self.n_dev:
+            raise ValueError(f"round size {self.round_size} must divide "
+                             f"over {self.n_dev} devices")
         self._seen = set()
         self._queue = deque()          # FIFO of _Request
         # unique accepted rows nobody took (a timed-out request's partial
@@ -100,7 +107,7 @@ class GenerationServer:
         # the transformer's KV-cache lane budget, as run_from_states
         # clamps its rounds
         self._max_candidates = pipeline.transformer_dispatch_budget(
-            cfg, model)
+            cfg, model, self.n_dev)
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._running = False
@@ -229,6 +236,7 @@ class GenerationServer:
                 inflight.clear()
                 if pipeline.is_device_oom(e) and n_round is not None:
                     shrink = n_round // 2
+                    shrink -= shrink % self.n_dev
                     if shrink >= 1:
                         LOG.warning("out of device memory at %d candidates; "
                                     "capping rounds at %d and retrying",
@@ -270,11 +278,20 @@ class GenerationServer:
 
     def _round_size_bounded(self):
         """Candidates of the next round: one round_size, capped by the
-        transformer's lane budget (or by an out-of-memory halving)."""
+        transformer's lane budget (or by an out-of-memory halving), a
+        multiple of the devices; a cap below one candidate a device
+        raises."""
         cap = self._max_candidates
         if cap is None:
             return self.round_size
-        return max(min(self.round_size, cap), 1)
+        n = min(self.round_size, cap)
+        n -= n % self.n_dev
+        if n < 1:
+            raise ValueError(
+                f"hw.tfm_lane_budget_gb caps rounds at {cap} candidates, "
+                f"below one per device ({self.n_dev}); raise the budget or "
+                f"use fewer devices")
+        return n
 
     def _launch_guarded(self, n):
         """Enqueue one round; returns (n, t_launch, (host, event)) for
@@ -285,12 +302,13 @@ class GenerationServer:
         while True:
             try:
                 out = pipeline.launch_round(
-                    self.cfg, self.model, self.params, self.Q, n,
+                    self.cfg, self.model, self.shards, self.Q, n,
                     pipeline.round_generator(self.cfg.seed, self._round_ix,
                                              self.device))
                 return n, t0, out
             except Exception as e:
                 shrink = n // 2
+                shrink -= shrink % self.n_dev
                 if not pipeline.is_device_oom(e) or shrink < 1:
                     raise
                 LOG.warning("round out of device memory at %d candidates; "
@@ -445,13 +463,14 @@ def make_http_server(server, host="127.0.0.1", port=8800, max_n=100_000,
     return _Server((host, port), Handler)
 
 
-def build_server(cfg, args, device="cuda"):
+def build_server(cfg, args, device="cuda", devices=None):
     """Load a trained run dir (model, vocab, the states dump), fit Q and
     the two attribute heads as ``pipeline.run_from_states`` does, build
     the family's beam kernel on the card where the model runs it (nvcc
     runs here, not inside the first request; nothing is launched), and
     return an unstarted
-    GenerationServer. Runs on CUDA unless ``device`` is the CPU."""
+    GenerationServer. Runs on CUDA unless ``device`` is the CPU; its
+    rounds shard over ``devices`` (default: ``hw.dp``'s)."""
     from .api import get_model_and_vocab_path, load_trained_model, load_vocab
     device = runtime.setup(device)
     pipeline._check_slice(cfg)
@@ -483,7 +502,7 @@ def build_server(cfg, args, device="cuda"):
         kernel.build()
     return GenerationServer(cfg, model, params, vocab, Q,
                             round_size=args.n_samples_per_round,
-                            device=device)
+                            device=device, devices=devices)
 
 
 EXTRA_ARGS = [

@@ -21,6 +21,15 @@ that set-up and the capture; each replay adds the launches the capture
 made. A capture that fails raises. On CPU tensors the steps run eagerly,
 and ``draws`` (one dict per step) may replace the generators' draws, as
 tests feed the JAX package's.
+
+Under data parallelism the steps' collectives (the gradients' and the
+metrics' averages, the z gather, a deconv decoder's batch-norm sums) are
+nodes of the graph: under NCCL the warm-up steps run them first, which
+makes the communicator before the capture, and every replay runs them
+again with the rest. NCCL at world 1 runs the average as one kernel of its
+own and the gather as one device copy. A gloo group cannot be captured
+(it stages CUDA tensors through the host); the trainers refuse such a
+chunk (``train_vae.check_chunk``) rather than run its steps eagerly.
 """
 
 import time
@@ -55,12 +64,16 @@ class GraphChunk:
     ``instantiate_s`` (host clock), ``pool_bytes`` (the memory the
     capture reserved: the graph's private pool) and ``exec_bytes`` (the
     device memory the instantiation took); ``replays`` counts the
-    replays."""
+    replays. Under data parallelism (``shard``, a
+    ``collectives.Shard``) the steps' collectives are captured too, and
+    ``collective_nodes`` counts NCCL's kernel nodes in the graph."""
 
-    def __init__(self, unroll):
+    def __init__(self, unroll, shard=None):
         self.unroll = int(unroll)
+        self.shard = shard
         self.graph = None
         self.node_kinds = None
+        self.collective_nodes = None
         self.captured = {}
         self.replays = 0
         self.capture_s = self.instantiate_s = None
@@ -172,6 +185,10 @@ class GraphChunk:
         for fn, n in zip(counters, counts):
             fn.launches = n
         self.node_kinds = runtime.graph_node_kinds(graph.raw_cuda_graph())
+        if self.shard is not None:
+            self.collective_nodes = sum(map(runtime.is_collective,
+                                            runtime.graph_kernel_names(
+                                                graph.raw_cuda_graph())))
         free = torch.cuda.mem_get_info(dev)[0]
         t0 = time.perf_counter()
         graph.instantiate()
@@ -192,6 +209,8 @@ class GraphChunk:
         executable's bytes."""
         return {"unroll": self.unroll, "nodes": len(self.node_kinds),
                 "kernel_nodes": self.node_kinds.count("kernel"),
+                "memcpy_nodes": self.node_kinds.count("memcpy"),
+                "collective_nodes": self.collective_nodes,
                 "capture_s": self.capture_s,
                 "instantiate_s": self.instantiate_s,
                 "pool_bytes": self.pool_bytes,

@@ -18,6 +18,12 @@ v one vector over the leaves in the JAX package's ravel order
 key paths. Parameters are updated in place (the trainer owns them, and a
 captured CUDA graph of the step holds their addresses); a step makes no
 host-to-device copy, so it can be captured.
+
+Under data parallelism ``reduce`` (``collectives.Shard.mean_``) averages
+the gradients over the ranks before the clip, in one collective over one
+flat buffer: the flat Adam's own vector, or the per-leaf Adam's leaves
+coalesced into one; the clip's norm is then the global one. ZeRO-1's
+sharded Adam is ``parallel/zero.py``.
 """
 
 import torch
@@ -46,10 +52,20 @@ def _bias_corrections(count, b1, b2):
     return 1.0 - torch.pow(b1, c32), 1.0 - torch.pow(b2, c32)
 
 
+def _reduced(g_flat, reduce):
+    """The leaves' gradients averaged over the ranks by ``reduce`` on one
+    coalesced buffer, as views of it."""
+    leaves = list(g_flat.values())
+    buf = reduce(torch.cat([g.reshape(-1) for g in leaves]))
+    return dict(zip(g_flat, (v.view_as(g) for v, g in zip(
+        buf.split([g.numel() for g in leaves]), leaves))))
+
+
 class ClipAdam:
-    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8):
+    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8, reduce=None):
         self.lr, self.clip = float(lr), float(clip)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.reduce = reduce
 
     def init(self, params):
         return {"count": torch.zeros((), dtype=torch.int32,
@@ -58,6 +74,7 @@ class ClipAdam:
 
     @staticmethod
     def global_norm(grads):
+        """The global norm of a gradient tree (or of {path: leaf})."""
         return torch.sqrt(sum((g * g).sum() for g in flatten(grads).values()))
 
     @torch.no_grad()
@@ -65,8 +82,10 @@ class ClipAdam:
         """Update ``params`` and ``state`` in place from ``grads`` (nested
         like params). Returns the global norm of the unclipped grads."""
         p_flat, g_flat = flatten(params), flatten(grads)
+        if self.reduce is not None:
+            g_flat = _reduced(g_flat, self.reduce)
         mu, nu = flatten(state["mu"]), flatten(state["nu"])
-        norm = self.global_norm(grads)
+        norm = self.global_norm(g_flat)
         keep = norm < self.clip
         state["count"].add_(1)
         bc1, bc2 = _bias_corrections(state["count"], self.b1, self.b2)
@@ -88,9 +107,10 @@ class FlatAdam:
     handful of launches however many leaves the model has (the
     transformer's 67 would take several launches each per leaf)."""
 
-    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8):
+    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8, reduce=None):
         self.lr, self.clip = float(lr), float(clip)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.reduce = reduce
 
     def init(self, params):
         flat = flatten(params)
@@ -108,6 +128,8 @@ class FlatAdam:
         order = ravel_order(params)
         p_flat, g_flat = flatten(params), flatten(grads)
         g = torch.cat([g_flat[path].reshape(-1) for path in order])
+        if self.reduce is not None:
+            g = self.reduce(g)
         norm = torch.sqrt(torch.dot(g, g))
         g = g * torch.where(norm < self.clip, 1.0, self.clip / norm)
         state["count"].add_(1)
@@ -122,8 +144,10 @@ class FlatAdam:
         return norm
 
 
-def make_optimizer(cfgv, flat=False):
+def make_optimizer(cfgv, flat=False, reduce=None):
     """The phase-1 optimizer (clip ``cfgv.clip_grad``, Adam ``cfgv.lr``):
     the flat-vector Adam when ``flat`` (``config.flat_optimizer_enabled``),
-    else the per-leaf one."""
-    return (FlatAdam if flat else ClipAdam)(cfgv.lr, cfgv.clip_grad)
+    else the per-leaf one; ``reduce`` averages the gradients over the
+    data-parallel ranks."""
+    return (FlatAdam if flat else ClipAdam)(cfgv.lr, cfgv.clip_grad,
+                                            reduce=reduce)

@@ -43,6 +43,15 @@ softmax temperatures, every iteration's draws) are staged; on the CPU the
 same iterations run eagerly. The updates are the per-step path's: beta
 and the temperature reach both paths as 0-d device tensors.
 ``--hw.unroll 1`` runs every iteration eagerly.
+
+Under a process group the loop is the JAX package's data-parallel phase 2
+(``make_dp_full_step``, ``make_dp_full_scan``): every rank draws the
+iteration's global draws and reads the global batches, runs its rows
+through each sub-loss (the VAE's z gathered for its WAE terms, the
+attribute and classifier stages on their rows of the prior draws), and
+each optimizer averages its group's gradients over the ranks before its
+clip (``parallel/collectives.py``); under NCCL a chunk's CUDA graph holds
+those collectives. Rank 0 alone writes logs and checkpoints.
 """
 
 import json
@@ -55,14 +64,15 @@ from torch.profiler import record_function
 
 from ..ops import losses as L
 from ..ops import sampling
+from ..parallel import collectives, dist as pdist
 from ..utils import runtime
 from ..utils.annealing import anneal
 from ..utils.logging import DeferredFetch
 from . import checkpoints
 from .chunk import GraphChunk
 from .opt import ClipAdam
-from .train_vae import (WARM_STEPS, Drawer, aligned_unroll,
-                        check_supported, draw_step)
+from .train_vae import (ROW_DRAWS, WARM_STEPS, Drawer, aligned_unroll,
+                        check_chunk, check_supported, draw_step)
 
 log = logging.getLogger(__name__)
 
@@ -70,6 +80,9 @@ log = logging.getLogger(__name__)
 _RF_STREAM, _CLF_STREAM, _STEP_STREAM = 4, 5, 6
 # the optimizer groups: opt_E, opt_G, opt_C and the trees each updates
 GROUPS = {"E": ("emb", "enc", "flow"), "G": ("dec",), "C": ("clf",)}
+# the row dim of each attribute and classifier draw (the Gumbel noise is
+# [T, n, V]): a data-parallel rank takes its rows of them
+PRIOR_ROWS = {"z": 0, "c_bits": 0, "keep": 0, "noise": 1}
 
 
 def group(params, name):
@@ -136,25 +149,36 @@ def _ce(logits, target):
     return -torch.gather(logp, 1, target.long()[:, None]).mean()
 
 
-def make_full_losses(model, cfgf, mmd_cfg, rf_basis):
+def make_full_losses(model, cfgf, mmd_cfg, rf_basis, shard=None):
     """The three phase-2 objectives, each -> (loss, metrics):
     vae_loss(params, text, beta, draws), g_attr_loss(params, temp, draws)
     and c_loss(params, lab_text, lab_y, temp, draws), ``draws`` the
-    matching dict of ``draw_full_step``. rf_basis: (rf_w, rf_b)."""
+    matching dict of ``draw_full_step``. rf_basis: (rf_w, rf_b). With a
+    ``shard`` the batches and draws are global and the rank's rows run
+    each loss, the VAE's WAE terms on the gathered z."""
     soft_mode, hard_mode = _soft_mode(cfgf), _hard_mode(cfgf)
     rf_w, rf_b = rf_basis
 
+    def rows(draws, dims, *batches):
+        if shard is None:
+            return (draws,) + batches
+        return (shard.rows_of(draws, dims),) + tuple(
+            shard.rows(b) for b in batches)
+
     def vae_loss(params, text, beta, draws):
+        count = None if shard is None else L.token_count(text) / shard.world
+        draws, text = rows(draws, ROW_DRAWS, text)
         (mu, logvar), (z, _), dec_logits = model.forward(
             params, text, q_c="classifier", sample_z=1, train=True,
             draws=draws)
-        recon = L.recon_dec(text, dec_logits)
+        recon = L.recon_dec(text, dec_logits, count)
         kl = L.kl_gaussianprior(mu, logvar)
-        mmdrf = L.wae_mmd_gaussianprior_rf(z, rf_w, rf_b, mmd_cfg.sigma,
+        z_all = z if shard is None else shard.gather(z)
+        mmdrf = L.wae_mmd_gaussianprior_rf(z_all, rf_w, rf_b, mmd_cfg.sigma,
                                            z_prior=draws["z_prior_rf"])
         if cfgf.z_regu_loss == "mmd":
             z_regu = L.wae_mmd_gaussianprior_full(
-                z, mmd_cfg.sigma, mmd_cfg.kernel,
+                z_all, mmd_cfg.sigma, mmd_cfg.kernel,
                 z_prior=draws["z_prior_mmd"])
         else:
             z_regu = {"kl": kl, "mmdrf": mmdrf}[cfgf.z_regu_loss]
@@ -165,6 +189,7 @@ def make_full_losses(model, cfgf, mmd_cfg, rf_basis):
                       "L_wae_mmdrf": mmdrf}
 
     def g_attr_loss(params, temp, draws):
+        draws, = rows(draws, PRIOR_ROWS)
         z = draws["z"]
         c = model.c_from_bits(draws["c_bits"])
         _, soft = sampling.sample_sentences(
@@ -177,6 +202,7 @@ def make_full_losses(model, cfgf, mmd_cfg, rf_basis):
         return loss, {"L_attr_c": attr_c, "L_attr_z": attr_z}
 
     def c_loss(params, lab_text, lab_y, temp, draws):
+        draws, lab_text, lab_y = rows(draws, PRIOR_ROWS, lab_text, lab_y)
         logits_s = model.classify(params, lab_text, train=True,
                                   keep=draws["keep"])
         sup = _ce(logits_s, lab_y)
@@ -210,15 +236,18 @@ class FullStep:
     lab_y, it, draws) -> metrics (0-d tensors on the device, and beta and
     softmax_temp); updates params and the three optimizer states in place.
     ``opt_states`` is ``init(params)``: {"E", "G", "C"}, each a ClipAdam
-    state over its group."""
+    state over its group. With a ``shard`` the data-parallel iteration
+    (the JAX package's ``make_dp_full_step``): each optimizer averages
+    its group's gradients over the ranks, and the metrics are averaged."""
 
-    def __init__(self, model, cfgf, cfg_losses, rf_basis):
-        self.cfgf = cfgf
+    def __init__(self, model, cfgf, cfg_losses, rf_basis, shard=None):
+        self.cfgf, self.shard = cfgf, shard
         self.vae_loss, self.g_attr_loss, self.c_loss = make_full_losses(
-            model, cfgf, cfg_losses.wae_mmd, rf_basis)
-        self.opts = {"E": ClipAdam(cfgf.lrE, cfgf.clip_grad),
-                     "G": ClipAdam(cfgf.lrG, cfgf.clip_grad),
-                     "C": ClipAdam(cfgf.lrC, cfgf.clip_grad)}
+            model, cfgf, cfg_losses.wae_mmd, rf_basis, shard)
+        reduce = None if shard is None else shard.mean_
+        self.opts = {"E": ClipAdam(cfgf.lrE, cfgf.clip_grad, reduce=reduce),
+                     "G": ClipAdam(cfgf.lrG, cfgf.clip_grad, reduce=reduce),
+                     "C": ClipAdam(cfgf.lrC, cfgf.clip_grad, reduce=reduce)}
 
     def init(self, params):
         return {n: opt.init(group(params, n)) for n, opt in self.opts.items()}
@@ -245,7 +274,7 @@ class FullStep:
         """One iteration at ``beta`` and ``temp``, 0-d float32 tensors on
         the device (the per-step path fills them, a chunk's graph reads
         them from its staged inputs: the same arithmetic either way)."""
-        with record_function("vae update"):
+        with record_function("vae update"), collectives.active(self.shard):
             loss, m1 = self.vae_loss(params, text, beta, draws["vae"])
             self._update(params, opt_states, loss, ("E", "G"))
         with record_function("attribute update"):
@@ -256,6 +285,8 @@ class FullStep:
                                    draws["clf"])
             self._update(params, opt_states, loss, ("C",))
         metrics = {k: v.detach() for k, v in {**m1, **m2, **m3}.items()}
+        if self.shard is not None:
+            metrics = self.shard.mean_metrics(metrics)
         metrics.update(beta=beta, softmax_temp=temp)
         return metrics
 
@@ -274,10 +305,11 @@ class FullChunk(GraphChunk):
     (one dict of ``draw_full_step`` per iteration) may replace the
     generators' draws."""
 
-    def __init__(self, model, cfgf, cfg_losses, rf_basis, unroll, seed=0):
-        super().__init__(unroll)
+    def __init__(self, model, cfgf, cfg_losses, rf_basis, unroll, seed=0,
+                 shard=None):
+        super().__init__(unroll, shard)
         self.model, self.cfgf, self.seed = model, cfgf, seed
-        self.step = FullStep(model, cfgf, cfg_losses, rf_basis)
+        self.step = FullStep(model, cfgf, cfg_losses, rf_basis, shard)
 
     def __call__(self, params, opt_states, texts, lab_texts, lab_ys, it0,
                  draws=None):
@@ -361,7 +393,14 @@ def train_full(cfg, model, dataset, params, logger=None,
     mmd_cfg = cfg.losses.wae_mmd
     rf_basis = L.init_rf_basis(runtime.generator(dev, cfg.seed, _RF_STREAM),
                                model.z_dim, mmd_cfg.rf_dim, dev)
-    step = FullStep(model, cfgf, cfg.losses, rf_basis)
+    # a process group selects the data-parallel iteration (the JAX
+    # package's make_dp_full_step); ZeRO-1 is phase 1's alone, as there
+    shard = pdist.data_parallel(cfg, [cfgf.batch_size, cfg.vae.batch_size])
+    writer = pdist.is_writer()
+    if shard is not None:
+        log.info("data-parallel phase-2 training over %d ranks (%s)",
+                 shard.world, shard.backend)
+    step = FullStep(model, cfgf, cfg.losses, rf_basis, shard)
     opt_states = step.init(params)
     # runs of `unroll` iterations as one chunk, aligned to the log cadences
     unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
@@ -369,8 +408,9 @@ def train_full(cfg, model, dataset, params, logger=None,
                             int(cfgf.expsvlog_every))
     chunk = None
     if unroll > 1:
+        check_chunk(shard, dev, unroll)
         chunk = FullChunk(model, cfgf, cfg.losses, rf_basis, unroll,
-                          cfg.seed)
+                          cfg.seed, shard)
 
     attr_name = dataset.attributes[0][0]
 
@@ -389,6 +429,8 @@ def train_full(cfg, model, dataset, params, logger=None,
         return j % cfgf.cheaplog_every == 0 or j % cfgf.expsvlog_every == 0
 
     def do_host(it, metrics):
+        if not writer:
+            return
         cheap = it % cfgf.cheaplog_every == 0
         expsv = it % cfgf.expsvlog_every == 0
         if cheap or expsv:

@@ -27,6 +27,14 @@ betas and every step's draws, drawn eagerly from the per-step generators)
 are staged; on the CPU the same steps run eagerly. The updates are the
 per-step path's. ``--hw.unroll 1`` runs every step eagerly.
 ``hw.donate_state`` (jit's buffer donation) has no counterpart.
+
+Under a process group (``parallel/dist.py``, torchrun's ranks) the loop
+is the JAX package's data-parallel one (``make_dp_train_step``,
+``make_dp_train_scan``; with ``hw.zero`` ``make_zero_train_step``): the
+step on the global batch, each rank running its rows
+(``parallel/collectives.py`` says how), the gradients averaged over the
+ranks inside the step, and inside a chunk's CUDA graph under NCCL; rank 0
+alone writes logs, samples and checkpoints.
 """
 
 import json
@@ -43,6 +51,8 @@ from .. import config as C
 from ..generation import generate_sentences
 from ..ops import losses as L
 from ..ops import sampling
+from ..parallel import collectives, dist as pdist
+from ..parallel.zero import ZeroAdam
 from ..utils import runtime
 from ..utils.annealing import anneal
 from ..utils.logging import DeferredFetch
@@ -65,17 +75,26 @@ SINK_KEYS = ("z_mu_L1", "z_logvar", "z_logvar_L1", "z_logvar_KL_penalty",
 
 def check_supported(cfg):
     """Raise NotImplementedError for what the port's trainer does not run
-    yet (ROADMAP.md A9)."""
-    hw = cfg.hw
-    for name in ("dp", "tp", "pp"):
-        if int(hw.get(name, 1) or 1) > 1:
+    yet: tensor and pipeline parallelism (ROADMAP.md A9). ``hw.dp`` and
+    ``hw.zero`` are checked against the process group where a trainer
+    starts (``parallel.dist.data_parallel``, ``check_chunk``)."""
+    for name in ("tp", "pp"):
+        if int(cfg.hw.get(name, 1) or 1) > 1:
             raise NotImplementedError(
                 f"hw.{name} > 1 is not ported (ROADMAP.md A9)")
-    if int(hw.get("dp", 1)) == 0:
-        raise NotImplementedError("hw.dp 0 (all devices) is not ported "
-                                  "(ROADMAP.md A9)")
-    if hw.get("zero", False):
-        raise NotImplementedError("hw.zero is not ported (ROADMAP.md A9)")
+
+
+def check_chunk(shard, device, unroll):
+    """Raise a ValueError for a chunk of more than one step whose
+    collectives cannot be captured in a CUDA graph: a gloo group on CUDA
+    tensors (gloo stages them through the host). Runs of steps then need
+    ``--hw.unroll 1``; CPU tensors run any chunk eagerly."""
+    if (shard is not None and unroll > 1 and shard.backend == "gloo"
+            and torch.device(device).type == "cuda"):
+        raise ValueError(
+            f"--hw.unroll {unroll} under a gloo group on CUDA tensors: a "
+            f"chunk is one captured CUDA graph and gloo's collectives "
+            f"cannot be captured; pass --hw.unroll 1 (or run NCCL)")
 
 
 def aligned_unroll(unroll, *cadences):
@@ -121,6 +140,13 @@ class Drawer:
         if self.out is None:
             return u < p
         return torch.lt(u, p, out=self._into(name, i, shape, torch.bool))
+
+
+# draw_step's draws with one row per row of the batch: a data-parallel
+# rank takes its rows of these, and the prior samples of the WAE terms and
+# a resampled RF basis stay global
+ROW_DRAWS = {k: 0 for k in ("eps", "c_bits", "word_drop", "out_keep",
+                            "enc_keeps", "dec_keeps")}
 
 
 def draw_step(model, gen, B, T, device, rf_dim=None, out=None):
@@ -184,13 +210,16 @@ def flow_forward(model, params, text, train, draws, gen=None):
                                                    logdet)
 
 
-def make_loss_fn(model, cfgv, mmd_cfg, rf_basis):
+def make_loss_fn(model, cfgv, mmd_cfg, rf_basis, shard=None):
     """The phase-1 objective: loss_fn(params, text, beta, draws) ->
     (loss, metrics). rf_basis: the fixed (rf_w, rf_b), or None to take
     the basis from the draws (rf_resample). A model with a flow (under
     flow_mode 'posterior') decodes z_K = flow(z0), and its 'kl' term is
     the flow posterior's (``losses.kl_flow_mc``), the JAX package's flow
-    arm; its MMD terms act on z_K."""
+    arm; its MMD terms act on z_K. With a ``shard``
+    (``collectives.Shard``) text and draws are the global batch's, the
+    rank's rows run the model, and the coupled terms are global
+    (``parallel/collectives.py``)."""
     z_regu_name = cfgv.z_regu_loss
     if model.flow > 0 and model.flow_mode != "posterior":
         raise ValueError(
@@ -199,6 +228,10 @@ def make_loss_fn(model, cfgv, mmd_cfg, rf_basis):
             "training, model.py:173-177)")
 
     def loss_fn(params, text, beta, draws):
+        count = None
+        if shard is not None:
+            count = L.token_count(text) / shard.world
+            text, draws = shard.rows(text), shard.rows_of(draws, ROW_DRAWS)
         if model.flow > 0:
             mu, logvar, z, dec_logits, kl = flow_forward(model, params,
                                                          text, True, draws)
@@ -207,12 +240,14 @@ def make_loss_fn(model, cfgv, mmd_cfg, rf_basis):
                 params, text, q_c="prior", sample_z=1, train=True,
                 draws=draws)
             kl = L.kl_gaussianprior(mu, logvar)
-        recon = L.recon_dec(text, dec_logits)
-        mmd = L.wae_mmd_gaussianprior_full(z, mmd_cfg.sigma, mmd_cfg.kernel,
+        recon = L.recon_dec(text, dec_logits, count)
+        z_all = z if shard is None else shard.gather(z)
+        mmd = L.wae_mmd_gaussianprior_full(z_all, mmd_cfg.sigma,
+                                           mmd_cfg.kernel,
                                            z_prior=draws["z_prior_mmd"])
         rf_w, rf_b = (rf_basis if rf_basis is not None
                       else (draws["rf_w"], draws["rf_b"]))
-        mmdrf = L.wae_mmd_gaussianprior_rf(z, rf_w, rf_b, mmd_cfg.sigma,
+        mmdrf = L.wae_mmd_gaussianprior_rf(z_all, rf_w, rf_b, mmd_cfg.sigma,
                                            z_prior=draws["z_prior_rf"])
         z_regu = {"kl": kl, "mmd": mmd, "mmdrf": mmdrf}[z_regu_name]
         z_logvar_L1 = logvar.abs().sum(1).mean()
@@ -250,28 +285,49 @@ def loss_and_grads(loss_fn, params, text, beta, draws):
     return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _make_update(model, cfgv, cfg_losses, rf_basis, optimizer):
+def _make_update(model, cfgv, cfg_losses, rf_basis, optimizer, shard=None):
     """update(params, opt_state, text, beta, draws) -> metrics: one step
-    at the given beta (a float, or a 0-d float32 tensor in a chunk)."""
-    loss_fn = make_loss_fn(model, cfgv, cfg_losses.wae_mmd, rf_basis)
+    at the given beta (a float, or a 0-d float32 tensor in a chunk). With
+    a ``shard`` the data-parallel step: ``make_loss_fn``'s on the global
+    batch, the optimizer averaging the gradients over the ranks, the
+    metrics averaged too (grad_norm is global already)."""
+    loss_fn = make_loss_fn(model, cfgv, cfg_losses.wae_mmd, rf_basis, shard)
 
     def update(params, opt_state, text, beta, draws):
-        _, metrics, grads = loss_and_grads(loss_fn, params, text, beta,
-                                           draws)
+        with collectives.active(shard):
+            _, metrics, grads = loss_and_grads(loss_fn, params, text, beta,
+                                               draws)
         with record_function("optimizer"):
             metrics["grad_norm"] = optimizer.step(params, grads, opt_state)
+        if shard is not None:
+            metrics = shard.mean_metrics(metrics, keep=("grad_norm",))
         metrics["beta"] = beta
         return metrics
 
     return update
 
 
-def make_train_step(model, cfgv, cfg_losses, rf_basis, flat=False):
+def make_step_optimizer(cfgv, flat=False, shard=None, zero=False):
+    """The phase-1 optimizer of a step: ``make_optimizer``'s, averaging
+    the gradients over ``shard``'s ranks; under ``zero`` (with a shard)
+    ZeRO-1's (``parallel/zero.py``), whatever ``flat`` says, as the JAX
+    package's ZeRO step."""
+    if zero and shard is not None:
+        return ZeroAdam(cfgv.lr, cfgv.clip_grad, shard)
+    return make_optimizer(cfgv, flat,
+                          None if shard is None else shard.mean_)
+
+
+def make_train_step(model, cfgv, cfg_losses, rf_basis, flat=False,
+                    shard=None, zero=False):
     """train_step(params, opt_state, text, it, draws) -> metrics (0-d
     tensors on the device); updates params and opt_state in place. ``flat``
-    selects the flat-vector Adam (``--hw.flat_optimizer on``)."""
-    optimizer = make_optimizer(cfgv, flat)
-    update = _make_update(model, cfgv, cfg_losses, rf_basis, optimizer)
+    selects the flat-vector Adam (``--hw.flat_optimizer on``); ``shard``
+    (``parallel/collectives.py``) the data-parallel step, and ``zero``
+    with it ZeRO-1's optimizer (``parallel/zero.py``)."""
+    optimizer = make_step_optimizer(cfgv, flat, shard, zero)
+    update = _make_update(model, cfgv, cfg_losses, rf_basis, optimizer,
+                          shard)
 
     def train_step(params, opt_state, text, it, draws):
         return update(params, opt_state, text, anneal(cfgv.beta, it), draws)
@@ -290,15 +346,15 @@ class TrainChunk(GraphChunk):
     ``draws`` (one dict per step) may replace the generators' draws."""
 
     def __init__(self, model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
-                 flat=False):
+                 flat=False, shard=None):
         if rf_basis is None:
             raise ValueError("a train chunk needs a fixed RF basis: under "
                              "rf_resample the loop runs unroll 1")
-        super().__init__(unroll)
+        super().__init__(unroll, shard)
         self.model, self.cfgv, self.seed = model, cfgv, seed
-        self.optimizer = make_optimizer(cfgv, flat)
+        self.optimizer = make_step_optimizer(cfgv, flat, shard)
         self._step = _make_update(model, cfgv, cfg_losses, rf_basis,
-                                  self.optimizer)
+                                  self.optimizer, shard)
 
     def __call__(self, params, opt_state, texts, it0, draws=None):
         return self.run({"params": params, "opt": opt_state}, (texts,), it0,
@@ -328,11 +384,12 @@ class TrainChunk(GraphChunk):
 
 
 def make_train_chunk(model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
-                     flat=False):
+                     flat=False, shard=None):
     """The ``TrainChunk`` of ``unroll`` steps (the JAX package's
-    ``make_train_scan``); its draws come from the generators of (seed,
-    it)."""
-    return TrainChunk(model, cfgv, cfg_losses, rf_basis, unroll, seed, flat)
+    ``make_train_scan``; with a ``shard`` its ``make_dp_train_scan``);
+    its draws come from the generators of (seed, it)."""
+    return TrainChunk(model, cfgv, cfg_losses, rf_basis, unroll, seed, flat,
+                      shard)
 
 
 @torch.no_grad()
@@ -390,12 +447,27 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
             runtime.generator(dev, cfg.seed, _RF_STREAM), model.z_dim,
             mmd_cfg.rf_dim, dev)
     flat = C.flat_optimizer_enabled(cfg)
+    # a process group selects the data-parallel step (the JAX package's
+    # make_dp_train_step; with hw.zero its make_zero_train_step)
+    shard = pdist.data_parallel(cfg, [cfgv.batch_size])
+    zero = shard is not None and bool(cfg.hw.get("zero", False))
+    writer = pdist.is_writer()
+    if shard is not None:
+        log.info("data-parallel training over %d ranks (%s)%s",
+                 shard.world, shard.backend,
+                 " (ZeRO-1 sharded optimizer state)" if zero else "")
     train_step, optimizer = make_train_step(model, cfgv, cfg.losses,
-                                            rf_basis, flat)
+                                            rf_basis, flat, shard, zero)
     opt_state = optimizer.init(params)
     if cfg.loadpath:
+        # every rank reads the file; ZeRO-1 keeps its segments of the
+        # per-leaf moments the file holds
+        tmpl = (optimizer.full_state(params, opt_state) if zero
+                else opt_state)
         params, opt_state = checkpoints.load_train_state(
-            cfg.loadpath, params, opt_state, dev, c_args=cfg.model.C_args)
+            cfg.loadpath, params, tmpl, dev, c_args=cfg.model.C_args)
+        if zero:
+            opt_state = optimizer.from_full(params, opt_state)
         log.info("Loaded train state from %s", cfg.loadpath)
     for leaf in checkpoints.flatten(params).values():
         leaf.requires_grad_(True)
@@ -417,6 +489,11 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     def do_host(it, metrics):
         cheap = it % cfgv.cheaplog_every == 0
         expsv = it % cfgv.expsvlog_every == 0
+        if expsv and it > cfgv.s_iter and zero:
+            # every rank's segments, gathered by all of them
+            saved_opt = optimizer.full_state(params, opt_state)
+        if not writer:
+            return
         if cheap or expsv:
             sent, _, _ = generate_sentences(
                 model, params, 1,
@@ -425,7 +502,8 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
             fetch.add(it, metrics, sent, force=expsv)
         if expsv and it > cfgv.s_iter:
             path = cfgv.chkpt_path.format(it)
-            checkpoints.save(path, params, opt_state, step=it,
+            checkpoints.save(path, params,
+                             saved_opt if zero else opt_state, step=it,
                              c_args=cfg.model.C_args)
             log.info("Saved model to %s", path)
             if cfg.hw.get("heldout_eval", True):
@@ -445,14 +523,16 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
         return j % cfgv.cheaplog_every == 0 or j % cfgv.expsvlog_every == 0
 
     # runs of `unroll` steps as one chunk, aligned to the log cadences;
-    # per-step RF bases (rf_resample) keep every step eager, as in JAX
+    # per-step RF bases (rf_resample) and ZeRO-1 keep every step eager, as
+    # in JAX (it has no scan builder for either)
     unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
                             int(cfgv.cheaplog_every),
                             int(cfgv.expsvlog_every))
     chunk = None
-    if unroll > 1 and rf_basis is not None:
+    if unroll > 1 and rf_basis is not None and not zero:
+        check_chunk(shard, dev, unroll)
         chunk = make_train_chunk(model, cfgv, cfg.losses, rf_basis, unroll,
-                                 cfg.seed, flat)
+                                 cfg.seed, flat, shard)
 
     log.info("Training base vae ...")
     it, end_it = cfgv.s_iter, cfgv.s_iter + cfgv.n_iter

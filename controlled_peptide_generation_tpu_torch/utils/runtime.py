@@ -1,5 +1,8 @@
 """Device selection and numeric settings for the port's entry points."""
 
+import ctypes
+import os
+
 import numpy as np
 import torch
 
@@ -15,7 +18,10 @@ def setup(device="cuda"):
     """Resolve the device an entry point runs on.
 
     CUDA unless the caller asks for the CPU. Without CUDA, asking for it
-    raises: there is no silent CPU fallback."""
+    raises: there is no silent CPU fallback. "cuda" without an index is
+    ``cuda:LOCAL_RANK`` under torchrun (one process a device, the
+    data-parallel ranks of ``parallel/dist.py``), else the current
+    device."""
     set_full_fp32()
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -23,6 +29,10 @@ def setup(device="cuda"):
             "CUDA is not available; pass --device cpu to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     return dev
 
 
@@ -105,3 +115,53 @@ def graph_node_kinds(graph):
         kinds.append(_NODE_KINDS[kind.value]
                      if 0 <= kind.value < len(_NODE_KINDS) else str(kind.value))
     return kinds
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda's graph API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernel_names(graph):
+    """The function names of the kernel nodes of a captured CUDA graph (a
+    cudaGraph_t as an int, as ``graph_node_kinds`` takes), read through
+    libcuda (cuGraphKernelNodeGetParams, cuFuncGetName or
+    cuKernelGetName): which kernels a replay launches, NCCL's among them
+    (``is_collective``)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(graph), None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(ctypes.c_void_p(graph), nodes,
+                                      ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:
+            continue
+        p = _KernelNodeParams()
+        if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                            ctypes.byref(p)):
+            raise RuntimeError("cuGraphKernelNodeGetParams failed")
+        name = ctypes.c_char_p()
+        err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+               if p.func else
+               cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)))
+        if err:
+            raise RuntimeError("cuFuncGetName failed")
+        names.append(name.value.decode())
+    return names
+
+
+def is_collective(kernel_name):
+    """True for NCCL's kernels: ncclDevKernel_* at any world size, and
+    the kernel NCCL runs for a pre-multiplied sum (the average) at world 1
+    (its onerank.cu)."""
+    low = kernel_name.lower()
+    return "nccl" in low or "onerank" in low

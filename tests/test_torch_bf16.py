@@ -62,6 +62,7 @@ from controlled_peptide_generation_tpu_torch.ops import beam as t_beam
 from controlled_peptide_generation_tpu_torch.ops import beam_kernel
 from controlled_peptide_generation_tpu_torch.ops import nn as t_nn
 from controlled_peptide_generation_tpu_torch.ops import tfm_beam_kernel
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 
 BF = torch.bfloat16
@@ -328,7 +329,7 @@ def test_fused_round_bf16_matches_jax(family, capacity):
         j_beam.set_pallas_beam(None)
         jax.clear_caches()
     got = t_fused._round_body(
-        tm, tp, _jax_draws(key, q, n), "gmm_diag",
+        tm, shards_of(tp), _jax_draws(key, q, n), "gmm_diag",
         t_gmm.GMMParams(*map(torch.from_numpy, q)),
         *map(torch.from_numpy, heads), beam_size=3, decode_dtype="bfloat16",
         capacity=capacity)

@@ -50,6 +50,7 @@ from controlled_peptide_generation_tpu_torch.latent import gmm as t_gmm
 from controlled_peptide_generation_tpu_torch.ops import beam as t_beam
 from controlled_peptide_generation_tpu_torch.ops import gru as t_gru
 from controlled_peptide_generation_tpu_torch.ops import sampling as t_samp
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 
 from test_torch_fused import N, _jax_draws as jax_round_draws
@@ -230,7 +231,7 @@ def test_deconv_fused_round_matches_jax(deconv, capacity, beam_chunk):
         capacity=capacity, beam_chunk=beam_chunk)]
     runs = t_beam.beam_search_logits.runs
     got = [a.numpy() for a in t_fused._round_body(
-        tm, tp, jax_round_draws(key, q, N), "gmm_diag",
+        tm, shards_of(tp), jax_round_draws(key, q, N), "gmm_diag",
         t_gmm.GMMParams(*map(torch.from_numpy, q)),
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
         capacity=capacity, beam_chunk=beam_chunk)]
@@ -262,8 +263,8 @@ def test_deconv_decode_top1_matches_jax(one_thread):
     cs = [t_(jm.sample_c_prior(
         jax.random.split(jax.random.fold_in(key, s), 3)[1], chunk))
         for s in range(0, n, chunk)]
-    got = pipeline.decode_from_z(z, tm, to_port(jp), load_vocab(VOCAB),
-                                 chunk=chunk, cs=cs)
+    got = pipeline.decode_from_z(z, tm, shards_of(to_port(jp)),
+                                 load_vocab(VOCAB), chunk=chunk, cs=cs)
     assert got == list(want) and len(set(got)) > 1
 
 

@@ -39,6 +39,7 @@ from controlled_peptide_generation_tpu_torch.latent import fused as t_fused
 from controlled_peptide_generation_tpu_torch.latent import gmm as t_gmm
 from controlled_peptide_generation_tpu_torch.models import flow as t_flow
 from controlled_peptide_generation_tpu_torch.ops import losses as t_L
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import train_vae as t_tv
 
 from test_torch_fused import N, _jax_draws as jax_round_draws
@@ -179,13 +180,13 @@ def test_flow_modes_in_generation_and_decode_from_z(argv, one_thread):
     cs = [t_(jm24.sample_c_prior(
         jax.random.split(jax.random.fold_in(key, s), 3)[1], chunk))
         for s in range(0, n, chunk)]
-    got = pipeline.decode_from_z(zq, tm24, to_port(jp24), load_vocab(VOCAB),
-                                 chunk=chunk, cs=cs)
+    got = pipeline.decode_from_z(zq, tm24, shards_of(to_port(jp24)),
+                                 load_vocab(VOCAB), chunk=chunk, cs=cs)
     assert got == list(want) and len(set(got)) > 1
     # the flow moves the decodes: without it they differ
     unflowed = pipeline.decode_from_z(
-        zq, tm24, dict(to_port(jp24), flow=to_port(
-            {"flow": jax.tree.map(lambda a: 0 * a, strong)})["flow"]),
+        zq, tm24, shards_of(dict(to_port(jp24), flow=to_port(
+            {"flow": jax.tree.map(lambda a: 0 * a, strong)})["flow"])),
         load_vocab(VOCAB), chunk=chunk, cs=cs)
     assert unflowed != got
 
@@ -212,8 +213,8 @@ def test_flow_fused_round_matches_jax(capacity, one_thread):
         capacity=capacity)]
     draws = jax_round_draws(key, q, N)
     got = [a.numpy() for a in t_fused._round_body(
-        tm, tp, draws, "gmm_diag", t_gmm.GMMParams(*map(torch.from_numpy,
-                                                        q)),
+        tm, shards_of(tp), draws, "gmm_diag",
+        t_gmm.GMMParams(*map(torch.from_numpy, q)),
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
         capacity=capacity)]
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
@@ -227,7 +228,8 @@ def test_flow_fused_round_matches_jax(capacity, one_thread):
     assert np.abs(flowed - got[0]).max() > 1e-1
     # the decode reads flow(z): without the flow other tokens come out
     plain_z = t_fused._round_body(
-        tm, dict(tp, flow=jax.tree.map(lambda a: 0 * a, tp["flow"])), draws,
+        tm, shards_of(dict(tp, flow=jax.tree.map(lambda a: 0 * a,
+                                                 tp["flow"]))), draws,
         "gmm_diag", t_gmm.GMMParams(*map(torch.from_numpy, q)),
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
         capacity=capacity)[5].numpy()

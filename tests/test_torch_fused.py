@@ -21,6 +21,7 @@ from controlled_peptide_generation_tpu_torch.latent import fused as t_fused
 from controlled_peptide_generation_tpu_torch.latent import gmm as t_gmm
 from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
     build_model as t_build)
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 
 N = 64
@@ -72,7 +73,7 @@ def test_round_matches_jax(setup, capacity, beam_chunk):
     want = [np.asarray(a) for a in want]
     tq = t_gmm.GMMParams(*map(torch.from_numpy, q))
     got = t_fused._round_body(
-        tm, tp, _jax_draws(key, q, N), "gmm_diag", tq,
+        tm, shards_of(tp), _jax_draws(key, q, N), "gmm_diag", tq,
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
         capacity=capacity, beam_chunk=beam_chunk)
     got = [a.numpy() for a in got]
@@ -130,7 +131,7 @@ def test_transformer_round_matches_jax(tfm_setup, capacity):
     want = [np.asarray(a) for a in want]
     tq = t_gmm.GMMParams(*map(torch.from_numpy, q))
     got = t_fused._round_body(
-        tm, tp, _jax_draws(key, q, N), "gmm_diag", tq,
+        tm, shards_of(tp), _jax_draws(key, q, N), "gmm_diag", tq,
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32",
         capacity=capacity)
     got = [a.numpy() for a in got]

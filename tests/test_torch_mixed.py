@@ -30,6 +30,7 @@ from controlled_peptide_generation_tpu_torch.latent import fused as t_fused
 from controlled_peptide_generation_tpu_torch.latent import gmm as t_gmm
 from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
     build_model as t_build)
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 from controlled_peptide_generation_tpu_torch.train import train_vae as t_tv
 
@@ -132,7 +133,7 @@ def test_mixed_round_matches_jax(families):
         capacity=None, beam_chunk=None)
     want = [np.asarray(a) for a in want]
     got = t_fused._round_body(
-        tm, tp, _jax_round_draws(key, q, N), "gmm_diag",
+        tm, shards_of(tp), _jax_round_draws(key, q, N), "gmm_diag",
         t_gmm.GMMParams(*map(torch.from_numpy, q)),
         *map(torch.from_numpy, heads), beam_size=5, decode_dtype="float32")
     got = [a.numpy() for a in got]

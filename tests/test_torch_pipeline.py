@@ -149,9 +149,11 @@ def test_sample_files_match_jax(tmp_path):
 
 def test_slice_limits_raise(run_dir):
     # the serial loop (--hw.fused_rounds 0) runs: tests/test_torch_serial.py
+    # hw.dp shards the rounds (tests/test_torch_dp_round.py); tensor
+    # parallelism is not ported
     with pytest.raises(NotImplementedError, match="A9"):
         sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,
-                                      "--device", "cpu", "--hw.dp", "2"])
+                                      "--device", "cpu", "--hw.tp", "2"])
     # the dataloader encodings select amp=1, as in the JAX package
     with pytest.raises(ValueError, match="Q_select_amppos"):
         sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,

@@ -40,6 +40,7 @@ from controlled_peptide_generation_tpu_torch.latent import gmm as t_gmm
 from controlled_peptide_generation_tpu_torch.latent import logreg
 from controlled_peptide_generation_tpu_torch.models.rnn_vae import (
     build_model as t_build)
+from controlled_peptide_generation_tpu_torch.parallel.rounds import shards_of
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 
 from test_torch_pipeline import FLAGS, run_dir  # noqa: F401 (fixture)
@@ -177,20 +178,21 @@ def test_decode_from_z_matches_jax(family):
     for s in range(0, n, chunk):
         kc = jax.random.split(jax.random.fold_in(key, s), 3)[1]
         cs.append(torch.from_numpy(np.array(jm.sample_c_prior(kc, chunk))))
-    got = pipeline.decode_from_z(z, tm, tp, load_vocab(VOCAB), chunk=chunk,
-                                 cs=cs)
+    got = pipeline.decode_from_z(z, tm, shards_of(tp), load_vocab(VOCAB),
+                                 chunk=chunk, cs=cs)
     assert got == list(want)
     assert len(set(got)) > 1
     # the tokens under the same c, and a generator's c repeats with its
     # seed
-    tokens, scores = pipeline.decode_top1(z, tm, tp, chunk=chunk, cs=cs)
+    tokens, scores = pipeline.decode_top1(z, tm, shards_of(tp), chunk=chunk,
+                                          cs=cs)
     assert tokens.shape == (n, 11) and scores.shape == (n,)
     assert load_vocab(VOCAB).to_sentences_batch(
         tokens, print_special_tokens=False) == got
-    a = pipeline.decode_top1(z, tm, tp, torch.Generator().manual_seed(1),
-                             chunk=chunk)
-    b = pipeline.decode_top1(z, tm, tp, torch.Generator().manual_seed(1),
-                             chunk=chunk)
+    a = pipeline.decode_top1(z, tm, shards_of(tp),
+                             torch.Generator().manual_seed(1), chunk=chunk)
+    b = pipeline.decode_top1(z, tm, shards_of(tp),
+                             torch.Generator().manual_seed(1), chunk=chunk)
     np.testing.assert_array_equal(a[0], b[0])
 
 
@@ -249,7 +251,7 @@ def test_serial_loops_match_jax(monkeypatch, caplog):
         logs["jax"] = [r.getMessage() for r in caplog.records]
         caplog.clear()
         got, stats = pipeline._serial_sampling_loop(
-            cfg, args, None, None, None, None, round_size, "cpu")
+            cfg, args, None, shards_of(None), None, None, round_size, "cpu")
         logs["torch"] = [r.getMessage() for r in caplog.records]
     pd.testing.assert_frame_equal(got, want)
     assert logs["torch"] == logs["jax"]

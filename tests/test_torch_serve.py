@@ -305,7 +305,7 @@ def test_first_round_is_one_launch_round(built):
     1) outside the server."""
     cfg, srv0 = built
     n = 64
-    host, _ = pipeline.launch_round(cfg, srv0.model, srv0.params, srv0.Q, n,
+    host, _ = pipeline.launch_round(cfg, srv0.model, srv0.shards, srv0.Q, n,
                                     pipeline.round_generator(cfg.seed, 1,
                                                              "cpu"))
     _, scores, accept, tokens, _ = host
