@@ -270,6 +270,15 @@ Phases, each raising on failure (the script then exits non-zero):
    once a device a round, and run_from_states over that list; [11s] the
    server built on the same list answers one request of 64 unique
    peptides;
+12. tensor and pipeline parallelism of the transformer family at the
+   shipped width, batch 32, --hw.unroll 1, on gloo ranks on cuda:0
+   (mp_phase): [12t] --hw.tp 2, [12p] --hw.pp 2, [12x] the mixed family
+   (GRU encoder) at --hw.tp 2, each 11 phase-1 steps, and [12f] 11
+   phase-2 iterations at --hw.tp 2 (under mmd) from [12t]'s checkpoint, on
+   2 ranks; [12m] --hw.tp 2 --hw.pp 2 on 4 ranks; each against main.main
+   of the same flags on one rank: every checkpoint array within [11]'s
+   bounds, the logged losses within rtol 1e-4, each rank's B5 counts (and
+   B2's and B4's in [12x]) those of the one-rank run;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -387,6 +396,10 @@ BF16_UNIQ_RATIO = (0.99, 1.01)
 # atol 2e-5, and their losses' 1e-4)
 DP_ITERS, DP_ITERS_T = 40, 10
 DP_RTOL, DP_ATOL, DP_LOSS_RTOL = 2e-4, 2e-5, 1e-4
+# [12]: tensor and pipeline parallelism on the one card; steps of each run
+# (and phase-2 iterations of [12f]), held to [11]'s bounds against the
+# one-rank run of the same flags
+MP_ITERS = 10
 
 LOG_FILE = []          # the full log, also under chiprun_out/ (gitignored)
 
@@ -483,6 +496,175 @@ def dp_rank_jobs(jobs, out_dir):
     with open(os.path.join(out_dir, f"rank{tdist.get_rank()}.json"),
               "w") as fh:
         json.dump(out, fh)
+
+
+def state_delta(path_a, path_b):
+    """The largest |a - b| over the largest |b| of each array of two
+    checkpoints (params and Adam state), and whether all are bitwise
+    equal."""
+    import numpy as np
+    worst, key, same = 0.0, None, True
+    with np.load(path_a) as a, np.load(path_b) as b:
+        if set(a.files) != set(b.files):
+            raise AssertionError(f"{path_a} and {path_b} hold other keys")
+        for k in b.files:
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            same &= a[k].tobytes() == b[k].tobytes()
+            rel = float(np.abs(x - y).max(initial=0)) / max(
+                float(np.abs(y).max(initial=0)), 1e-30)
+            if rel > worst or key is None:
+                worst, key = rel, k
+    return worst, key, same
+
+
+def outside_bounds(path_a, path_b, cfg_, n_steps):
+    """The arrays of two checkpoints outside rtol DP_RTOL / atol DP_ATOL
+    (the tier-1 tests' bound for a DP step against its one-device step).
+    The attention keys' bias has an exact gradient of 0 (softmax ignores
+    a shift shared by all keys), so Adam turns its rounding noise into
+    steps of up to lr either way: its entries (head-major [heads, q k v,
+    dh]) are held within 2 lr a step instead, and their moments, noise,
+    are left out."""
+    import numpy as np
+    out = []
+    with np.load(path_a) as a, np.load(path_b) as b:
+        for k in b.files:
+            x, y = a[k], b[k]
+            if k.endswith("['qkv']['b']"):
+                part = "E_args" if "['enc']" in k else "G_args"
+                heads = cfg_.model[part].T_args.get("n_heads", 4)
+                keys = np.zeros(y.shape, bool)
+                keys.reshape(heads, 3, -1)[:, 1] = True
+                if "['opt']" in k:
+                    x, y = x[~keys], y[~keys]
+                elif np.abs(x - y)[keys].max() > 2 * 1e-3 * n_steps:
+                    out.append(k)
+                    continue
+                else:
+                    x, y = x[~keys], y[~keys]
+            if not np.allclose(x, y, rtol=DP_RTOL, atol=DP_ATOL):
+                out.append(k)
+    return out
+
+
+def losses_delta(cfg_a, cfg_b, prefix):
+    """The largest relative difference of two runs' logged losses (their
+    result.json rows of the same iterations)."""
+    rows = []
+    for cfg_ in (cfg_a, cfg_b):
+        with open(os.path.join(cfg_.savepath, "result.json")) as fh:
+            rows.append({r["it"]: {k: v for k, v in r.items()
+                                   if k.startswith(prefix + "L_")}
+                         for r in json.load(fh) if prefix + "L_vae" in r})
+    if set(rows[0]) != set(rows[1]) or not rows[1]:
+        raise AssertionError(f"logged rows {sorted(rows[0])} against "
+                             f"{sorted(rows[1])}")
+    return max(abs(rows[0][i][k] - v) / max(abs(v), 1e-30)
+               for i, r in rows[1].items() for k, v in r.items())
+
+
+def mp_phase(train_flags, train_top, dev, card):
+    """[12]: tensor and pipeline parallelism of the transformer family at
+    the shipped width, batch 32, every step eager. NCCL refuses two ranks
+    on one device, so the ranks are gloo ranks on cuda:0, started by
+    parallel.dist.spawn (each runs dp_rank_jobs): [12t] --hw.tp 2, [12p]
+    --hw.pp 2, [12x] the mixed family (GRU encoder) at --hw.tp 2, [12f]
+    phase 2 at --hw.tp 2 from [12t]'s checkpoint, on 2 ranks; [12m] --hw.tp
+    2 --hw.pp 2 on 4. Each is held against main.main of the same flags on
+    one rank: every checkpoint array within rtol DP_RTOL / atol DP_ATOL,
+    the logged losses within DP_LOSS_RTOL, and each rank's launches of B5
+    (and of B2 and B4, the GRU leg's, in [12x]) equal to the one rank's.
+    Raises on any failure; returns every rank's counts."""
+    from controlled_peptide_generation_tpu_torch import config as C
+    from controlled_peptide_generation_tpu_torch import main as train_main
+    from controlled_peptide_generation_tpu_torch.parallel import dist as pdist
+    mp_dir = os.path.join(train_top, "mp")
+    shutil.rmtree(mp_dir, ignore_errors=True)
+    os.makedirs(mp_dir)
+    on = "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    common = ["--device", on, "--hw.unroll", "1",
+              "--vae.cheaplog_every", "5", "--vae.expsvlog_every",
+              str(MP_ITERS)]
+    tfm = train_flags("mp_t", MP_ITERS, TFM_FLAGS + common)
+    extra = train_main.EXTRA_ARGS
+    cfg_t, _, _ = C.parse_and_finalize(tfm, extra_args=extra)
+    p2 = ["--phase", "2", "--loadpath", cfg_t.vae.chkpt_path.format(MP_ITERS),
+          "--full.n_iter", str(MP_ITERS), "--full.cheaplog_every", "5",
+          "--full.expsvlog_every", str(MP_ITERS), "--full.z_regu_loss", "mmd"]
+    runs = {  # tag: (ranks, flags without the layout, the layout's flags)
+        "12t": (2, tfm, ["--hw.tp", "2"]),
+        "12p": (2, train_flags("mp_p", MP_ITERS, TFM_FLAGS + common),
+                ["--hw.pp", "2"]),
+        "12x": (2, train_flags("mp_x", MP_ITERS, [
+            "--model.G_args.G_class", "transformer"] + common),
+                ["--hw.tp", "2"]),
+        "12f": (2, train_flags("mp_f", MP_ITERS, TFM_FLAGS + common) + p2,
+                ["--hw.tp", "2"]),
+        "12m": (4, train_flags("mp_m", MP_ITERS, TFM_FLAGS + common),
+                ["--hw.tp", "2", "--hw.pp", "2"])}
+    ranks, spawn_s = {}, {}
+    for world in (2, 4):
+        out_dir = os.path.join(mp_dir, f"gloo{world}")
+        os.makedirs(out_dir)
+        jobs = [(tag, flags + layout) for tag, (w, flags, layout)
+                in runs.items() if w == world]
+        t0 = time.perf_counter()
+        pdist.spawn(dp_rank_jobs, world, jobs, out_dir, backend="gloo",
+                    threads=0)
+        spawn_s[world] = time.perf_counter() - t0
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                for tag, res in json.load(fh).items():
+                    ranks.setdefault(tag, []).append(res)
+    keys = {tag: ("B5 fwd", "B5 bwd") for tag in runs}
+    keys["12x"] += ("B2 fwd", "B2 bwd", "B2 wgrad", "B4")
+    counts, failed = [], []
+    for tag, (world, flags, layout) in runs.items():
+        one = [a + "_1" if a in ("mp_t", "mp_p", "mp_x", "mp_f", "mp_m")
+               else a for a in flags]
+        reset_train_counts()
+        t0 = time.perf_counter()
+        cfg_1 = train_main.main(one)
+        secs_1, counts_1 = time.perf_counter() - t0, train_counts()
+        cfg_n, _, _ = C.parse_and_finalize(flags + layout, extra_args=extra)
+        phase2 = tag == "12f"
+        last = (cfg_1.full.s_iter + MP_ITERS if phase2 else MP_ITERS)
+        path_n, path_1 = ((c.full if phase2 else c.vae).chkpt_path.format(
+            last) for c in (cfg_n, cfg_1))
+        rel, at, _ = state_delta(path_n, path_1)
+        outside = outside_bounds(path_n, path_1, cfg_1, MP_ITERS + 1)
+        prefix = "full_" if phase2 else "train_"
+        loss_rel = losses_delta(cfg_n, cfg_1, prefix)
+        rates = []
+        for c in (cfg_n, cfg_1):
+            with open(os.path.join(c.savepath, "result.json")) as fh:
+                rates.append([r[prefix + "steps_per_sec"] for r in
+                              json.load(fh)
+                              if prefix + "steps_per_sec" in r][-1])
+        per_rank = [res["counts"] for res in ranks[tag]]
+        counts += per_rank
+        bad = [r for r, c in enumerate(per_rank)
+               if any(c[k] != counts_1[k] for k in keys[tag])]
+        log(f"[{tag}] main.main {' '.join(layout)} on {world} gloo ranks on "
+            f"{on} (batch 32, every step eager) against one "
+            f"rank of the same flags: model_{last}.npz largest difference "
+            f"{rel:.3e} of the array's largest entry ({at}), arrays outside "
+            f"rtol {DP_RTOL} / atol {DP_ATOL} (the keys' bias within 2 lr a "
+            f"step): {outside}; logged losses within {loss_rel:.3e}; "
+            f"launches per rank {per_rank} against one rank's {counts_1} "
+            f"(held: {', '.join(keys[tag])}); "
+            f"{[round(res['seconds'], 2) for res in ranks[tag]]} s a rank "
+            f"in main.main against {secs_1:.2f} s on one rank; "
+            f"{rates[0]:.2f} steps/s over the loop against {rates[1]:.2f} "
+            f"({card})")
+        if outside or loss_rel > DP_LOSS_RTOL or bad:
+            failed.append(f"{tag}: arrays {outside}, losses {loss_rel:.3e}, "
+                          f"ranks {bad} with other launches")
+    log(f"[12] spawns and the ranks' runs: {spawn_s[2]:.1f} s on 2 ranks, "
+        f"{spawn_s[4]:.1f} s on 4 ({card})")
+    if failed:
+        raise AssertionError(f"[12] against one rank: {failed}")
+    return counts
 
 
 def log(msg):
@@ -1901,23 +2083,6 @@ def main():
     mark("6t-b one transformer step, kernels vs plain")
 
     # ---- 6p, 6u: the chunked steps against the per-step path -------------
-    def state_delta(path_a, path_b):
-        """The largest |a - b| over the largest |b| of each array of two
-        checkpoints (params and Adam state), and whether all are bitwise
-        equal."""
-        worst, key, same = 0.0, None, True
-        with np.load(path_a) as a, np.load(path_b) as b:
-            if set(a.files) != set(b.files):
-                raise AssertionError(f"{path_a} and {path_b} hold other keys")
-            for k in b.files:
-                x, y = a[k].astype(np.float64), b[k].astype(np.float64)
-                same &= a[k].tobytes() == b[k].tobytes()
-                rel = float(np.abs(x - y).max(initial=0)) / max(
-                    float(np.abs(y).max(initial=0)), 1e-30)
-                if rel > worst or key is None:
-                    worst, key = rel, k
-        return worst, key, same
-
     def logged(cfg_):
         with open(os.path.join(cfg_.savepath, "result.json")) as fh:
             return {r["it"]: {k: v for k, v in r.items()
@@ -3388,48 +3553,6 @@ def main():
         one_runs[tag] = train_run(f"{tag} dp 1", flags_1)
     mark("11 the one-rank runs of the same flags")
 
-    def dp_delta(path_a, path_b, cfg_, n_steps):
-        """state_delta, and the arrays outside rtol DP_RTOL / atol
-        DP_ATOL (the tier-1 tests' bound for a DP step against its
-        one-device step). The attention keys' bias has an exact gradient
-        of 0 (softmax ignores a shift shared by all keys), so Adam turns
-        its rounding noise into steps of up to lr either way: its entries
-        (head-major [heads, q k v, dh]) are held within 2 lr a step
-        instead, and their moments, noise, are left out."""
-        rel, key, bitwise = state_delta(path_a, path_b)
-        out = []
-        with np.load(path_a) as a, np.load(path_b) as b:
-            for k in b.files:
-                x, y = a[k], b[k]
-                if k.endswith("['qkv']['b']"):
-                    part = "E_args" if "['enc']" in k else "G_args"
-                    heads = cfg_.model[part].T_args.get("n_heads", 4)
-                    keys = np.zeros(y.shape, bool)
-                    keys.reshape(heads, 3, -1)[:, 1] = True
-                    if "['opt']" in k:
-                        x, y = x[~keys], y[~keys]
-                    elif np.abs(x - y)[keys].max() > 2 * 1e-3 * n_steps:
-                        out.append(k)
-                        continue
-                    else:
-                        x, y = x[~keys], y[~keys]
-                if not np.allclose(x, y, rtol=DP_RTOL, atol=DP_ATOL):
-                    out.append(k)
-        return rel, key, bitwise, out
-
-    def losses_delta(cfg_a, cfg_b, prefix):
-        rows = []
-        for cfg_ in (cfg_a, cfg_b):
-            with open(os.path.join(cfg_.savepath, "result.json")) as fh:
-                rows.append({r["it"]: {k: v for k, v in r.items()
-                                       if k.startswith(prefix + "L_")}
-                             for r in json.load(fh) if prefix + "L_vae" in r})
-        if set(rows[0]) != set(rows[1]) or not rows[1]:
-            raise AssertionError(f"logged rows {sorted(rows[0])} against "
-                                 f"{sorted(rows[1])}")
-        return max(abs(rows[0][i][k] - v) / max(abs(v), 1e-30)
-                   for i, r in rows[1].items() for k, v in r.items())
-
     b2_keys = ("B2 fwd", "B2 bwd", "B2 wgrad", "B5 fwd", "B5 bwd")
     dp_counts = []
     for tag, job in gloo_jobs.items():
@@ -3441,9 +3564,10 @@ def main():
                 else cfg_1.vae.n_iter)
         path_2 = (cfg_2.full if phase2 else cfg_2.vae).chkpt_path.format(last)
         path_1 = (cfg_1.full if phase2 else cfg_1.vae).chkpt_path.format(last)
-        rel, key, bitwise, outside = dp_delta(path_2, path_1, cfg_1,
-                                              last - (cfg_1.full.s_iter
-                                                      if phase2 else 0) + 1)
+        rel, key, bitwise = state_delta(path_2, path_1)
+        outside = outside_bounds(path_2, path_1, cfg_1,
+                                 last - (cfg_1.full.s_iter if phase2 else 0)
+                                 + 1)
         loss_rel = losses_delta(cfg_2, cfg_1, "full_" if phase2 else "train_")
         per_rank = [g[tag]["counts"] for g in gloo]
         dp_counts += per_rank
@@ -3667,6 +3791,11 @@ def main():
     mark("11s the server over two devices")
     dp_launches = {k: sum(c[k] for c in dp_counts) for k in dp_counts[0]}
     dp_launches.update(dp_rounds_launches)
+
+    # ---- 12. tensor and pipeline parallelism (ROADMAP A9 part 4) ---------
+    mp_counts = mp_phase(train_flags, train_top, dev, card)
+    mp_launches = {k: sum(c[k] for c in mp_counts) for k in mp_counts[0]}
+    mark("12 tensor and pipeline parallelism")
 
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
@@ -3908,7 +4037,8 @@ def main():
             "launches": (train_launches[f"B2 {k}"] + l9g[f"B2 {k}"]
                          + l9m[f"B2 {k}"]
                          + sum(m_[f"B2 {k}"] for m_ in mix_l)
-                         + opt_launches[f"B2 {k}"] + dp_launches[f"B2 {k}"]),
+                         + opt_launches[f"B2 {k}"] + dp_launches[f"B2 {k}"]
+                         + mp_launches[f"B2 {k}"]),
             "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
@@ -3935,7 +4065,7 @@ def main():
         "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
                      + se_counts2["B4"] + l9g["B4"] + l9m["B4"]
                      + sum(m_["B4"] for m_ in mix_l) + opt_launches["B4"]
-                     + dp_launches["B4"]),
+                     + dp_launches["B4"] + mp_launches["B4"]),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
@@ -3943,10 +4073,11 @@ def main():
     for k, n_launch in (("fwd", train_launches["B5 fwd"]
                          + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
                          + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)
-                         + opt_launches["B5 fwd"] + dp_launches["B5 fwd"]),
+                         + opt_launches["B5 fwd"] + dp_launches["B5 fwd"]
+                         + mp_launches["B5 fwd"]),
                         ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"]
                          + sum(m_["B5 bwd"] for m_ in mix_l)
-                         + dp_launches["B5 bwd"])):
+                         + dp_launches["B5 bwd"] + mp_launches["B5 bwd"])):
         k_ms, p_ms, (b_ms, b_by) = b5_times[32][k]
         entries.append({
             "name": f"mmd_full_{k}",

@@ -298,8 +298,13 @@ def default_config():
                               # of a process group (torchrun, one a
                               # device; 0 = the group's size); sampling and
                               # the server, the first dp devices (0 = all)
-        tp=1,                 # tensor and pipeline parallelism: not
-        pp=1,                 # ported (ROADMAP.md A9), > 1 raises
+        tp=1,                 # tensor parallelism (Megatron) of the
+                              # transformer family: ranks on the 'model'
+                              # axis of the training mesh
+        pp=1,                 # pipeline parallelism (GPipe): stages on its
+                              # 'pipe' axis; dp x pp x tp is the group's
+                              # size (parallel/dist.py). Sampling and the
+                              # server ignore both, as in JAX
         mesh_axis="data",     # the JAX mesh's axis name; no role here
         zero=False,           # ZeRO-1 (phase 1 under dp): Adam's moments
                               # sharded over the ranks

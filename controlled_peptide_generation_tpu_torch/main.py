@@ -31,6 +31,17 @@ rank steps on the global batch's rows it owns, the gradients averaged
 over the ranks (``--hw.zero 1``: ZeRO-1 in phase 1); rank 0 alone writes
 the config, vocab, logs, checkpoints, samples and result.json. Without
 torchrun, ``--hw.dp 1`` runs as before and ``--hw.dp N`` raises.
+
+Tensor and pipeline parallelism of the transformer family, the same way:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m controlled_peptide_generation_tpu_torch.main ... \
+        --hw.tp 2 --hw.pp 2 [--hw.dp 1]
+
+trains both phases on a (data, pipe, model) mesh of the ranks
+(``parallel/dist.py`` ``Mesh``): Megatron's slices of the blocks over
+'model', GPipe stages over 'pipe', each composed with ``--hw.dp``; the
+samples and checkpoints are a one-device run's.
 """
 
 import logging
@@ -47,7 +58,7 @@ from .parallel import dist as pdist
 from .train import checkpoints
 from .api import generate_interpolated_samples
 from .train.train_full import check_phase2, train_full
-from .train.train_vae import check_supported, train_vae
+from .train.train_vae import train_vae
 from .utils import runtime
 from .utils.io import write_fasta, write_gen_samples
 from .utils.logging import MetricLogger
@@ -126,7 +137,6 @@ def main(argv=None):
     device = runtime.setup(args.device)
     if cfg.phase not in (1, 2, -1):
         raise ValueError(f"--phase {cfg.phase}: 1, 2 or -1 (both)")
-    check_supported(cfg)
     pdist.init_from_env(device)
     writer = pdist.is_writer()
     if writer:

@@ -28,6 +28,7 @@ in a ``draws`` dict, so tests can feed the JAX package's draws.
 """
 
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
@@ -56,6 +57,14 @@ class RNNVAE:
     E_args: dict = field(default_factory=dict)
     G_args: dict = field(default_factory=dict)
     C_args: dict = field(default_factory=dict)
+    # model parallelism of the transformer legs (``parallel/tp.py``,
+    # ``parallel/pp.py``): the model group's ``collectives.Shard``, and
+    # the pipeline schedules that run each leg's full-sequence block stack
+    # (the JAX package's hooks of the same names, models/rnn_vae.py:46-47
+    # there). None: the one-device model
+    tp: Any = None
+    enc_blocks_apply: Any = None
+    dec_blocks_apply: Any = None
 
     def __post_init__(self):
         if self.E_class not in ("gru", "transformer"):
@@ -165,7 +174,8 @@ class RNNVAE:
                 params["enc"], emb, pad_mask,
                 n_heads=t_args.get("n_heads", 4),
                 p_dropout=t_args.get("p_dropout", 0.0), train=train,
-                bf16=t_args.get("bf16", False), gen=gen, keeps=keeps)
+                bf16=t_args.get("bf16", False), gen=gen, keeps=keeps,
+                tp=self.tp, blocks_apply=self.enc_blocks_apply)
         return enc.apply(params["enc"], emb,
                          h_dim=self.E_args.get("h_dim", 80),
                          biGRU=self.E_args.get("biGRU", True))
@@ -215,7 +225,8 @@ class RNNVAE:
                 p_word_dropout=t_args.get("p_word_dropout", 0.3),
                 p_dropout=t_args.get("p_dropout", 0.0),
                 bf16=t_args.get("bf16", False), gen=gen,
-                word_drop=word_drop, keeps=keeps)
+                word_drop=word_drop, keeps=keeps, tp=self.tp,
+                blocks_apply=self.dec_blocks_apply)
         g_args = self.gru_args
         return dec.apply_teacher_forced(
             params["dec"], params["emb"], tokens, z, c, train,

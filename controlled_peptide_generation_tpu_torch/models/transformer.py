@@ -30,8 +30,14 @@ position 0; every engine advances all lanes in lockstep, so the write
 position is uniform. The beam search runs the whole decode in one CUDA
 kernel (``ops/tfm_beam_kernel.py``); these functions are its reference and
 the model's other paths. Not ported: the no-reorder ancestry arm
-(``anc_init``/``apply_step_anc``) and the ``blocks_apply`` hook of the
-pipeline-parallel schedule (ROADMAP.md).
+(``anc_init``/``apply_step_anc``).
+
+Model parallelism (``parallel/tp.py``, ``parallel/pp.py``) reaches the
+full-sequence passes alone: given the model group (``tp``), a block runs
+its rank's heads and FF units between Megatron's two operators; given a
+``blocks_apply`` (the GPipe schedule) the encoder and the teacher-forced
+decoder hand their block stack to it, as the JAX package's do. The cached
+step runs on whole blocks.
 
 Random draws (word dropout, block dropout) come from a
 ``torch.Generator`` or are passed in as masks.
@@ -97,18 +103,36 @@ def _attention(q, k, v, mask):
 
 
 def _block_full(p, x, mask, n_heads, p_dropout=0.0, train=False, gen=None,
-                keep=None):
+                keep=None, tp=None):
     """Pre-LN block over a full sequence, x [B, S, D]; ``keep`` is the
-    block's dropout mask (drawn from ``gen`` when not given)."""
+    block's dropout mask (drawn from ``gen`` when not given). With ``tp``
+    (the model group's ``collectives.Shard``) ``p`` holds the rank's
+    slices (``parallel/tp.py``): its n_heads / tp heads and d_ff / tp
+    units run between ``tp.enter`` and ``tp.leave``, the row-parallel
+    biases added after the sum; the dropout mask is the whole block
+    output's, the same on every rank."""
     h = nn.layer_norm(p["ln1"], x)
+    if tp is not None:
+        h = tp.enter(h)
+        n_heads //= tp.world
     q, k, v = _unpack_qkv(nn.linear(p["qkv"], h), n_heads)
-    a = _attention(q, k, v, mask).reshape(x.shape)
-    x = x + nn.linear(p["attn_out"], a)
+    a = _attention(q, k, v, mask).reshape(*x.shape[:-1], -1)
+    x = x + _row_linear(p["attn_out"], a, tp)
     h = nn.layer_norm(p["ln2"], x)
-    h = nn.linear(p["ff2"], nn.gelu(nn.linear(p["ff1"], h).float()).to(
-        x.dtype))
+    if tp is not None:
+        h = tp.enter(h)
+    h = _row_linear(p["ff2"], nn.gelu(nn.linear(p["ff1"], h).float()).to(
+        x.dtype), tp)
     h = nn.dropout(h, p_dropout, train, gen, keep)
     return x + h
+
+
+def _row_linear(p, x, tp):
+    """x @ w + b; with ``tp`` a row-parallel product, its partial sums
+    added over the group before the bias."""
+    if tp is None:
+        return nn.linear(p, x)
+    return tp.leave(nn.matmul(x, p["w"])) + p["b"]
 
 
 def _lin32(p, x, dt):
@@ -183,19 +207,33 @@ def init_encoder(gen, emb_dim, z_dim, max_seq_len, d_model=128, n_layers=2,
     }
 
 
+def _blocks(blocks, x, mask, n_heads, p_dropout, train, gen, keeps, tp,
+            blocks_apply):
+    """The block stack: ``blocks_apply(blocks, x, mask)`` when given (the
+    pipeline's schedule, which carries no dropout), else each block in
+    turn."""
+    if blocks_apply is not None:
+        return blocks_apply(blocks, x, mask)
+    for i, p in enumerate(blocks):
+        x = _block_full(p, x, mask, n_heads, p_dropout, train, gen,
+                        None if keeps is None else keeps[i], tp)
+    return x
+
+
 def apply_encoder(params, emb, pad_mask, n_heads=4, p_dropout=0.0,
-                  train=False, bf16=False, gen=None, keeps=None):
+                  train=False, bf16=False, gen=None, keeps=None, tp=None,
+                  blocks_apply=None):
     """emb [B, T, E], pad_mask [B, T] (True at real tokens) -> (mu, logvar);
     pooling is the masked mean over the real tokens. ``keeps`` holds one
-    dropout mask per block."""
+    dropout mask per block; ``tp`` and ``blocks_apply`` as in the module's
+    docstring."""
     T = emb.shape[1]
     dt = _enc_compute_dtype(params, bf16)
     blocks = nn.cast_tree(params["blocks"], dt)
     x = (nn.linear(params["in"], emb) + params["pos"][:T]).to(dt)
     mask = pad_mask[:, None, None, :]
-    for i, p in enumerate(blocks):
-        x = _block_full(p, x, mask, n_heads, p_dropout, train, gen,
-                        None if keeps is None else keeps[i])
+    x = _blocks(blocks, x, mask, n_heads, p_dropout, train, gen, keeps, tp,
+                blocks_apply)
     x = nn.layer_norm(params["ln_f"], x).float()
     denom = torch.clamp(pad_mask.sum(1, keepdim=True), min=1).to(x.dtype)
     pooled = (x * pad_mask[:, :, None]).sum(1) / denom
@@ -223,12 +261,14 @@ def init_decoder(gen, emb_dim, z_dim, c_dim, output_dim, max_seq_len,
 
 def apply_teacher_forced(params, emb_params, tokens, z, c, train, n_heads=4,
                          p_word_dropout=0.3, p_dropout=0.0, bf16=False,
-                         gen=None, word_drop=None, keeps=None):
+                         gen=None, word_drop=None, keeps=None, tp=None,
+                         blocks_apply=None):
     """tokens [B, T] -> logits [B, T, V], logits[t] = f(latent,
     tokens[0..t]): one causal pass over [latent, emb(tokens)] (length T+1)
     whose outputs at positions 1..T are the per-step logits.
     ``word_drop`` [B, T] and ``keeps`` (one mask per block) are the
-    dropout masks; those not given are drawn from ``gen``."""
+    dropout masks; those not given are drawn from ``gen``. ``tp`` and
+    ``blocks_apply`` as in the module's docstring."""
     x_tok = nn.word_dropout(tokens, p_word_dropout, UNK_IDX, train, gen,
                             word_drop)
     emb = nn.embed(emb_params, x_tok)                      # [B, T, E]
@@ -242,9 +282,8 @@ def apply_teacher_forced(params, emb_params, tokens, z, c, train, n_heads=4,
     S = T + 1
     ar = torch.arange(S, device=x.device)
     mask = (ar[None, :] <= ar[:, None])[None, None, :, :]
-    for i, p in enumerate(blocks):
-        x = _block_full(p, x, mask, n_heads, p_dropout, train, gen,
-                        None if keeps is None else keeps[i])
+    x = _blocks(blocks, x, mask, n_heads, p_dropout, train, gen, keeps, tp,
+                blocks_apply)
     x = nn.layer_norm(params["ln_f"], x).float()
     return nn.linear(params["out"], x[:, 1:])              # [B, T, V]
 

@@ -36,17 +36,21 @@ def init_linear(gen, in_dim, out_dim, device="cpu"):
 
 
 def linear(p, x):
-    """x @ w + b. Mixed float types compute in the wider one, as jnp's
+    """x @ w + b (``matmul``'s product)."""
+    return matmul(x, p["w"]) + p["b"]
+
+
+def matmul(x, w):
+    """x @ w. Mixed float types compute in the wider one, as jnp's
     promotion does (torch's matmul refuses mixed types). A bf16 product is
     accumulated in f32 and rounded once, as XLA computes it (cuBLAS may
     otherwise reduce partial sums in bf16)."""
-    w = p["w"]
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     if x.dtype == torch.bfloat16:
-        return (x.float() @ w.float()).to(x.dtype) + p["b"]
-    return x @ w + p["b"]
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
 
 
 def init_embedding(gen, n_vocab, emb_dim, device="cpu"):

@@ -34,6 +34,11 @@ places couple the rows and need more:
   ``parallel/zero.py``), and the logged metrics are averaged
   (``mean_metrics``).
 
+Tensor and pipeline parallelism (``parallel/tp.py``, ``parallel/pp.py``)
+use a ``Shard`` of the model or pipe group with four more operators:
+Megatron's ``enter`` and ``leave``, the stage hand-off ``ring_shift`` and
+``gather_own``, each keeping a replicated gradient counted once.
+
 Under NCCL the average is ``ReduceOp.AVG``, which NCCL runs as a sum
 pre-multiplied by 1 / world: at world 1 that is one kernel of its own,
 where NCCL drops an in-place sum of one rank altogether, so a world-1
@@ -143,6 +148,40 @@ class Shard:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
+    # ---- model parallelism (``parallel/tp.py``, ``parallel/pp.py``) ----
+    # Every rank of a tensor- or pipeline-parallel group computes the same
+    # replicated values around its own slice of the work, so these
+    # operators keep each gradient counted once.
+
+    def enter(self, x):
+        """Megatron's copy into the group: the identity, whose backward
+        sums the ranks' gradients (each rank's is its slice's part). It
+        goes before a column-parallel product and at the pipeline's
+        entry."""
+        return _Enter.apply(x, self)
+
+    def leave(self, x):
+        """Megatron's reduce from the group: the sum over the ranks, whose
+        backward is the identity (every rank holds the whole replicated
+        gradient already). It goes after a row-parallel product and at the
+        pipeline's exit."""
+        return _Leave.apply(x, self)
+
+    def ring_shift(self, x):
+        """x of rank (rank - 1) mod world: one stage's activations handed
+        to the next (the JAX package's ppermute over the ring). Its
+        backward hands each gradient back the other way. One all-gather
+        each way, which gloo runs on CUDA tensors as NCCL does, and which
+        every rank calls at every tick, so no rank waits on another's
+        schedule."""
+        return _RingShift.apply(x, self)
+
+    def gather_own(self, flat):
+        """[n] of every rank, in rank order: [n world]. Every rank uses the
+        whole result in the same replicated computation, so the backward
+        keeps this rank's segment of its own gradient (no collective)."""
+        return _GatherOwn.apply(flat, self)
+
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
@@ -173,6 +212,64 @@ class _AllReduceSum(torch.autograd.Function):
         out = grad.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.shard.group)
         return out, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.shard.group)
+        return out, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=shard.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _shifted(x, shard, by):
+    """x of rank (rank - by) mod world, by one all-gather."""
+    x = x.contiguous()
+    out = torch.empty((shard.world,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    _all_gather(out.view(-1), x.view(-1), shard.group)
+    return out[(shard.rank - by) % shard.world].clone()
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _shifted(x, shard, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shifted(grad, ctx.shard, -1), None
+
+
+class _GatherOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, shard):
+        ctx.shard = shard
+        return shard.all_gather_flat(flat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shard = ctx.shard
+        n = grad.shape[0] // shard.world
+        return grad[shard.rank * n:(shard.rank + 1) * n], None
 
 
 @contextlib.contextmanager

@@ -44,7 +44,6 @@ from .latent import class_sampler, density, fused, logreg
 from .ops import beam as beam_ops
 from .parallel import rounds as dp_rounds
 from .train import checkpoints
-from .train.train_vae import check_supported
 from .utils import runtime
 from .vis import build_index
 
@@ -626,12 +625,6 @@ def save_samples(samples, basedir, fn_prefix):
 # driver
 # ---------------------------------------------------------------------------
 
-def _check_slice(cfg):
-    """Raise NotImplementedError for what the port's sampling does not run
-    yet: tensor and pipeline parallelism (ROADMAP.md A9)."""
-    check_supported(cfg)
-
-
 def make_shards(cfg, params, device, devices=None):
     """The ``parallel.rounds.Shards`` a round runs over: ``devices`` when
     given (a list naming one device twice is two shards on it), else
@@ -648,7 +641,6 @@ def make_shards(cfg, params, device, devices=None):
 def run(cfg, args, device="cuda"):
     """Full pipeline main: read the run dir, then run_from_states. Runs
     on CUDA unless ``device`` is the CPU; without CUDA it raises."""
-    _check_slice(cfg)
     device = runtime.setup(device)
     model_path, vocab_path, _ = get_model_and_vocab_path(cfg)
     LOG.info("Load model, vocab, dataloader.")
@@ -679,7 +671,6 @@ def run_from_states(cfg, args, model, params, vocab, states, device="cuda",
     eval points and the heads still come from ``states``, as in the JAX
     package. ``devices`` (default: ``hw.dp``'s) shards every round over
     a device list (``make_shards``)."""
-    _check_slice(cfg)
     device = runtime.setup(device)
     shards = make_shards(cfg, params, device, devices)
     if args.Q_from_full_dataloader and dataset is None:

@@ -84,7 +84,6 @@ class GenerationServer:
     def __init__(self, cfg, model, params, vocab, Q, round_size=5000,
                  device="cuda", devices=None):
         self.device = runtime.setup(device)
-        pipeline._check_slice(cfg)
         self.cfg = cfg
         self.model = model
         self.params = params
@@ -473,7 +472,6 @@ def build_server(cfg, args, device="cuda", devices=None):
     rounds shard over ``devices`` (default: ``hw.dp``'s)."""
     from .api import get_model_and_vocab_path, load_trained_model, load_vocab
     device = runtime.setup(device)
-    pipeline._check_slice(cfg)
     model_path, vocab_path, _ = get_model_and_vocab_path(cfg)
     vocab = load_vocab(vocab_path)
     model, params = load_trained_model(model_path, vocab.size(), cfg,

@@ -23,7 +23,10 @@ Under data parallelism ``reduce`` (``collectives.Shard.mean_``) averages
 the gradients over the ranks before the clip, in one collective over one
 flat buffer: the flat Adam's own vector, or the per-leaf Adam's leaves
 coalesced into one; the clip's norm is then the global one. ZeRO-1's
-sharded Adam is ``parallel/zero.py``.
+sharded Adam is ``parallel/zero.py``. Under tensor or pipeline
+parallelism the per-leaf Adam steps the rank's slices and stage blocks
+(its moments live with them), and ``norm`` (``dist.Mesh.global_norm``)
+sums the squares of a leaf split over ranks across them.
 """
 
 import torch
@@ -62,10 +65,12 @@ def _reduced(g_flat, reduce):
 
 
 class ClipAdam:
-    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8, reduce=None):
+    def __init__(self, lr, clip, b1=0.9, b2=0.999, eps=1e-8, reduce=None,
+                 norm=None):
         self.lr, self.clip = float(lr), float(clip)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.reduce = reduce
+        self.norm = norm or self.global_norm
 
     def init(self, params):
         return {"count": torch.zeros((), dtype=torch.int32,
@@ -85,7 +90,7 @@ class ClipAdam:
         if self.reduce is not None:
             g_flat = _reduced(g_flat, self.reduce)
         mu, nu = flatten(state["mu"]), flatten(state["nu"])
-        norm = self.global_norm(g_flat)
+        norm = self.norm(g_flat)
         keep = norm < self.clip
         state["count"].add_(1)
         bc1, bc2 = _bias_corrections(state["count"], self.b1, self.b2)
@@ -144,10 +149,12 @@ class FlatAdam:
         return norm
 
 
-def make_optimizer(cfgv, flat=False, reduce=None):
+def make_optimizer(cfgv, flat=False, reduce=None, norm=None):
     """The phase-1 optimizer (clip ``cfgv.clip_grad``, Adam ``cfgv.lr``):
     the flat-vector Adam when ``flat`` (``config.flat_optimizer_enabled``),
     else the per-leaf one; ``reduce`` averages the gradients over the
-    data-parallel ranks."""
-    return (FlatAdam if flat else ClipAdam)(cfgv.lr, cfgv.clip_grad,
-                                            reduce=reduce)
+    data-parallel ranks, ``norm`` is a model-parallel run's global norm
+    (the per-leaf Adam's alone)."""
+    if flat:
+        return FlatAdam(cfgv.lr, cfgv.clip_grad, reduce=reduce)
+    return ClipAdam(cfgv.lr, cfgv.clip_grad, reduce=reduce, norm=norm)

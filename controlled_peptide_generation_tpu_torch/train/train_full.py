@@ -52,6 +52,15 @@ attribute and classifier stages on their rows of the prior draws), and
 each optimizer averages its group's gradients over the ranks before its
 clip (``parallel/collectives.py``); under NCCL a chunk's CUDA graph holds
 those collectives. Rank 0 alone writes logs and checkpoints.
+
+Under ``hw.tp`` or ``hw.pp`` > 1 (a ``dist.Mesh``) the loop is the JAX
+package's ``make_tp_full_step`` over a 2D or 3D mesh, or its
+``make_pp_model`` step (``train/train_full.py:195-262`` there): the
+transformer legs run each rank's part, each optimizer steps its group's
+slices with the global norm over the mesh, and the soft and hard
+samplers read the decoder's blocks gathered in full
+(``Mesh.gather(..., grad=True)``); checkpoints hold the full tree. Under
+TP every iteration is eager, as in JAX.
 """
 
 import json
@@ -72,7 +81,7 @@ from . import checkpoints
 from .chunk import GraphChunk
 from .opt import ClipAdam
 from .train_vae import (ROW_DRAWS, WARM_STEPS, Drawer, aligned_unroll,
-                        check_chunk, check_supported, draw_step)
+                        check_chunk, draw_step)
 
 log = logging.getLogger(__name__)
 
@@ -149,15 +158,24 @@ def _ce(logits, target):
     return -torch.gather(logp, 1, target.long()[:, None]).mean()
 
 
-def make_full_losses(model, cfgf, mmd_cfg, rf_basis, shard=None):
+def make_full_losses(model, cfgf, mmd_cfg, rf_basis, shard=None, mesh=None):
     """The three phase-2 objectives, each -> (loss, metrics):
     vae_loss(params, text, beta, draws), g_attr_loss(params, temp, draws)
     and c_loss(params, lab_text, lab_y, temp, draws), ``draws`` the
     matching dict of ``draw_full_step``. rf_basis: (rf_w, rf_b). With a
     ``shard`` the batches and draws are global and the rank's rows run
-    each loss, the VAE's WAE terms on the gathered z."""
+    each loss, the VAE's WAE terms on the gathered z. With a ``mesh``
+    (``dist.Mesh``) the params are the rank's parts, and the samplers'
+    cached decode steps read the decoder gathered in full."""
     soft_mode, hard_mode = _soft_mode(cfgf), _hard_mode(cfgf)
     rf_w, rf_b = rf_basis
+
+    def decoding(params):
+        """The params the cached decode steps read: the decoder whole."""
+        if mesh is None:
+            return params
+        return dict(params, **mesh.gather({"dec": params["dec"]},
+                                          grad=True))
 
     def rows(draws, dims, *batches):
         if shard is None:
@@ -193,7 +211,7 @@ def make_full_losses(model, cfgf, mmd_cfg, rf_basis, shard=None):
         z = draws["z"]
         c = model.c_from_bits(draws["c_bits"])
         _, soft = sampling.sample_sentences(
-            model, params, z, c, sample_mode=soft_mode, temp=temp,
+            model, decoding(params), z, c, sample_mode=soft_mode, temp=temp,
             noise=draws.get("noise"))
         attr_c = _ce(model.classify(params, soft), draws["c_bits"])
         mu_hat, _ = model.encode(params, soft)
@@ -207,7 +225,8 @@ def make_full_losses(model, cfgf, mmd_cfg, rf_basis, shard=None):
                                   keep=draws["keep"])
         sup = _ce(logits_s, lab_y)
         gen = sampling.sample_sentences(
-            model, params, draws["z"], model.c_from_bits(draws["c_bits"]),
+            model, decoding(params), draws["z"],
+            model.c_from_bits(draws["c_bits"]),
             sample_mode=hard_mode, temp=temp, noise=draws.get("noise"))
         logp_u = torch.log_softmax(model.classify(params, gen), dim=1)
         unsup = -torch.gather(logp_u, 1,
@@ -238,16 +257,21 @@ class FullStep:
     ``opt_states`` is ``init(params)``: {"E", "G", "C"}, each a ClipAdam
     state over its group. With a ``shard`` the data-parallel iteration
     (the JAX package's ``make_dp_full_step``): each optimizer averages
-    its group's gradients over the ranks, and the metrics are averaged."""
+    its group's gradients over the ranks, and the metrics are averaged.
+    With a ``mesh`` (``dist.Mesh``, the model ``mesh.wrap``'s and the
+    params the rank's parts) the JAX package's ``make_tp_full_step``:
+    each optimizer's clip takes the global norm over the mesh."""
 
-    def __init__(self, model, cfgf, cfg_losses, rf_basis, shard=None):
+    def __init__(self, model, cfgf, cfg_losses, rf_basis, shard=None,
+                 mesh=None):
         self.cfgf, self.shard = cfgf, shard
         self.vae_loss, self.g_attr_loss, self.c_loss = make_full_losses(
-            model, cfgf, cfg_losses.wae_mmd, rf_basis, shard)
-        reduce = None if shard is None else shard.mean_
-        self.opts = {"E": ClipAdam(cfgf.lrE, cfgf.clip_grad, reduce=reduce),
-                     "G": ClipAdam(cfgf.lrG, cfgf.clip_grad, reduce=reduce),
-                     "C": ClipAdam(cfgf.lrC, cfgf.clip_grad, reduce=reduce)}
+            model, cfgf, cfg_losses.wae_mmd, rf_basis, shard, mesh)
+        kw = {"reduce": None if shard is None else shard.mean_,
+              "norm": None if mesh is None else mesh.global_norm}
+        self.opts = {"E": ClipAdam(cfgf.lrE, cfgf.clip_grad, **kw),
+                     "G": ClipAdam(cfgf.lrG, cfgf.clip_grad, **kw),
+                     "C": ClipAdam(cfgf.lrC, cfgf.clip_grad, **kw)}
 
     def init(self, params):
         return {n: opt.init(group(params, n)) for n, opt in self.opts.items()}
@@ -306,10 +330,10 @@ class FullChunk(GraphChunk):
     generators' draws."""
 
     def __init__(self, model, cfgf, cfg_losses, rf_basis, unroll, seed=0,
-                 shard=None):
+                 shard=None, mesh=None):
         super().__init__(unroll, shard)
         self.model, self.cfgf, self.seed = model, cfgf, seed
-        self.step = FullStep(model, cfgf, cfg_losses, rf_basis, shard)
+        self.step = FullStep(model, cfgf, cfg_losses, rf_basis, shard, mesh)
 
     def __call__(self, params, opt_states, texts, lab_texts, lab_ys, it0,
                  draws=None):
@@ -377,10 +401,17 @@ def train_full(cfg, model, dataset, params, logger=None,
     at every ``expsvlog_every`` after ``s_iter``. Returns (params,
     steps_per_sec over the whole loop); the rate from step ``s_iter +
     WARM_STEPS`` on is logged as full_steps_per_sec_warm. A flow or the
-    deconv family raises (``check_phase2``)."""
-    check_supported(cfg)
+    deconv family raises (``check_phase2``). Under tensor or pipeline
+    parallelism the params returned are the full tree gathered from the
+    ranks."""
     check_phase2(model)
     cfgf = cfg.full
+    # a process group selects the parallel iteration: under hw.tp or
+    # hw.pp the JAX package's make_tp_full_step / make_pp_model step over
+    # a mesh, else its make_dp_full_step; ZeRO-1 is phase 1's alone, as
+    # there
+    mesh, shard = pdist.parallel_layout(
+        cfg, [cfgf.batch_size, cfg.vae.batch_size])
     dev = next(iter(checkpoints.flatten(params).values())).device
     if "clf" not in params:
         params = dict(params, clf=model.init_classifier(
@@ -388,29 +419,34 @@ def train_full(cfg, model, dataset, params, logger=None,
     if cfg.loadpath:
         params = checkpoints.load_params(cfg.loadpath, params, dev)
         log.info("Loaded params from %s", cfg.loadpath)
-    for leaf in checkpoints.flatten(params).values():
-        leaf.requires_grad_(True)
     mmd_cfg = cfg.losses.wae_mmd
     rf_basis = L.init_rf_basis(runtime.generator(dev, cfg.seed, _RF_STREAM),
                                model.z_dim, mmd_cfg.rf_dim, dev)
-    # a process group selects the data-parallel iteration (the JAX
-    # package's make_dp_full_step); ZeRO-1 is phase 1's alone, as there
-    shard = pdist.data_parallel(cfg, [cfgf.batch_size, cfg.vae.batch_size])
     writer = pdist.is_writer()
-    if shard is not None:
+    if mesh is not None:
+        model = mesh.wrap(model)
+        params = mesh.shard(params)
+        log.info("model-parallel phase-2 training over %r", mesh)
+    elif shard is not None:
         log.info("data-parallel phase-2 training over %d ranks (%s)",
                  shard.world, shard.backend)
-    step = FullStep(model, cfgf, cfg.losses, rf_basis, shard)
+    for leaf in checkpoints.flatten(params).values():
+        leaf.requires_grad_(True)
+    step = FullStep(model, cfgf, cfg.losses, rf_basis, shard, mesh)
     opt_states = step.init(params)
-    # runs of `unroll` iterations as one chunk, aligned to the log cadences
+    # runs of `unroll` iterations as one chunk, aligned to the log
+    # cadences; under tensor parallelism every iteration is eager, as in
+    # JAX (train/train_full.py:250-253 there)
     unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
                             int(cfgf.cheaplog_every),
                             int(cfgf.expsvlog_every))
+    if mesh is not None and mesh.tp > 1:
+        unroll = 1
     chunk = None
     if unroll > 1:
-        check_chunk(shard, dev, unroll)
+        check_chunk(mesh or shard, dev, unroll)
         chunk = FullChunk(model, cfgf, cfg.losses, rf_basis, unroll,
-                          cfg.seed, shard)
+                          cfg.seed, shard, mesh)
 
     attr_name = dataset.attributes[0][0]
 
@@ -429,15 +465,18 @@ def train_full(cfg, model, dataset, params, logger=None,
         return j % cfgf.cheaplog_every == 0 or j % cfgf.expsvlog_every == 0
 
     def do_host(it, metrics):
-        if not writer:
-            return
         cheap = it % cfgf.cheaplog_every == 0
         expsv = it % cfgf.expsvlog_every == 0
+        save = expsv and it > cfgf.s_iter
+        # on a mesh the full tree from every rank's parts, gathered by all
+        full = mesh.gather(params) if save and mesh is not None else params
+        if not writer:
+            return
         if cheap or expsv:
             fetch.add(it, metrics, force=expsv)
-        if expsv and it > cfgf.s_iter:
+        if save:
             path = cfgf.chkpt_path.format(it)
-            checkpoints.save(path, params, step=it)
+            checkpoints.save(path, full, step=it)
             log.info("Saved model to %s", path)
 
     def batch():
@@ -487,4 +526,6 @@ def train_full(cfg, model, dataset, params, logger=None,
                              / max(t_end - t_warm, 1e-9), end_it)
     for leaf in checkpoints.flatten(params).values():
         leaf.requires_grad_(False)
+    if mesh is not None:
+        params = mesh.gather(params)
     return params, steps_per_sec

@@ -35,6 +35,17 @@ step on the global batch, each rank running its rows
 (``parallel/collectives.py`` says how), the gradients averaged over the
 ranks inside the step, and inside a chunk's CUDA graph under NCCL; rank 0
 alone writes logs, samples and checkpoints.
+
+With ``hw.tp`` or ``hw.pp`` > 1 the group is a (data, pipe, model) mesh
+(``parallel/dist.py`` ``Mesh``) and the loop is the JAX package's
+tensor- and pipeline-parallel one (``make_tp_train_step`` on a 2D or 3D
+mesh, ``make_pp_model``, each composed with ``hw.dp``; l. 268-338
+there): the transformer legs run each rank's part (``parallel/tp.py``,
+``parallel/pp.py``), the optimizer steps the rank's slices with the
+global norm over the mesh, the checkpoints hold the full tree gathered
+from the ranks (the file a one-device run writes), and every rank runs
+its part of the heldout eval. Under TP every step is eager, as in JAX;
+``hw.zero`` is not applied there (JAX takes the TP/PP branch first).
 """
 
 import json
@@ -73,23 +84,13 @@ SINK_KEYS = ("z_mu_L1", "z_logvar", "z_logvar_L1", "z_logvar_KL_penalty",
              "beta")
 
 
-def check_supported(cfg):
-    """Raise NotImplementedError for what the port's trainer does not run
-    yet: tensor and pipeline parallelism (ROADMAP.md A9). ``hw.dp`` and
-    ``hw.zero`` are checked against the process group where a trainer
-    starts (``parallel.dist.data_parallel``, ``check_chunk``)."""
-    for name in ("tp", "pp"):
-        if int(cfg.hw.get(name, 1) or 1) > 1:
-            raise NotImplementedError(
-                f"hw.{name} > 1 is not ported (ROADMAP.md A9)")
-
-
-def check_chunk(shard, device, unroll):
+def check_chunk(group, device, unroll):
     """Raise a ValueError for a chunk of more than one step whose
-    collectives cannot be captured in a CUDA graph: a gloo group on CUDA
-    tensors (gloo stages them through the host). Runs of steps then need
-    ``--hw.unroll 1``; CPU tensors run any chunk eagerly."""
-    if (shard is not None and unroll > 1 and shard.backend == "gloo"
+    collectives cannot be captured in a CUDA graph: a gloo group (a
+    ``collectives.Shard`` or a ``dist.Mesh``) on CUDA tensors (gloo stages
+    them through the host). Runs of steps then need ``--hw.unroll 1``; CPU
+    tensors run any chunk eagerly."""
+    if (group is not None and unroll > 1 and group.backend == "gloo"
             and torch.device(device).type == "cuda"):
         raise ValueError(
             f"--hw.unroll {unroll} under a gloo group on CUDA tensors: a "
@@ -307,25 +308,32 @@ def _make_update(model, cfgv, cfg_losses, rf_basis, optimizer, shard=None):
     return update
 
 
-def make_step_optimizer(cfgv, flat=False, shard=None, zero=False):
+def make_step_optimizer(cfgv, flat=False, shard=None, zero=False,
+                        mesh=None):
     """The phase-1 optimizer of a step: ``make_optimizer``'s, averaging
-    the gradients over ``shard``'s ranks; under ``zero`` (with a shard)
+    the gradients over ``shard``'s ranks, its clip's norm over ``mesh``'s
+    parts (``dist.Mesh.global_norm``); under ``zero`` (with a shard)
     ZeRO-1's (``parallel/zero.py``), whatever ``flat`` says, as the JAX
     package's ZeRO step."""
     if zero and shard is not None:
         return ZeroAdam(cfgv.lr, cfgv.clip_grad, shard)
     return make_optimizer(cfgv, flat,
-                          None if shard is None else shard.mean_)
+                          None if shard is None else shard.mean_,
+                          None if mesh is None else mesh.global_norm)
 
 
 def make_train_step(model, cfgv, cfg_losses, rf_basis, flat=False,
-                    shard=None, zero=False):
+                    shard=None, zero=False, mesh=None):
     """train_step(params, opt_state, text, it, draws) -> metrics (0-d
     tensors on the device); updates params and opt_state in place. ``flat``
     selects the flat-vector Adam (``--hw.flat_optimizer on``); ``shard``
     (``parallel/collectives.py``) the data-parallel step, and ``zero``
-    with it ZeRO-1's optimizer (``parallel/zero.py``)."""
-    optimizer = make_step_optimizer(cfgv, flat, shard, zero)
+    with it ZeRO-1's optimizer (``parallel/zero.py``). With ``mesh``
+    (``dist.Mesh``) the tensor- and pipeline-parallel step, the JAX
+    package's ``make_tp_train_step`` (and ``make_pp_model``'s step): the
+    model is ``mesh.wrap``'s, the params and Adam's moments the rank's
+    parts (``mesh.shard``), ``shard`` the mesh's data axis."""
+    optimizer = make_step_optimizer(cfgv, flat, shard, zero, mesh)
     update = _make_update(model, cfgv, cfg_losses, rf_basis, optimizer,
                           shard)
 
@@ -346,13 +354,13 @@ class TrainChunk(GraphChunk):
     ``draws`` (one dict per step) may replace the generators' draws."""
 
     def __init__(self, model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
-                 flat=False, shard=None):
+                 flat=False, shard=None, mesh=None):
         if rf_basis is None:
             raise ValueError("a train chunk needs a fixed RF basis: under "
                              "rf_resample the loop runs unroll 1")
         super().__init__(unroll, shard)
         self.model, self.cfgv, self.seed = model, cfgv, seed
-        self.optimizer = make_step_optimizer(cfgv, flat, shard)
+        self.optimizer = make_step_optimizer(cfgv, flat, shard, mesh=mesh)
         self._step = _make_update(model, cfgv, cfg_losses, rf_basis,
                                   self.optimizer, shard)
 
@@ -384,12 +392,13 @@ class TrainChunk(GraphChunk):
 
 
 def make_train_chunk(model, cfgv, cfg_losses, rf_basis, unroll, seed=0,
-                     flat=False, shard=None):
+                     flat=False, shard=None, mesh=None):
     """The ``TrainChunk`` of ``unroll`` steps (the JAX package's
-    ``make_train_scan``; with a ``shard`` its ``make_dp_train_scan``);
-    its draws come from the generators of (seed, it)."""
+    ``make_train_scan``; with a ``shard`` its ``make_dp_train_scan``; with
+    a pipe-only ``mesh`` its scan of the ``make_pp_model`` step); its
+    draws come from the generators of (seed, it)."""
     return TrainChunk(model, cfgv, cfg_losses, rf_basis, unroll, seed, flat,
-                      shard)
+                      shard, mesh)
 
 
 @torch.no_grad()
@@ -436,8 +445,9 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     """Run the phase-1 loop on the device the params live on. Updates
     params in place; returns (params, opt_state, steps_per_sec), the rate
     over the whole loop (the rate from the first step or chunk boundary at
-    or after WARM_STEPS is logged as train_steps_per_sec_warm)."""
-    check_supported(cfg)
+    or after WARM_STEPS is logged as train_steps_per_sec_warm). Under
+    tensor or pipeline parallelism the params and state returned are the
+    full trees gathered from the ranks."""
     cfgv = cfg.vae
     dev = next(iter(checkpoints.flatten(params).values())).device
     mmd_cfg = cfg.losses.wae_mmd
@@ -447,21 +457,32 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
             runtime.generator(dev, cfg.seed, _RF_STREAM), model.z_dim,
             mmd_cfg.rf_dim, dev)
     flat = C.flat_optimizer_enabled(cfg)
-    # a process group selects the data-parallel step (the JAX package's
-    # make_dp_train_step; with hw.zero its make_zero_train_step)
-    shard = pdist.data_parallel(cfg, [cfgv.batch_size])
-    zero = shard is not None and bool(cfg.hw.get("zero", False))
+    # a process group selects the parallel step: under hw.tp or hw.pp the
+    # JAX package's make_tp_train_step / make_pp_model step over a mesh,
+    # else its make_dp_train_step (with hw.zero make_zero_train_step)
+    mesh, shard = pdist.parallel_layout(cfg, [cfgv.batch_size])
+    zero = (mesh is None and shard is not None
+            and bool(cfg.hw.get("zero", False)))
     writer = pdist.is_writer()
-    if shard is not None:
+    plain_model = model
+    if mesh is not None:
+        if flat:
+            raise ValueError(FLAT_UNDER_MP)
+        model = mesh.wrap(model)
+        log.info("model-parallel training over %r%s", mesh,
+                 "; hw.zero is not applied under hw.tp / hw.pp (the JAX "
+                 "package takes their branch first)"
+                 if cfg.hw.get("zero", False) else "")
+    elif shard is not None:
         log.info("data-parallel training over %d ranks (%s)%s",
                  shard.world, shard.backend,
                  " (ZeRO-1 sharded optimizer state)" if zero else "")
     train_step, optimizer = make_train_step(model, cfgv, cfg.losses,
-                                            rf_basis, flat, shard, zero)
+                                            rf_basis, flat, shard, zero, mesh)
     opt_state = optimizer.init(params)
     if cfg.loadpath:
         # every rank reads the file; ZeRO-1 keeps its segments of the
-        # per-leaf moments the file holds
+        # per-leaf moments the file holds, a mesh rank its parts
         tmpl = (optimizer.full_state(params, opt_state) if zero
                 else opt_state)
         params, opt_state = checkpoints.load_train_state(
@@ -469,6 +490,8 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
         if zero:
             opt_state = optimizer.from_full(params, opt_state)
         log.info("Loaded train state from %s", cfg.loadpath)
+    if mesh is not None:
+        params, opt_state = mesh.shard(params), mesh.shard_opt(opt_state)
     for leaf in checkpoints.flatten(params).values():
         leaf.requires_grad_(True)
 
@@ -489,50 +512,61 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     def do_host(it, metrics):
         cheap = it % cfgv.cheaplog_every == 0
         expsv = it % cfgv.expsvlog_every == 0
-        if expsv and it > cfgv.s_iter and zero:
+        save = expsv and it > cfgv.s_iter
+        full, saved_opt = params, opt_state
+        if save and zero:
             # every rank's segments, gathered by all of them
             saved_opt = optimizer.full_state(params, opt_state)
+        if mesh is not None and (cheap or expsv):
+            # the full trees from every rank's parts, gathered by all
+            full = mesh.gather(params)
+            if save:
+                saved_opt = mesh.gather_opt(opt_state)
+        hld = None
+        if save and cfg.hw.get("heldout_eval", True) and (
+                writer or mesh is not None):
+            # on a mesh every rank runs its part of the heldout passes
+            hld = evaluate_heldout(
+                model, params, dataset,
+                runtime.generator(dev, cfg.seed, _HELDOUT_STREAM, it))
         if not writer:
             return
         if cheap or expsv:
             sent, _, _ = generate_sentences(
-                model, params, 1,
+                plain_model, full, 1,
                 gen=runtime.generator(dev, cfg.seed, _LOG_STREAM, it),
                 sample_mode="categorical", device=dev)
             fetch.add(it, metrics, sent, force=expsv)
-        if expsv and it > cfgv.s_iter:
+        if save:
             path = cfgv.chkpt_path.format(it)
-            checkpoints.save(path, params,
-                             saved_opt if zero else opt_state, step=it,
+            checkpoints.save(path, full, saved_opt, step=it,
                              c_args=cfg.model.C_args)
             log.info("Saved model to %s", path)
-            if cfg.hw.get("heldout_eval", True):
-                hld = evaluate_heldout(
-                    model, params, dataset,
-                    runtime.generator(dev, cfg.seed, _HELDOUT_STREAM, it))
-                if hld is not None:
-                    if logger is not None:
-                        for k, v in hld.items():
-                            logger.log_value("hld_" + k, v, it)
-                    log.info("HELDOUT recon: %.4f kl: %.4f", hld["recon"],
-                             hld["kl"])
+            if hld is not None:
+                if logger is not None:
+                    for k, v in hld.items():
+                        logger.log_value("hld_" + k, v, it)
+                log.info("HELDOUT recon: %.4f kl: %.4f", hld["recon"],
+                         hld["kl"])
             if on_checkpoint is not None:
-                on_checkpoint(it, params)
+                on_checkpoint(it, full)
 
     def needs_host(j):
         return j % cfgv.cheaplog_every == 0 or j % cfgv.expsvlog_every == 0
 
     # runs of `unroll` steps as one chunk, aligned to the log cadences;
-    # per-step RF bases (rf_resample) and ZeRO-1 keep every step eager, as
-    # in JAX (it has no scan builder for either)
+    # per-step RF bases (rf_resample), ZeRO-1 and tensor parallelism keep
+    # every step eager, as in JAX (it has no scan builder for any of them)
     unroll = aligned_unroll(int(cfg.hw.get("unroll", 1) or 1),
                             int(cfgv.cheaplog_every),
                             int(cfgv.expsvlog_every))
+    if mesh is not None and mesh.tp > 1:
+        unroll = 1
     chunk = None
     if unroll > 1 and rf_basis is not None and not zero:
-        check_chunk(shard, dev, unroll)
+        check_chunk(mesh or shard, dev, unroll)
         chunk = make_train_chunk(model, cfgv, cfg.losses, rf_basis, unroll,
-                                 cfg.seed, flat, shard)
+                                 cfg.seed, flat, shard, mesh)
 
     log.info("Training base vae ...")
     it, end_it = cfgv.s_iter, cfgv.s_iter + cfgv.n_iter
@@ -582,4 +616,13 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
                              / max(t_end - t_warm, 1e-9), end_it)
     for leaf in checkpoints.flatten(params).values():
         leaf.requires_grad_(False)
+    if mesh is not None:
+        params, opt_state = mesh.gather(params), mesh.gather_opt(opt_state)
     return params, opt_state, steps_per_sec
+
+
+FLAT_UNDER_MP = (
+    "--hw.flat_optimizer on under hw.tp or hw.pp > 1: the flat Adam ravels "
+    "whole leaves, and a tensor- or pipeline-parallel rank holds parts of "
+    "them; train with --hw.flat_optimizer off (the JAX package's TP and PP "
+    "steps run the per-leaf optax Adam too)")

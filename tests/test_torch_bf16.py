@@ -72,6 +72,17 @@ CASES = [(K, n_best, min_length) for K in (3, 5) for n_best in (1, 3)
 SCORE_TOL = 2e-2
 STEP_TOL = 2e-6
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one CPU thread for the module: with its default threads
+    under a parallel run's workers the cores are oversubscribed (a round of
+    this file ran 10-20x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _small(C, family="gru", flag=False):
     cfg = C.default_config()

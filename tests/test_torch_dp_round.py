@@ -52,6 +52,17 @@ from test_torch_serve import TIMEOUT, _serve_flags
 DEVICES = ["cpu", "cpu"]
 NAMES = ("amp", "tox")
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one CPU thread for the module: with its default threads
+    under a parallel run's workers the cores are oversubscribed (a round of
+    this file ran 10-20x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _Q(q, heads, lib):
     """A stand-in of a fitted Q for either package: its GMM and two

@@ -17,7 +17,7 @@ their params and metrics are held against
 
 The refusals: ``hw.dp`` against the group's size, ``batch_size %% dp``,
 a gloo chunk on CUDA tensors (by the selector alone), ``hw.tp`` /
-``hw.pp``."""
+``hw.pp`` without a group of their ranks."""
 
 import json
 import os
@@ -346,10 +346,11 @@ def test_refusals_without_a_group():
         assert pdist.data_parallel(cfg, [5]) is None
     for flag in ("tp", "pp"):
         cfg, _, _ = TC.parse_and_finalize([f"--hw.{flag}", "2"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-            t_tv.check_supported(cfg)
+        with pytest.raises(ValueError, match="but the process group has "
+                                             "1: run one process a rank"):
+            pdist.parallel_layout(cfg, [8])
     cfg, _, _ = TC.parse_and_finalize(["--hw.dp", "0", "--hw.zero", "1"])
-    t_tv.check_supported(cfg)
+    assert pdist.parallel_layout(cfg, [8]) == (None, None)
 
 
 def test_gloo_chunk_on_cuda_refused_by_the_selector():

@@ -33,6 +33,17 @@ FLAGS = ["--model.z_dim", "12", "--model.emb_dim", "10",
          "--n_samples_per_round", "300", "--n_samples_acc", "20",
          "--Q_n_components", "4"]
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one CPU thread for the module: with its default threads
+    under a parallel run's workers the cores are oversubscribed (a round of
+    this file ran 10-20x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _write_states(path, rng, n, z_dim):
     mu = 0.5 * rng.standard_normal((n, z_dim))
@@ -149,16 +160,29 @@ def test_sample_files_match_jax(tmp_path):
 
 def test_slice_limits_raise(run_dir):
     # the serial loop (--hw.fused_rounds 0) runs: tests/test_torch_serial.py
-    # hw.dp shards the rounds (tests/test_torch_dp_round.py); tensor
-    # parallelism is not ported
-    with pytest.raises(NotImplementedError, match="A9"):
-        sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,
-                                      "--device", "cpu", "--hw.tp", "2"])
+    # hw.dp shards the rounds (tests/test_torch_dp_round.py); hw.tp and
+    # hw.pp are training's alone (test_tensor_parallel_flags_leave_the_
+    # round_alone)
     # the dataloader encodings select amp=1, as in the JAX package
     with pytest.raises(ValueError, match="Q_select_amppos"):
         sample_pipeline.main(FLAGS + ["--savepath_toplevel", run_dir,
                                       "--device", "cpu",
                                       "--Q_from_full_dataloader"])
+
+
+def test_tensor_parallel_flags_leave_the_round_alone(run_dir):
+    """Generation ignores hw.tp and hw.pp, as the JAX package's does (its
+    pipeline, server and evals never read them): sample_pipeline under
+    --hw.tp 2 --hw.pp 2 runs the one-program rounds and writes the samples
+    of the run without them, on the same draws (the seed's)."""
+    stems = [sample_pipeline.main(
+        FLAGS + ["--savepath_toplevel", run_dir, "--device", "cpu",
+                 "--samples_outfn_prefix", f"mp{tag}"] + flags)
+        for tag, flags in (("2", ["--hw.tp", "2", "--hw.pp", "2"]),
+                           ("1", []))]
+    for ext in (".plain.txt", ".csv"):
+        got, want = (open(st + ext, "rb").read() for st in stems)
+        assert got == want, ext
 
 
 def test_beam_canary_raises_on_the_kernel_route():

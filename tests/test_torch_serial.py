@@ -49,6 +49,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(REPO, "data", "amp", "vocab.dict")
 D = 12
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one CPU thread for the module: with its default threads
+    under a parallel run's workers the cores are oversubscribed (a round of
+    this file ran 10-20x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _q_and_heads(seed):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,17 @@ from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 B = 19
 CASES = [(0, 5, 3), (1, 4, 1), (2, 3, 3)]
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one CPU thread for the module: with its default threads
+    under a parallel run's workers the cores are oversubscribed (a round of
+    this file ran 10-20x slower so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _small(C):
     cfg = C.default_config()

@@ -359,11 +359,13 @@ def test_sampler_matches_jax(mode):
     (["--phase", "2", "--model.flow", "2", "--model.flow_type", "planar",
       "--model.flow_mode", "posterior"], ValueError, "phase 2 with a flow"),
     (["--phase", "1", "--hw.pallas_train", "off"], ValueError, None),
-    # tensor and pipeline parallelism (ROADMAP.md A9 part 4)
-    (["--phase", "1", "--hw.tp", "2"], NotImplementedError, None),
+    # tensor and pipeline parallelism need a group of tp x pp ranks
+    (["--phase", "1", "--hw.tp", "2"], ValueError,
+     "hw.tp 2 is 2 rank.s. but the process group has 1"),
     (["--phase", "2", "--model.G_args.G_class", "deconv"], ValueError,
      "phase 2 with G_class deconv"),
-    (["--phase", "2", "--hw.pp", "2"], NotImplementedError, None),
+    (["--phase", "2", "--hw.pp", "2"], ValueError,
+     "hw.pp 2 x hw.tp 1 is 2 rank.s. but the process group has 1"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, exc, match, tmp_path,
                                         one_thread):
