@@ -7,9 +7,10 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. device: CUDA is required; prints the card's name and power limit;
 2. build: compiles the GRU beam kernel (csrc/beam_gru.cu), the GRU
-   recurrence kernels of training and the forward-only scan
+   recurrence kernels of training (f32 and bf16) and the forward-only scan
    (csrc/gru_seq.cu), the transformer beam kernel (csrc/tfm_beam.cu) and
-   the WAE-MMD kernels (csrc/mmd_full.cu) with nvcc, one process per
+   the WAE-MMD kernels (csrc/mmd_full.cu) with nvcc, and the native
+   tokenizer (native/_tokenizer.c) with gcc, one process per
    source, started together before torch is imported, so the imports and
    the device's start-up run meanwhile; prints ptxas' registers and spills,
    and for the GRU scan's instantiations (forward-only and the training
@@ -247,7 +248,11 @@ Phases, each raising on failure (the script then exits non-zero):
    card's plain beam against the CPU's on 256 latents; the deconv serial
    loop (five replay beams a round, the last chunk padded); the deconv
    server through build_server for one request of 8; the skip model's
-   phase 2 for 5 steps (B2 five times a step, B4 twice);
+   phase 2 for 5 steps (B2 five times a step, B4 twice); static_eval.main
+   --long on the skip run (phase 6e's function): B4 launched 120 times in
+   its dump and 36 in the battery, the plain beam 7 times (every beam
+   decode: skip is outside B1's scope), the dump at 10,000 rows a split,
+   the index and the diagnostics' artifacts;
 11. data parallelism (parallel/), on the one card, each rank a process of
    parallel.dist.spawn running dp_rank_jobs, which reports the kernels'
    counts of each run: [11] main.main --hw.dp 2 (batch 32, 16 rows a
@@ -279,6 +284,30 @@ Phases, each raising on failure (the script then exits non-zero):
    of the same flags on one rank: every checkpoint array within [11]'s
    bounds, the logged losses within rtol 1e-4, each rank's B5 counts (and
    B2's and B4's in [12x]) those of the one-rank run;
+13. the data path and B2 in bf16 (data_bf16_phase): (a) synthetic raw
+   sources from a seed (RAW_CARDS DBAASP cards, SATPDB, AMPEP, UniProt,
+   ToxinPred and solubility files, data/curation.py write_synthetic_raw)
+   through the curation CLI (python -m ...data.curation), the seven CSVs
+   and its counts; (b) the native tokenizer (built from
+   native/_tokenizer.c in [2]'s pool with the CUDA sources; every loader
+   since [6] uses it), the curated corpus's loader tokens equal to its plain
+   path's (Vocab.to_ix row by row) bit for bit, both timed on
+   TOKENIZE_ROWS rows; (c) main.main --phase 1 --dataset amp on the
+   curated corpus at the default GRU width, 51 steps (step 0, then one
+   replay of a 50-step CUDA graph): B2 3 times a step each, B4 12, B5's
+   value once a step, recon falling; (d) B2's bf16 entries (the training
+   forward with its f32 residual tape, the backward, the weight gradient)
+   against their plain versions (the backward against both: the chain
+   from the kernel's residuals and the recompute) at T 25, B in
+   B2_BF16_BATCHES, H 80 and 102: each bf16 output bitwise equal on >=
+   B2_BF16_SAME of its entries, every output within B2_BF16_ULPS bf16 ulps
+   of its largest entry; their times (CUDA events), bounds in bytes and
+   the library calls (torch.nn.GRU in bf16 on cuDNN, forward and data
+   backward; one bf16 torch.mm for dWh); (e) a bf16 gru_scan through
+   autograd, and one without, at B 32, both widths and directions,
+   against the same scans inside cuda_build.plain() under (d)'s gates:
+   B2's bf16 entries launched (counts set to 0 just before), B4 and the
+   f32 entries not; a bf16 scan at H 128 raises;
 7. prints times beside the card's name and power limit (kernels, their
    plain versions and bounds; B2's training forward with and without its
    residual stores, backward and weight gradient at B 32 and 1,024 at
@@ -667,6 +696,406 @@ def mp_phase(train_flags, train_top, dev, card):
     return counts
 
 
+# [13]: the data path and B2 in bf16. (a) synthetic raw sources from
+# RAW_SEED (DBAASP cards and the other sources in proportion) through the
+# curation CLI; (b) the native tokenizer against its plain version on the
+# curated corpus and, timed, on a corpus of TOKENIZE_ROWS rows (the
+# reference's training set); (c) phase 1 on the curated corpus for one
+# --hw.unroll 50 chunk; (d) B2's bf16 entries against their plain versions
+# at T 25, B2_BF16_BATCHES and both widths, timed; (e) a bf16 gru_scan
+# through autograd against the same scan inside cuda_build.plain()
+RAW_CARDS = 3000
+RAW_SEED = 13
+TOKENIZE_ROWS = 100000
+B2_BF16_BATCHES = (32, 1024)
+# bf16 gates of (d) and (e), those of tests/test_torch_gru_bf16.py: each
+# bf16 output bitwise equal to its plain version on >= B2_BF16_SAME of its
+# entries, and every output (the f32 residual tape too) within
+# B2_BF16_ULPS bf16 ulps (2^-8 each) of its largest entry: a product summed
+# in another f32 order flips a bf16 rounding now and then, and the flip
+# reaches the later steps through the carry
+B2_BF16_SAME = 0.99
+B2_BF16_ULPS = 2
+
+
+def b2_bf16_bound_ms(kind, T_, B, H):
+    """Least time of a bf16 B2 entry: its products (the f32 kernels' FLOP)
+    over the bf16 tensor-core peak, against the bytes the JAX function
+    (ops/pallas_gru.py gru_seq in bf16, all tensors at 2 bytes) must move
+    over the HBM rate. Its forward writes no residual tape and its backward
+    recomputes the gates, so the port's f32 tape is counted nowhere. fwd
+    (with or without the port's tape, fwd_nores): gi, wh, bh, h0 in, hs
+    out; bwd, the backward's data part: gi, wh, bh, h0, hs, dhs in, dgi and
+    dh0 out; wgrad: h0, hs and dgh [T, B, 3H] in, dwh and dbh out."""
+    tb, g3 = T_ * B, 3 * H
+    if kind in ("fwd", "fwd_nores"):
+        flops = 2 * tb * H * g3
+        words = tb * g3 + H * g3 + g3 + B * H + tb * H
+    elif kind == "bwd":
+        flops = 2 * tb * H * g3
+        words = (tb * g3 + H * g3 + g3 + B * H + 2 * tb * H + tb * g3
+                 + B * H)
+    else:
+        flops = 2 * tb * (H + 1) * g3
+        words = B * H + tb * H + tb * g3 + H * g3 + g3
+    t_ops, t_bytes = flops / BF16_PEAK, 2 * words / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bf16_agreement(got, want):
+    """(share of entries bitwise equal, max |delta| over the largest
+    |want|, max |delta|) of two tensors."""
+    same = (got == want).float().mean().item()
+    delta = (got.float() - want.float()).abs().max().item()
+    return same, delta / max(want.float().abs().max().item(), 1e-30), delta
+
+
+def bf16_gate(what, pairs, bf16_outputs):
+    """Raise unless every (name, got, want) pair is within B2_BF16_ULPS
+    ulps of its largest entry and the bf16 ones bitwise on B2_BF16_SAME of
+    their entries. Returns {name: (share, relative delta, delta)}."""
+    out, bad = {}, []
+    for name, got, want in pairs:
+        same, delta, abs_delta = bf16_agreement(got, want)
+        out[name] = (same, delta, abs_delta)
+        if delta > B2_BF16_ULPS * 2.0 ** -8 or (
+                name in bf16_outputs and same < B2_BF16_SAME):
+            bad.append((name, same, delta))
+    if bad:
+        raise AssertionError(f"{what}: outside the bf16 gates {bad}")
+    return out
+
+
+def data_bf16_phase(dev, card, cuda_ms, train_top):
+    """[13]: (a)-(e) above. Raises on any failure; returns the numbers of
+    the report and of the kernels line."""
+    import subprocess
+    import numpy as np
+    import torch
+    from controlled_peptide_generation_tpu_torch import config as C
+    from controlled_peptide_generation_tpu_torch import main as train_main
+    from controlled_peptide_generation_tpu_torch import native
+    from controlled_peptide_generation_tpu_torch.data import curation
+    from controlled_peptide_generation_tpu_torch.data.loader import (
+        AttributeDataLoader)
+    from controlled_peptide_generation_tpu_torch.data.vocab import Vocab
+    from controlled_peptide_generation_tpu_torch.ops import cuda_build
+    from controlled_peptide_generation_tpu_torch.ops import gru as gru_ops
+    from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
+    from controlled_peptide_generation_tpu_torch.ops import gru_kernel
+    from controlled_peptide_generation_tpu_torch.train import (
+        train_full, train_vae)
+    out = {}
+    top = os.path.join(train_top, "curated")
+    shutil.rmtree(top, ignore_errors=True)
+    raw, corpus = os.path.join(top, "raw"), os.path.join(top, "data", "amp")
+
+    # (a) raw sources from a seed, then the curation CLI as a user runs it
+    t0 = time.perf_counter()
+    curation.write_synthetic_raw(raw, RAW_CARDS, RAW_SEED)
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "controlled_peptide_generation_tpu_torch.data.curation", "--raw",
+         raw, "--out", corpus, "--seed", str(RAW_SEED)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    cur_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[13a] the curation CLI failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    files = sorted(os.listdir(corpus))
+    if files != sorted(C.AMP_CSV_FILES) or not all(
+            counts[k] > 0 for k in ("amp", "tox", "unlab", "sol")):
+        raise AssertionError(f"[13a] curated {files}, counts {counts}")
+    log(f"[13a] curation CLI on {RAW_CARDS} synthetic DBAASP cards (and "
+        f"SATPDB, AMPEP, UniProt, ToxinPred, solubility sources, seed "
+        f"{RAW_SEED}): counts {counts}; raw sources written in "
+        f"{raw_s:.2f} s, the CLI (its process included) {cur_s:.2f} s "
+        f"(host clock, {card})")
+    out["curation_s"], out["counts"] = cur_s, counts
+
+    # (b) the native tokenizer (built in [2]): its tokens against the plain
+    # path on the curated corpus, bit for bit, and both timed
+    shutil.copy(os.path.join(ROOT, "data", "amp", "vocab.dict"), corpus)
+    cfg_c, _, _ = C.parse_and_finalize(["--dataset", "amp", "--datapath",
+                                        os.path.dirname(corpus)])
+    spec = C.dataset_spec(cfg_c)
+    kw = dict(mbsize=32, max_seq_len=cfg_c.max_seq_len, **spec)
+    t0 = time.perf_counter()
+    loader = AttributeDataLoader(**kw)
+    load_s = time.perf_counter() - t0
+    if not np.array_equal(loader.tokens, native.tokenize_corpus_reference(
+            [r["text"] for r in loader.rows], loader.vocab,
+            cfg_c.max_seq_len)):
+        raise AssertionError("[13b] native tokens differ from the plain "
+                             "path on the curated corpus")
+    vocab = Vocab.load(os.path.join(corpus, "vocab.dict"))
+    rng = np.random.default_rng(RAW_SEED)
+    aa = np.array(vocab.itos[4:])
+    lens = rng.integers(5, 40, TOKENIZE_ROWS)
+    texts = [" ".join(aa[rng.integers(0, len(aa), n)]) for n in lens]
+    t0 = time.perf_counter()
+    nat = native.tokenize_corpus(texts, vocab.stoi, cfg_c.max_seq_len)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = native.tokenize_corpus_reference(texts, vocab, cfg_c.max_seq_len)
+    ref_s = time.perf_counter() - t0
+    if not np.array_equal(nat, ref):
+        raise AssertionError("[13b] native tokens differ from the plain "
+                             f"path on {TOKENIZE_ROWS} rows")
+    log(f"[13b] native tokenizer (built from native/_tokenizer.c in [2], "
+        f"{os.path.basename(native.build().__file__)}): the curated corpus "
+        f"({len(loader.tokens)} rows) loaded in {load_s:.3f} s, its tokens "
+        f"equal to the plain path's bit for bit; {TOKENIZE_ROWS} rows: "
+        f"native {1e3 * nat_s:.2f} ms, plain (Vocab.to_ix row by row) "
+        f"{1e3 * ref_s:.2f} ms, {ref_s / nat_s:.1f}x, tokens equal (host "
+        f"clock, {card})")
+    out.update(tok_native_ms=1e3 * nat_s,
+               tok_plain_ms=1e3 * ref_s, corpus_rows=len(loader.tokens))
+
+    # (c) phase 1 on the curated corpus: one --hw.unroll 50 chunk
+    chunk_log = ChunkLog()
+    for trainer in (train_vae, train_full):
+        trainer.log.addHandler(chunk_log)
+    try:
+        reset_train_counts()
+        t0 = time.perf_counter()
+        cfg_t = train_main.main([
+            "--phase", "1", "--dataset", "amp", "--datapath",
+            os.path.dirname(corpus), "--savepath_toplevel",
+            os.path.join(top, "out"), "--tb_toplevel",
+            os.path.join(top, "tb"), "--runname", "curated", "--seed",
+            "1238", "--vae.n_iter", "50", "--vae.cheaplog_every", "50",
+            "--vae.expsvlog_every", "50", "--device",
+            "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"])
+        train_s, launches = time.perf_counter() - t0, train_counts()
+    finally:
+        for trainer in (train_vae, train_full):
+            trainer.log.removeHandler(chunk_log)
+    with open(os.path.join(cfg_t.savepath, "result.json")) as fh:
+        recon = [r["train_L_vae_recon"] for r in json.load(fh)
+                 if "train_L_vae_recon" in r]
+    want = {"B2 fwd": 153, "B2 bwd": 153, "B2 wgrad": 153, "B4": 12,
+            "B5 fwd": 51, "B5 bwd": 0}
+    # (the launches and the graph exist on the card; a CPU rehearsal of
+    # this phase checks the rest)
+    on_card = dev.type == "cuda"
+    if (on_card and (launches != want or chunk_log.last is None
+                     or chunk_log.last[:2] != (1, 50))
+            or not np.isfinite(recon).all() or recon[-1] >= recon[0]):
+        raise AssertionError(f"[13c] phase 1 on the curated corpus: "
+                             f"launches {launches} (want {want}), chunks "
+                             f"{chunk_log.last}, recon {recon}")
+    log(f"[13c] main --phase 1 --dataset amp on the curated corpus (default "
+        f"GRU width, batch 32, 51 steps: step 0, then one replay of a "
+        f"50-step CUDA graph, chunks {chunk_log.last}): "
+        f"{train_s:.2f} s in main.main; launches {launches}; recon at the "
+        f"logs {[round(r, 4) for r in recon]} ({card})")
+    out["train"] = (launches, train_s)
+
+    # (d) B2's bf16 entries against their plain versions, timed
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    B2_WIDTHS_ = ((150, 80), (252, 102))
+    gates, times, projs = {}, {}, {}
+    for I, H_ in B2_WIDTHS_:
+        p32 = gru_ops.init_gru_params(gen, I, H_, dev)
+        wh, bh = p32["wh"].to(bf), p32["bh"].to(bf)
+        for B in B2_BF16_BATCHES:
+            xs = torch.randn((B, T, I), generator=gen, device=dev)
+            gi = ((xs @ p32["wi"] + p32["bi"]).transpose(0, 1).contiguous()
+                  .to(bf))
+            h0 = (0.5 * torch.randn((B, H_), generator=gen, device=dev)
+                  ).to(bf)
+            dhs = torch.randn((T, B, H_), generator=gen, device=dev).to(bf)
+            hs, res = gru_kernel.gru_seq_fwd(wh, bh, gi, h0)
+            hs_p, res_p = gru_kernel.gru_seq_res_reference(wh, bh, gi, h0)
+            chain = gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+            chain_p = gru_kernel._bwd_chain_reference(wh, h0, hs, res, dhs)
+            recomp = gru_kernel._bwd_recurrence_reference(wh, bh, gi, h0, hs,
+                                                          dhs)
+            dgi, dghn, _ = chain
+            wg = gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
+            wg_p = gru_kernel._wgrad_reference(h0, hs, dgi, dghn)
+            torch.cuda.synchronize()
+            names = ("dgi", "dghn", "dh0")
+            g = bf16_gate(
+                f"[13d] B2 bf16 H {H_} B {B}",
+                [("hs", hs, hs_p), ("res", res, res_p)]
+                + [(n, a, b) for n, a, b in zip(names, chain, chain_p)]
+                + [(n + " (recompute)", a, b)
+                   for n, a, b in zip(names, chain, recomp)]
+                + [("dwh", wg[0], wg_p[0]), ("dbh", wg[1], wg_p[1])],
+                {"hs", "dgi", "dghn", "dh0", "dgi (recompute)",
+                 "dghn (recompute)", "dh0 (recompute)", "dwh", "dbh"})
+            if not all(a.dtype == bf for a in (hs, *chain, *wg)):
+                raise AssertionError("[13d] a bf16 entry returned another "
+                                     "dtype")
+            gates[H_, B] = g
+            # the library calls: cuDNN's GRU in bf16 (forward; data
+            # backward, the input and h0 only) on the same inputs, and the
+            # weight gradient as one bf16 torch.mm. cuDNN also does the
+            # input projection that B2 takes done (gi = x @ wi + bi, and dx
+            # = dgi @ wi^T backward): each is timed alone as its one bf16
+            # product, the share of cuDNN's time that B2 has no part of. A
+            # library call that fails fails the phase.
+            cudnn = torch.nn.GRU(I, H_, batch_first=True).to(dev)
+            with torch.no_grad():
+                for name, src in (("weight_ih_l0", p32["wi"].T),
+                                  ("weight_hh_l0", p32["wh"].T),
+                                  ("bias_ih_l0", p32["bi"]),
+                                  ("bias_hh_l0", p32["bh"])):
+                    getattr(cudnn, name).copy_(src)
+            cudnn = cudnn.to(bf)
+            cudnn.flatten_parameters()    # one weight chunk, as cuDNN
+            cudnn.requires_grad_(False)
+            xb = xs.to(bf)
+            h0b = h0[None].clone()
+
+            def lib_fwd():
+                with torch.no_grad():
+                    cudnn(xb, h0b)
+            lib = {"fwd": cuda_ms(lib_fwd, 20)}
+            lib["fwd_nores"] = lib["fwd"]
+            xg = xb.detach().requires_grad_()
+            h0g = h0b.detach().requires_grad_()
+            data_loss = (cudnn(xg, h0g)[0].float()
+                         * dhs.transpose(0, 1).float()).sum()
+            lib["bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                data_loss, [xg, h0g], retain_graph=True), 20)
+            wi_b, bi_b = p32["wi"].to(bf), p32["bi"].to(bf)
+            x2, dgi2 = xb.reshape(-1, I), dgi.reshape(-1, 3 * H_)
+            proj = {"fwd": cuda_ms(lambda: torch.addmm(bi_b, x2, wi_b), 50),
+                    "bwd": cuda_ms(lambda: torch.mm(dgi2, wi_b.T), 50)}
+            proj["fwd_nores"] = proj["fwd"]
+            hprev1 = torch.cat([torch.cat([h0[None], hs[:-1]]).reshape(
+                -1, H_), torch.ones((T * B, 1), dtype=bf, device=dev)], 1)
+            dgh = torch.cat([dgi[..., :2 * H_], dghn], 2).reshape(-1, 3 * H_)
+            lib["wgrad"] = cuda_ms(lambda: torch.mm(hprev1.T, dgh), 50)
+            args = (wh, bh, gi, h0)
+            # the forward without its tape (a scan autograd does not
+            # record): the training forward's hs, bit for bit
+            if not torch.equal(gru_kernel.gru_seq_fwd(
+                    *args, residuals=False)[0], hs):
+                raise AssertionError(f"[13d] B2 bf16 H {H_} B {B}: the "
+                                     f"forward without its tape differs")
+            kern = {
+                "fwd": (lambda: gru_kernel.gru_seq_fwd(*args),
+                        lambda: gru_kernel.gru_seq_res_reference(*args)),
+                "fwd_nores": (lambda: gru_kernel.gru_seq_fwd(
+                    *args, residuals=False),
+                    lambda: gru_kernel.gru_seq_reference(*args)),
+                "bwd": (lambda: gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs),
+                        lambda: gru_kernel._bwd_chain_reference(
+                            wh, h0, hs, res, dhs)),
+                "wgrad": (lambda: gru_kernel.gru_seq_wgrad(h0, hs, dgi,
+                                                           dghn),
+                          lambda: gru_kernel._wgrad_reference(h0, hs, dgi,
+                                                              dghn))}
+            times[H_, B] = {k: (cuda_ms(a, 50), cuda_ms(b, 3),
+                                b2_bf16_bound_ms(k, T, B, H_), lib[k])
+                            for k, (a, b) in kern.items()}
+            projs[H_, B] = proj
+            for k, (k_ms, p_ms, (b_ms, b_by), l_ms) in times[H_, B].items():
+                log(f"[13d] B2 bf16 {k} H {H_} T {T} B {B}: kernel "
+                    f"{k_ms:.6f} ms, plain {p_ms:.6f} ms, bound {b_ms:.6f} "
+                    f"ms ({b_by}, the JAX function's bytes), library "
+                    + (f"{l_ms:.6f} ms (torch.mm)" if k == "wgrad" else
+                       f"{l_ms:.6f} ms (cuDNN GRU), of which its input "
+                       f"projection alone {proj[k]:.6f} ms")
+                    + f" ({card})")
+            log(f"[13d] B2 bf16 H {H_} B {B} against the plain versions "
+                f"(share bitwise, max |delta| / largest entry): "
+                + ", ".join(f"{n} ({s:.5f}, {d:.2e})"
+                            for n, (s, d, _) in g.items()))
+    out["bf16_gates"], out["bf16_times"] = gates, times
+    out["bf16_proj"] = projs
+
+    # (e) a bf16 gru_scan through autograd (and one without) against the
+    # same scan inside cuda_build.plain(); B2's bf16 entries launched, B4
+    # and the f32 entries never
+    n_f32 = [getattr(f, "launches") for f in (
+        gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
+        gru_kernel.gru_seq_wgrad)]
+    b4_0 = gru_fwd_kernel.gru_fwd.launches
+    for fn in (gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
+               gru_kernel.gru_seq_wgrad):
+        fn.launches_bf16 = 0
+    scan_gates = {}
+    for I, H_ in B2_WIDTHS_:
+        p = {k: v.to(bf) for k, v in gru_ops.init_gru_params(
+            gen, I, H_, dev).items()}
+        xs = torch.randn((32, T, I), generator=gen, device=dev).to(bf)
+        h0 = (0.5 * torch.randn((32, H_), generator=gen, device=dev)).to(bf)
+        w = torch.randn((32, T, H_), generator=gen, device=dev)
+        for reverse in (False, True):
+            runs = []
+            for plain in (False, True):
+                leaves = {k: v.detach().requires_grad_() for k, v in
+                          p.items()}
+                x, h = (xs.detach().requires_grad_(),
+                        h0.detach().requires_grad_())
+                with cuda_build.plain() if plain else contextlib.nullcontext():
+                    hs_, hl = gru_ops.gru_scan(leaves, x, h, reverse=reverse)
+                    loss = (hs_.float() * w).sum() + hl.float().sum()
+                    grads = torch.autograd.grad(
+                        loss, list(leaves.values()) + [x, h])
+                    with torch.no_grad():
+                        hs_ng = gru_ops.gru_scan(p, xs, h0,
+                                                 reverse=reverse)[0]
+                runs.append((hs_, hl, hs_ng, *grads))
+            names = ["hs", "h_last", "hs (no grad)"] + [
+                f"d{k}" for k in p] + ["dx", "dh0"]
+            # bitwise shares on B2's own outputs: a gradient taken from
+            # dgi by a product (dwh, dwi, dx) or a sum (dbh, dbi) turns one
+            # flipped dgi entry into a flipped row or column, so those are
+            # held to the ulps bound alone
+            scan_gates[H_, reverse] = bf16_gate(
+                f"[13e] bf16 gru_scan H {H_} reverse {reverse}",
+                list(zip(names, runs[0], runs[1])),
+                {"hs", "h_last", "hs (no grad)", "dh0"})
+    launched = {n: getattr(gru_kernel, f"gru_seq_{n}").launches_bf16
+                for n in ("fwd", "bwd", "wgrad")}
+    # per width and direction on the kernel side: one recorded scan (fwd,
+    # bwd, wgrad) and one without autograd (fwd with no tape); the plain
+    # side launches nothing
+    want_l = {"fwd": 2 * 2 * 2, "bwd": 2 * 2, "wgrad": 2 * 2}
+    if on_card and (launched != want_l or [getattr(f, "launches") for f in (
+            gru_kernel.gru_seq_fwd, gru_kernel.gru_seq_bwd,
+            gru_kernel.gru_seq_wgrad)] != n_f32
+            or gru_fwd_kernel.gru_fwd.launches != b4_0):
+        raise AssertionError(f"[13e] bf16 gru_scan launched {launched} "
+                             f"(want {want_l}), f32 entries or B4 moved")
+    if on_card:
+        try:
+            gru_kernel.gru_seq_fwd(*(torch.zeros(s, dtype=bf, device=dev)
+                                     for s in ((128, 384), (384,),
+                                               (2, 3, 384), (3, 128))))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("[13e] a bf16 scan at H 128 did not raise")
+    log(f"[13e] bf16 gru_scan through autograd (and without) at T {T}, B "
+        f"32, H 80 and 102, both directions, against the same scan inside "
+        f"cuda_build.plain(): B2 bf16 launches {launched}, B4 and the f32 "
+        f"entries none; worst (share bitwise, max |delta| / largest entry) "
+        f"per output: "
+        + ", ".join(f"{n} ({min(g[n][0] for g in scan_gates.values()):.5f}, "
+                    f"{max(g[n][1] for g in scan_gates.values()):.2e})"
+                    for n in next(iter(scan_gates.values())))
+        + f"; a bf16 scan at H 128 raises ({card})")
+    out["bf16_launches"] = launched
+    out["bf16_err"] = {k: max(max(g[n][2] for n in names_)
+                              for g in gates.values())
+                       for k, names_ in (("fwd", ("hs", "res")),
+                                         ("bwd", ("dgi", "dghn", "dh0")),
+                                         ("wgrad", ("dwh", "dbh")))}
+    return out
+
+
 def log(msg):
     print(msg, flush=True)
     for fh in LOG_FILE:
@@ -780,8 +1209,15 @@ def main():
         return time.perf_counter() - t_build, log_
 
     sources = ("beam_gru.cu", "gru_seq.cu", "tfm_beam.cu", "mmd_full.cu")
-    pool = ThreadPoolExecutor(len(sources))
+    from controlled_peptide_generation_tpu_torch import native
+
+    def timed_native():
+        native.build()
+        return time.perf_counter() - t_build
+
+    pool = ThreadPoolExecutor(len(sources) + 1)
     builds = [pool.submit(timed_build, src) for src in sources]
+    native_build = pool.submit(timed_native)
     pool.shutdown(wait=False)
 
     import torch
@@ -845,9 +1281,11 @@ def main():
     built = [b.result() for b in builds]
     for kernel in (beam_kernel, gru_kernel, tfm_beam_kernel, mmd_kernel):
         kernel.build()
+    native_s = native_build.result()
     log("[2] built " + ", ".join(
         f"csrc/{src} in {sec:.2f}s" for src, (sec, _) in zip(sources, built))
-        + ", from the start of the build")
+        + f", native/_tokenizer.c (gcc) in {native_s:.2f}s, from the start "
+        f"of the build ({native.library_path()})")
     mark("2a waiting for the builds")
     for _, nvcc_log in built:
         for line in nvcc_log.splitlines():
@@ -3497,6 +3935,30 @@ def main():
         f"steps: {s_p2:.2f} s in main.main; launches {l_p2}; L_vae at the "
         f"logs {[round(r['full_L_vae'], 4) for r in logged_p2]} ({card})")
     mark("10 skip phase 2")
+    # static_eval --long of the skip model: its dump (B4 in both directions
+    # of each chunk), its index and diagnostics, and the battery, whose beam
+    # decodes all take the plain beam (skip is outside B1's scope)
+    se_opt, se_opt_counts, se_opt_s, _, _ = static_eval_run(
+        "opt_skip", train_flags("smoke_opt_skip", UNROLL_ITERS,
+                                opt_flags["skip"]))
+    want_se_opt = dict.fromkeys(counts(), 0)
+    want_se_opt.update({"B4": dump_b4 + battery_want["B4"], "B1": 0, "B3": 0,
+                        "plain beam": battery_want["beam 5"]
+                        + battery_want["beam 15"]})
+    opt_dump = build_index.read_states(se_opt["states"]["train"])
+    if (se_opt_counts != want_se_opt or opt_dump["mu"].shape != (
+            static_eval.MAX_EXAMPLES, os_["cfg"].model.z_dim)
+            or not os.path.exists(se_opt["index"])):
+        raise AssertionError(f"static_eval --long of the skip model: "
+                             f"launches {se_opt_counts} (want {want_se_opt}),"
+                             f" dump {opt_dump['mu'].shape}, index "
+                             f"{se_opt['index']}")
+    log(f"[10] skip static_eval --long (dump of 10,000 rows a split, index, "
+        f"diagnostics, battery): {se_opt_s:.2f} s; launches {se_opt_counts}"
+        f"; dump seconds per split "
+        f"{ {k: round(v, 3) for k, v in se_opt['seconds'].items()} }; "
+        f"{diag_line(se_opt)} ({card})")
+    mark("10 skip static_eval --long")
     opt_launches = {k: sum(v["train"][0][k] for v in opt_stats.values())
                     + l_p2[k] for k in l_p2}
     opt_b1 = opt_stats["flow"]["rounds"][0]["B1"]
@@ -3797,6 +4259,11 @@ def main():
     mp_launches = {k: sum(c[k] for c in mp_counts) for k in mp_counts[0]}
     mark("12 tensor and pipeline parallelism")
 
+    # ---- 13. the data path (curation, the native tokenizer) and B2 in bf16
+    d13 = data_bf16_phase(dev, card, cuda_ms, train_top)
+    d13["tok_build_s"] = native_s
+    mark("13 curation, tokenizer, curated training, B2 bf16")
+
     # ---- B4 and B5 timings --------------------------------------------------
     b4_times = {}
     # the decoder's width; B 512 at the encoder's, the dump's chunk
@@ -4038,7 +4505,8 @@ def main():
                          + l9m[f"B2 {k}"]
                          + sum(m_[f"B2 {k}"] for m_ in mix_l)
                          + opt_launches[f"B2 {k}"] + dp_launches[f"B2 {k}"]
-                         + mp_launches[f"B2 {k}"]),
+                         + mp_launches[f"B2 {k}"]
+                         + d13["train"][0][f"B2 {k}"]),
             "max_abs_err": b2_err[k],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms})
@@ -4063,9 +4531,11 @@ def main():
         "replaces":
             "controlled_peptide_generation_tpu/ops/pallas_kernels.py:72",
         "launches": (train_launches["B4"] + enc_launches + se_counts["B4"]
-                     + se_counts2["B4"] + l9g["B4"] + l9m["B4"]
+                     + se_counts2["B4"] + se_opt_counts["B4"] + l9g["B4"]
+                     + l9m["B4"]
                      + sum(m_["B4"] for m_ in mix_l) + opt_launches["B4"]
-                     + dp_launches["B4"] + mp_launches["B4"]),
+                     + dp_launches["B4"] + mp_launches["B4"]
+                     + d13["train"][0]["B4"]),
         "max_abs_err": b4_err,
         "ms": t4["kernel"], "plain_ms": t4["plain"],
         "bound_ms": t4["bound"][0], "bound_by": t4["bound"][1],
@@ -4074,7 +4544,7 @@ def main():
                          + tfm_launches["B5 fwd"] + mmd_launches["B5 fwd"]
                          + l9m["B5 fwd"] + sum(m_["B5 fwd"] for m_ in mix_l)
                          + opt_launches["B5 fwd"] + dp_launches["B5 fwd"]
-                         + mp_launches["B5 fwd"]),
+                         + mp_launches["B5 fwd"] + d13["train"][0]["B5 fwd"]),
                         ("bwd", mmd_launches["B5 bwd"] + l9m["B5 bwd"]
                          + sum(m_["B5 bwd"] for m_ in mix_l)
                          + dp_launches["B5 bwd"] + mp_launches["B5 bwd"])):
@@ -4104,6 +4574,36 @@ def main():
             "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
+    t13 = d13["bf16_times"][B2_WIDTHS[1][1], B2_SCAN_BATCH]
+    for k, replaces in (("fwd", "pallas_gru.py:283"),
+                        ("bwd", "pallas_gru.py:312"),
+                        ("wgrad", "pallas_gru.py:206")):
+        k_ms, p_ms, (b_ms, b_by), l_ms = t13[k]
+        entries.append({
+            "name": f"gru_seq_{k}_bf16", "route": "cuda",
+            "source": "controlled_peptide_generation_tpu_torch/csrc/"
+                      "gru_seq.cu",
+            "replaces": f"controlled_peptide_generation_tpu/ops/{replaces}",
+            "launches": d13["bf16_launches"][k],
+            "max_abs_err": d13["bf16_err"][k],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms})
+    for (H_, B), tk in sorted(d13["bf16_times"].items()):
+        proj = d13["bf16_proj"][H_, B]
+        log(f"[7] B2 bf16 at H {H_}, T {T}, B {B}: " + "; ".join(
+            f"{k} kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {k_ms / b_ms:.1f}x its bound, library "
+            + (f"torch.mm {l_ms:.6f} ms" if k == "wgrad" else
+               f"cuDNN {l_ms:.6f} ms, its input projection alone "
+               f"{proj[k]:.6f} ms")
+            for k, (k_ms, p_ms, (b_ms, b_by), l_ms) in tk.items())
+            + f" ({card})")
+    log(f"[7] curation CLI on {RAW_CARDS} cards: {d13['curation_s']:.2f} s; "
+        f"native tokenizer at {TOKENIZE_ROWS} rows {d13['tok_native_ms']:.2f}"
+        f" ms against the plain path's {d13['tok_plain_ms']:.2f} ms, its "
+        f"build (gcc, in [2]'s pool) {d13['tok_build_s']:.2f} s; phase 1 on "
+        f"the curated corpus, "
+        f"51 steps: {d13['train'][1]:.2f} s (host clock, {card})")
     mark("7 report")
     log("[7] seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items())

@@ -10,7 +10,8 @@ matrix and batches as the JAX package.
 
 Every batch is a ``(B, max_seq_len)`` int32 array ([START] + at most
 max_seq_len - 2 tokens + [EOS] + PAD); the whole corpus is tokenized once
-at load time, so drawing a batch is one fancy-index gather.
+at load time by the native tokenizer (``native/``, compiled from its C
+source at its first use), so drawing a batch is one fancy-index gather.
 """
 
 import csv
@@ -22,6 +23,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from .. import native
 from .vocab import Vocab
 
 LOG = logging.getLogger(__name__)
@@ -113,10 +115,10 @@ class AttributeDataLoader:
                 if s == "train")
         self.n_vocab = len(self.vocab)
 
-        self.tokens = np.array(
-            [self.vocab.to_ix(row["text"], fix_length=max_seq_len)
-             for row in self.rows], dtype=np.int32).reshape(
-                 len(self.rows), max_seq_len)
+        # the whole corpus tokenized once by the native tokenizer (built
+        # at its first use)
+        self.tokens = native.tokenize_corpus(
+            [row["text"] for row in self.rows], self.vocab.stoi, max_seq_len)
         self.labels = {}
         for name, mapping in self.attributes:
             vals = np.empty(len(self.rows), dtype=np.int64)

@@ -15,6 +15,12 @@ tensors, their plain versions on CPU tensors or inside
 takes the plain recurrence on any device, decided before any launch, as
 the JAX package sends such widths to its XLA arm (its kernels'
 ``applicable``); ``gru_scan.plain_runs`` counts those scans.
+
+A bf16 scan (bf16 weights and state) runs B2's bf16 entries, with
+autograd and without, as the JAX ``gru_scan`` sends a bf16 scan to its
+``pallas_gru.gru_seq``: B4 takes float32 only, as its TPU kernel does. On
+CUDA tensors a bf16 scan launches B2 or raises (H > 127 included); it
+never runs a plain version there outside ``cuda_build.plain()``.
 """
 
 import torch
@@ -54,15 +60,17 @@ def gru_scan(params, xs, h0, reverse=False):
     semantics); h_last is then the state after xs[:, 0].
 
     A scan that autograd records (grad enabled and an input requiring
-    grad) runs B2's differentiable recurrence; any other scan runs the
-    forward-only kernel B4, which reads the tape in place; beyond the
-    kernels' H scope either runs its plain version."""
+    grad), and every bf16 scan, runs B2's differentiable recurrence; any
+    other scan runs the forward-only kernel B4, which reads the tape in
+    place; beyond the kernels' H scope a float32 scan runs its plain
+    version."""
     from . import cuda_build, gru_fwd_kernel, gru_kernel
     gi_tm = (xs @ params["wi"] + params["bi"]).transpose(0, 1)  # [T, B, 3H]
     wh, bh = params["wh"], params["bh"]
-    outside = wh.shape[0] > gru_kernel.MAX_H
+    bf16 = wh.dtype == torch.bfloat16
+    outside = not bf16 and wh.shape[0] > gru_kernel.MAX_H
     gru_scan.plain_runs += outside
-    if not (torch.is_grad_enabled() and any(
+    if not bf16 and not (torch.is_grad_enabled() and any(
             a.requires_grad for a in (gi_tm, wh, bh, h0))):
         fwd = (gru_fwd_kernel.gru_fwd_reference
                if outside or cuda_build.in_plain()

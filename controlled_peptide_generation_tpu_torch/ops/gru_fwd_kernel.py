@@ -18,7 +18,9 @@ one launch per scan.
 (the heldout eval, the pipeline's encodings); a recorded scan stays on
 B2's autograd Function. Dispatch: CPU tensors run ``gru_fwd_reference``
 (a step loop of ``_gates``); CUDA tensors launch the kernel or raise, also
-for a shape outside its scope (H <= 128) or a dtype other than float32.
+for a shape outside its scope (H <= 128) or a dtype other than float32:
+the JAX kernel takes float32 only (on bf16 inputs its f32 gh makes the new
+h f32, and storing that into its bf16 hs raises), so a bf16 scan runs B2.
 ``gru_fwd.launches`` counts the wrapper calls that launched it. Inside
 ``cuda_build.plain()`` gru_scan takes the plain version on any device.
 """
@@ -35,6 +37,12 @@ def gru_fwd(wh, bh, gi_tm, h0, reverse=False):
     of a batch-major [B, T, H] buffer."""
     if gi_tm.device.type == "cpu":
         return gru_fwd_reference(wh, bh, gi_tm, h0, reverse)
+    if gi_tm.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the forward-only GRU scan (B4) takes float32, got "
+            f"{gi_tm.dtype}: its JAX kernel (ops/pallas_kernels.py:"
+            "gru_sequence_pallas) takes float32 only, storing its f32 state "
+            "into a bf16 hs raises; a bf16 scan runs B2 (ops/gru.gru_scan)")
     if gi_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {gi_tm.device}")
     T, B, _ = gi_tm.shape

@@ -15,6 +15,20 @@ and the recurrent-weight gradient (one launch: each output tile's rows
 split over a thread-block cluster, whose partials are summed in a fixed
 order, so two runs give the same bits).
 
+bf16 (the JAX kernel's dt, ``pallas_gru.applicable``): the same three
+kernels store gi, wh and bh, h0, hs, dhs, dgi, dghn and dh0 in bf16 and
+compute in f32, rounding where the JAX kernels round when XLA evaluates
+them (``_gates_bf16``, ``_bwd_step_bf16``): forward, gh = h @ wh + bh
+accumulated in f32 and rounded once, then r, z, n and the blend's ops;
+backward, dhs rounded once, the gates as the JAX backward recomputes them
+(r, z and n in f32, unrounded, n's argument with the rounded r), the four
+gate gradients rounded before their stores and products, dh carried in
+f32 and rounded once into dh0; dwh and dbh summed in f32 and rounded once.
+The residual tape stays f32 and holds what the JAX backward recomputes:
+the unrounded f32 r, z and n and the rounded gh_n. The scope in bf16 is
+the JAX kernel's, H <= 127 (``MAX_H_BF16``; one lane of its 128 is the
+bias lane).
+
 Dispatch: CPU tensors run the plain versions (``gru_seq_res_reference``,
 the step loop that returns hs and the residual tape, and
 ``gru_seq_reference``, its hs; ``_bwd_chain_reference``, the backward
@@ -22,12 +36,18 @@ recurrence from the residuals, the function of the CUDA backward; and
 ``gru_seq_bwd_reference``, the explicit reverse recurrence that
 recomputes the gates, which ``GruSeq`` runs on CPU tensors); CUDA tensors
 launch the kernels or raise, also for a shape outside the kernels' scope
-(H <= 128) or a dtype other than float32. ``gru_seq_fwd.launches``,
-``gru_seq_bwd.launches`` and ``gru_seq_wgrad.launches`` count the wrapper
-calls that launched kernels. Inside ``cuda_build.plain()`` ``gru_seq``
-runs the step loop under autograd on any device: the kernels' yardstick
-on CUDA, and with it the route of every ``gru_scan`` above it (encoder,
-decoder, train step).
+(H <= 128, H <= 127 in bf16) or a dtype other than float32 and bfloat16.
+``gru_seq_fwd.launches``, ``gru_seq_bwd.launches`` and
+``gru_seq_wgrad.launches`` count the wrapper calls that launched the f32
+kernels, the ``launches_bf16`` attributes those that launched the bf16
+ones. A ``gru_seq`` that autograd does not record launches the forward
+alone, with no residual tape (``gru_seq_fwd(..., residuals=False)``), as
+the JAX forward writes hs alone. Inside ``cuda_build.plain()``
+``gru_seq`` runs the plain versions on any device: the kernels' yardstick
+on CUDA, and with it the route of every
+``gru_scan`` above it (encoder, decoder, train step); in f32 the step loop
+under autograd, in bf16 ``GruSeq`` on the plain versions (autograd's own
+bf16 backward would round elsewhere).
 """
 
 import ctypes
@@ -39,6 +59,8 @@ import torch
 from .cuda_build import compile_library, in_plain, ptxas_usage
 
 MAX_H = 128           # the kernels' scope: wh [H, 3H] on one SM
+MAX_H_BF16 = 127      # in bf16 the JAX kernel's (``pallas_gru.applicable``)
+DTYPES = (torch.float32, torch.bfloat16)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -54,15 +76,19 @@ def build():
             return _lib
         lib, build_log = compile_library("gru_seq.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_seq_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
-        lib.gru_seq_bwd_f32.argtypes = [p] * 8 + [i] * 3 + [p]
-        lib.gru_seq_wgrad_f32.argtypes = [p] * 6 + [i] * 3 + [p]
+        entries = []
+        for t in ("f32", "bf16"):
+            fwd, bwd, wgrad = (getattr(lib, f"gru_seq_{n}_{t}")
+                               for n in ("fwd", "bwd", "wgrad"))
+            fwd.argtypes = [p] * 6 + [i] * 3 + [p]
+            bwd.argtypes = [p] * 8 + [i] * 3 + [p]
+            wgrad.argtypes = [p] * 6 + [i] * 3 + [p]
+            entries += [fwd, bwd, wgrad]
         q = ctypes.c_longlong
         # B4's entry (ops/gru_fwd_kernel.py): strides are 64-bit
         lib.gru_scan_f32.argtypes = [p, q, q, p, p, p, p, q, q, p] + [i] * 4 \
             + [p]
-        for fn in (lib.gru_seq_fwd_f32, lib.gru_seq_bwd_f32,
-                   lib.gru_seq_wgrad_f32, lib.gru_scan_f32):
+        for fn in entries + [lib.gru_scan_f32]:
             fn.restype = i
         lib.gru_seq_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.gru_seq_plan.restype = i
@@ -105,22 +131,28 @@ def wgrad_plan(T, B, H):
     return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows"), out))
 
 
+_BF16 = "(13__nv_bfloat16)?"
 _SCAN = re.compile(
-    r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?")
-_BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
-_WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E")
+    r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?" + _BF16)
+_BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E" + _BF16)
+_WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E" + _BF16)
 
 
 def _kernel_name(entry):
     scan, bwd, wgrad = (_SCAN.search(entry), _BWD.search(entry),
                         _WGRAD.search(entry))
     if scan:
-        ks, s, r, res = scan.groups()
+        ks, s, r, res, bf = scan.groups()
         return (f"gru_scan_kernel<{ks}, {s}, {r}"
-                + (", residuals>" if res == "1" else ">"))
+                + (", residuals" if res == "1" else "")
+                + (", bf16>" if bf else ">"))
     if bwd:
-        return f"gru_bwd_kernel<{', '.join(bwd.groups())}>"
-    return f"gru_wgrad_kernel<{wgrad.group(1)}>" if wgrad else None
+        ks, s, r, bf = bwd.groups()
+        return f"gru_bwd_kernel<{ks}, {s}, {r}" + (", bf16>" if bf else ">")
+    if wgrad:
+        v, bf = wgrad.groups()
+        return f"gru_wgrad_kernel<{v}" + (", bf16>" if bf else ">")
+    return None
 
 
 def ptxas_report(log=None):
@@ -131,22 +163,29 @@ def ptxas_report(log=None):
     rows per block; ``gru_scan_kernel<KS, S, R, residuals>`` the training
     forward's), backward kernels ``gru_bwd_kernel<KS, S, R>`` (m values per
     lane, lanes per unit, rows per block), weight-gradient kernels
-    ``gru_wgrad_kernel<V>`` (floats per copy)."""
+    ``gru_wgrad_kernel<V>`` (values per copy); a bf16 instantiation ends
+    in ``, bf16>``."""
     return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 
-def _validate(named, T, B, H):
-    """Raise unless every tensor is float32, on one CUDA device, of its
-    expected shape, and the shapes are in the kernels' scope."""
-    dev = next(iter(named.values()))[0].device
-    if not 1 <= H <= MAX_H or T < 1:
+def _validate(named, T, B, H, f32=()):
+    """Raise unless every tensor is of its expected shape, on one CUDA
+    device, and of the first tensor's dtype, float32 or bf16 (the names in
+    ``f32`` are float32 in either: the residual tape), and the shapes are
+    in the kernels' scope for that dtype. Returns the device."""
+    first = next(iter(named.values()))[0]
+    dev, dt = first.device, first.dtype
+    if dt not in DTYPES:
+        raise NotImplementedError(
+            f"the CUDA GRU kernels take float32 or bfloat16, got {dt}")
+    max_h = MAX_H if dt == torch.float32 else MAX_H_BF16
+    if not 1 <= H <= max_h or T < 1:
         raise ValueError(f"shape outside the GRU kernels' scope: T={T} "
-                         f"H={H} (need T >= 1, 1 <= H <= {MAX_H})")
+                         f"H={H} (need T >= 1, 1 <= H <= {max_h} in {dt})")
     for name, (a, shape) in named.items():
-        if a.dtype != torch.float32:
-            raise NotImplementedError(
-                f"the CUDA GRU kernels take float32, got {a.dtype} for "
-                f"{name} (bf16 is queued in ROADMAP.md)")
+        want = torch.float32 if name in f32 else dt
+        if a.dtype != want:
+            raise ValueError(f"{name} is {a.dtype}, expected {want}")
         if a.device != dev:
             raise ValueError(f"{name} is on {a.device}, expected {dev}")
         if tuple(a.shape) != shape:
@@ -155,17 +194,29 @@ def _validate(named, T, B, H):
     return dev
 
 
+def _entry(lib, name, dt):
+    """The C entry ``name``_f32 or ``name``_bf16 and the counter attribute
+    of its launches."""
+    if dt == torch.bfloat16:
+        return getattr(lib, f"{name}_bf16"), "launches_bf16"
+    return getattr(lib, f"{name}_f32"), "launches"
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def gru_seq_fwd(wh, bh, gi_tm, h0):
+def gru_seq_fwd(wh, bh, gi_tm, h0, residuals=True):
     """The training forward: (hs [T, B, H], res [T, B, H, 4]), hs the GRU
     scan over gi_tm [T, B, 3H] from h0 [B, H] and res each step's gates r,
     z, n and gh_n = h_{t-1} @ wh_n + bh_n of each unit, what
-    ``gru_seq_bwd`` reads."""
+    ``gru_seq_bwd`` reads. hs has the inputs' dtype (float32 or bf16), res
+    is float32 (in bf16 the unrounded gates and the rounded gh_n). With
+    ``residuals=False`` the kernel stores no tape and res is None: the
+    forward of a scan that autograd does not record."""
     if gi_tm.device.type == "cpu":
-        return gru_seq_res_reference(wh, bh, gi_tm, h0)
+        hs, res = gru_seq_res_reference(wh, bh, gi_tm, h0)
+        return hs, res if residuals else None
     if gi_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {gi_tm.device}")
     T, B, _ = gi_tm.shape
@@ -174,16 +225,19 @@ def gru_seq_fwd(wh, bh, gi_tm, h0):
                      "wh": (wh, (H, 3 * H)), "bh": (bh, (3 * H,)),
                      "h0": (h0, (B, H))}, T, B, H)
     gi_tm, wh, bh, h0 = (a.contiguous() for a in (gi_tm, wh, bh, h0))
-    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    res = torch.empty((T, B, H, 4), dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), dtype=wh.dtype, device=dev)
+    res = (torch.empty((T, B, H, 4), dtype=torch.float32, device=dev)
+           if residuals else None)
     if B > 0:
         lib = build()
+        fn, counter = _entry(lib, "gru_seq_fwd", wh.dtype)
         with torch.cuda.device(dev):
-            code = lib.gru_seq_fwd_f32(
-                gi_tm.data_ptr(), wh.data_ptr(), bh.data_ptr(), h0.data_ptr(),
-                hs.data_ptr(), res.data_ptr(), T, B, H, _stream(dev))
-        _check(lib, code, "gru_seq_fwd_f32 launch")
-        gru_seq_fwd.launches += 1
+            code = fn(gi_tm.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+                      h0.data_ptr(), hs.data_ptr(),
+                      res.data_ptr() if residuals else None, T, B, H,
+                      _stream(dev))
+        _check(lib, code, "gru_seq_fwd launch")
+        setattr(gru_seq_fwd, counter, getattr(gru_seq_fwd, counter) + 1)
     return hs, res
 
 
@@ -192,7 +246,8 @@ def gru_seq_bwd(wh, h0, hs, res, dhs):
     [T, B, H, 4] (``gru_seq_fwd``): (dgi [T, B, 3H],
     dghn [T, B, H], dh0 [B, H]) for the incoming dhs [T, B, H], where dghn
     is the n-section of the recurrent pre-activation gradient
-    (dn_pre * r); the r and z sections equal dgi's."""
+    (dn_pre * r); the r and z sections equal dgi's. In bf16 (wh, h0, hs
+    and dhs bf16, res float32) the three outputs are bf16."""
     if hs.device.type == "cpu":
         return _bwd_chain_reference(wh, h0, hs, res, dhs)
     if hs.device.type != "cuda":
@@ -200,26 +255,28 @@ def gru_seq_bwd(wh, h0, hs, res, dhs):
     T, B, H = hs.shape
     dev = _validate({"wh": (wh, (H, 3 * H)), "h0": (h0, (B, H)),
                      "hs": (hs, (T, B, H)), "res": (res, (T, B, H, 4)),
-                     "dhs": (dhs, (T, B, H))}, T, B, H)
+                     "dhs": (dhs, (T, B, H))}, T, B, H, f32=("res",))
     ins = tuple(a.contiguous() for a in (wh, h0, hs, res, dhs))
-    dgi = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    dghn = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dt = wh.dtype
+    dgi = torch.empty((T, B, 3 * H), dtype=dt, device=dev)
+    dghn = torch.empty((T, B, H), dtype=dt, device=dev)
+    dh0 = torch.empty((B, H), dtype=dt, device=dev)
     if B == 0:
         return dgi, dghn, dh0
     lib = build()
+    fn, counter = _entry(lib, "gru_seq_bwd", dt)
     with torch.cuda.device(dev):
-        code = lib.gru_seq_bwd_f32(*(a.data_ptr() for a in ins),
-                                   dgi.data_ptr(), dghn.data_ptr(),
-                                   dh0.data_ptr(), T, B, H, _stream(dev))
-    _check(lib, code, "gru_seq_bwd_f32 launch")
-    gru_seq_bwd.launches += 1
+        code = fn(*(a.data_ptr() for a in ins), dgi.data_ptr(),
+                  dghn.data_ptr(), dh0.data_ptr(), T, B, H, _stream(dev))
+    _check(lib, code, "gru_seq_bwd launch")
+    setattr(gru_seq_bwd, counter, getattr(gru_seq_bwd, counter) + 1)
     return dgi, dghn, dh0
 
 
 def gru_seq_wgrad(h0, hs, dgi, dghn):
     """(dwh [H, 3H], dbh [3H]): sums over T*B of h_{t-1}^T dgh and of dgh,
-    dgh = [dgi_r, dgi_z, dghn]."""
+    dgh = [dgi_r, dgi_z, dghn], in the inputs' dtype (in bf16 summed in
+    f32 and rounded once)."""
     if hs.device.type == "cpu":
         return _wgrad_reference(h0, hs, dgi, dghn)
     if hs.device.type != "cuda":
@@ -229,46 +286,47 @@ def gru_seq_wgrad(h0, hs, dgi, dghn):
                      "dgi": (dgi, (T, B, 3 * H)),
                      "dghn": (dghn, (T, B, H))}, T, B, H)
     ins = tuple(a.contiguous() for a in (h0, hs, dgi, dghn))
+    dt = hs.dtype
     if B == 0:
-        return (torch.zeros((H, 3 * H), dtype=torch.float32, device=dev),
-                torch.zeros((3 * H,), dtype=torch.float32, device=dev))
+        return (torch.zeros((H, 3 * H), dtype=dt, device=dev),
+                torch.zeros((3 * H,), dtype=dt, device=dev))
     # the kernel writes every entry
-    dwh = torch.empty((H, 3 * H), dtype=torch.float32, device=dev)
-    dbh = torch.empty((3 * H,), dtype=torch.float32, device=dev)
+    dwh = torch.empty((H, 3 * H), dtype=dt, device=dev)
+    dbh = torch.empty((3 * H,), dtype=dt, device=dev)
     lib = build()
+    fn, counter = _entry(lib, "gru_seq_wgrad", dt)
     with torch.cuda.device(dev):
-        code = lib.gru_seq_wgrad_f32(*(a.data_ptr() for a in ins),
-                                     dwh.data_ptr(), dbh.data_ptr(), T, B,
-                                     H, _stream(dev))
-    _check(lib, code, "gru_seq_wgrad_f32 launch")
-    gru_seq_wgrad.launches += 1
+        code = fn(*(a.data_ptr() for a in ins), dwh.data_ptr(),
+                  dbh.data_ptr(), T, B, H, _stream(dev))
+    _check(lib, code, "gru_seq_wgrad launch")
+    setattr(gru_seq_wgrad, counter, getattr(gru_seq_wgrad, counter) + 1)
     return dwh, dbh
-
-
-gru_seq_fwd.launches = 0
-gru_seq_bwd.launches = 0
-gru_seq_wgrad.launches = 0
 
 
 def reset_launches():
     for fn in (gru_seq_fwd, gru_seq_bwd, gru_seq_wgrad):
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
+
+
+reset_launches()
 
 
 class GruSeq(torch.autograd.Function):
-    """hs = gru_seq(wh, bh, gi_tm, h0), differentiable in all four. On
-    CUDA it saves the forward's residual tape and its backward runs the
-    kernels from it; on CPU tensors it saves the forward's inputs and its
-    backward recomputes the gates (``gru_seq_bwd_reference``'s recurrence).
-    """
+    """hs = gru_seq(wh, bh, gi_tm, h0), differentiable in all four, in
+    float32 or bf16 (the dtype of the inputs picks the kernels' entries).
+    On CUDA it saves the forward's residual tape and its backward runs the
+    kernels from it; on CPU tensors, or with ``plain``, it runs the plain
+    versions, saves the forward's inputs and its backward recomputes the
+    gates (``gru_seq_bwd_reference``'s recurrence)."""
 
     @staticmethod
-    def forward(ctx, wh, bh, gi_tm, h0):
-        hs, res = gru_seq_fwd(wh, bh, gi_tm, h0)
-        ctx.recompute = gi_tm.device.type == "cpu"
+    def forward(ctx, wh, bh, gi_tm, h0, plain=False):
+        ctx.recompute = plain or gi_tm.device.type == "cpu"
         if ctx.recompute:
+            hs = gru_seq_reference(wh, bh, gi_tm, h0)
             ctx.save_for_backward(wh, bh, gi_tm, h0, hs)
         else:
+            hs, res = gru_seq_fwd(wh, bh, gi_tm, h0)
             ctx.save_for_backward(wh, h0, hs, res)
         return hs
 
@@ -276,19 +334,31 @@ class GruSeq(torch.autograd.Function):
     def backward(ctx, dhs):
         if ctx.recompute:
             wh, bh, gi_tm, h0, hs = ctx.saved_tensors
+            dhs = dhs.to(hs.dtype)
             dgi, dghn, dh0 = _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs,
                                                        dhs)
+            dwh, dbh = _wgrad_reference(h0, hs, dgi, dghn)
         else:
             wh, h0, hs, res = ctx.saved_tensors
+            dhs = dhs.to(hs.dtype)
             dgi, dghn, dh0 = gru_seq_bwd(wh, h0, hs, res, dhs)
-        dwh, dbh = gru_seq_wgrad(h0, hs, dgi, dghn)
-        return dwh, dbh, dgi, dh0
+            dwh, dbh = gru_seq_wgrad(h0, hs, dgi, dghn)
+        return dwh, dbh, dgi, dh0, None
 
 
 def gru_seq(wh, bh, gi_tm, h0):
     """Fused GRU over a whole sequence: wh [H, 3H], bh [3H], gi_tm
-    [T, B, 3H] time-major with bi folded in, h0 [B, H] -> hs [T, B, H]."""
+    [T, B, 3H] time-major with bi folded in, h0 [B, H] -> hs [T, B, H].
+    A call that autograd does not record runs the forward alone, with no
+    residual tape."""
+    if not (torch.is_grad_enabled() and any(
+            a.requires_grad for a in (wh, bh, gi_tm, h0))):
+        if in_plain():
+            return gru_seq_reference(wh, bh, gi_tm, h0)
+        return gru_seq_fwd(wh, bh, gi_tm, h0, residuals=False)[0]
     if in_plain():
+        if wh.dtype == torch.bfloat16:
+            return GruSeq.apply(wh, bh, gi_tm, h0, True)
         return gru_seq_reference(wh, bh, gi_tm, h0)
     return GruSeq.apply(wh, bh, gi_tm, h0)
 
@@ -297,14 +367,17 @@ def gru_seq(wh, bh, gi_tm, h0):
 
 def gru_seq_reference(wh, bh, gi_tm, h0):
     """Plain torch version of the forward's hs (differentiable by
-    autograd)."""
+    autograd in float32; in bf16 ``GruSeq`` gives its gradient)."""
     return gru_seq_res_reference(wh, bh, gi_tm, h0)[0]
 
 
 def gru_seq_res_reference(wh, bh, gi_tm, h0):
     """Plain torch version of the training forward: a step loop of the
     gates that returns (hs [T, B, H], res [T, B, H, 4]), res holding each
-    step's r, z, n and gh_n of each unit."""
+    step's r, z, n and gh_n of each unit. In bf16 at the JAX kernel's
+    rounding points (module docstring): hs bf16, res f32."""
+    if wh.dtype == torch.bfloat16:
+        return _res_reference_bf16(wh, bh, gi_tm, h0)
     H = wh.shape[0]
     h = h0
     hs, res = [], []
@@ -331,6 +404,10 @@ def _bwd_step(dh, hp, r, z, n, gh_n):
 
 
 def _bwd_recurrence_reference(wh, bh, gi_tm, h0, hs, dhs):
+    if wh.dtype == torch.bfloat16:
+        return _bwd_reference_bf16(wh, h0, hs, dhs,
+                                   lambda t, hp: _gates_bf16(
+                                       gi_tm[t], hp, wh.float(), bh.float()))
     H = wh.shape[0]
     hprev = torch.cat([h0[None], hs[:-1]])
     dgi = torch.empty_like(gi_tm)
@@ -354,6 +431,12 @@ def _bwd_chain_reference(wh, h0, hs, res, dhs):
     """Plain torch version of the CUDA backward: the reverse recurrence
     given the forward's gates (res [T, B, H, 4] of r, z, n, gh_n), with no
     gate recompute. Returns (dgi, dghn, dh0)."""
+    if wh.dtype == torch.bfloat16:
+        gates = res.unbind(-1)
+        return _bwd_reference_bf16(
+            wh, h0, hs, dhs,
+            lambda t, hp: (gates[0][t], gates[1][t], gates[2][t],
+                           gates[3][t]))
     hprev = torch.cat([h0[None], hs[:-1]])
     r, z, n, gh_n = res.unbind(-1)
     dgi = torch.empty((*hs.shape[:2], 3 * hs.shape[2]), dtype=hs.dtype,
@@ -369,10 +452,85 @@ def _bwd_chain_reference(wh, h0, hs, res, dhs):
 
 
 def _wgrad_reference(h0, hs, dgi, dghn):
+    """(dwh, dbh); in bf16 summed in f32 and rounded once."""
     H = hs.shape[2]
     hprev = torch.cat([h0[None], hs[:-1]]).reshape(-1, H)
     dgh = torch.cat([dgi[..., :2 * H], dghn], dim=2).reshape(-1, 3 * H)
+    if hs.dtype == torch.bfloat16:
+        hprev, dgh = hprev.float(), dgh.float()
+        return ((hprev.T @ dgh).to(torch.bfloat16),
+                dgh.sum(0).to(torch.bfloat16))
     return hprev.T @ dgh, dgh.sum(0)
+
+
+# ---- the bf16 rounding points -----------------------------------------------
+# Where the JAX kernels (``pallas_gru.py`` _fwd_kernel and _bwd_kernel, dt
+# bf16) round when XLA evaluates them on the CPU in interpret mode: a bf16
+# sum cast straight to f32 (the sigmoid's and the tanh's arguments) is not
+# rounded there, so these sums are f32 here; every other bf16 op rounds.
+# The CUDA kernels round at the same points.
+
+def _gates_bf16(gi, h, whf, bhf):
+    """One step's gates from the bf16 tape row gi [B, 3H] and h [B, H]:
+    (r, z, n) in f32, unrounded, and gh_n rounded (as f32): gh = h @ wh +
+    bh accumulated in f32 and rounded once; n's argument gi_n + (rounded
+    r) * gh_n, the product rounded."""
+    H = h.shape[1]
+    dt = gi.dtype
+    gh = (h.float() @ whf + bhf).to(dt)
+    r = torch.sigmoid(gi[:, :H].float() + gh[:, :H].float())
+    z = torch.sigmoid(gi[:, H:2 * H].float() + gh[:, H:2 * H].float())
+    n = torch.tanh(gi[:, 2 * H:].float()
+                   + (r.to(dt) * gh[:, 2 * H:]).float())
+    return r, z, n, gh[:, 2 * H:].float()
+
+
+def _res_reference_bf16(wh, bh, gi_tm, h0):
+    """The bf16 training forward: hs (the blend's ops each rounded, from
+    the rounded gates) and the f32 residuals of ``_gates_bf16``."""
+    dt = wh.dtype
+    whf, bhf = wh.float(), bh.float()
+    h = h0
+    hs, res = [], []
+    for t in range(gi_tm.shape[0]):
+        r, z, n, gh_n = _gates_bf16(gi_tm[t], h, whf, bhf)
+        zb = z.to(dt)
+        h = (1.0 - zb) * n.to(dt) + zb * h
+        hs.append(h)
+        res.append(torch.stack([r, z, n, gh_n], dim=-1))
+    return torch.stack(hs), torch.stack(res)
+
+
+def _bwd_step_bf16(d, hp, r, z, n, gh_n):
+    """One reverse step in f32 from the carry d and the step's gates,
+    the four gate gradients rounded: (dgi_t, dghn_t, dgh_t as f32)."""
+    dt = torch.bfloat16
+    dz = d * (hp.float() - n)
+    dn_pre = d * (1.0 - z) * (1.0 - n * n)
+    dr_pre = dn_pre * gh_n * r * (1.0 - r)
+    dz_pre = dz * z * (1.0 - z)
+    dr_c, dz_c, dn_c, dgn_c = (a.to(dt) for a in (dr_pre, dz_pre, dn_pre,
+                                                  dn_pre * r))
+    return (torch.cat([dr_c, dz_c, dn_c], dim=1), dgn_c,
+            torch.cat([dr_c, dz_c, dgn_c], dim=1).float())
+
+
+def _bwd_reference_bf16(wh, h0, hs, dhs, gates):
+    """The bf16 reverse recurrence: ``gates(t, h_{t-1})`` gives step t's
+    (r, z, n, gh_n); dh carried in f32, dh0 rounded once. Returns (dgi,
+    dghn, dh0) in bf16."""
+    hprev = torch.cat([h0[None], hs[:-1]])
+    T, B, H = hs.shape
+    dgi = torch.empty((T, B, 3 * H), dtype=hs.dtype, device=hs.device)
+    dghn = torch.empty_like(hs)
+    whf_t = wh.float().T
+    dh = torch.zeros(h0.shape, dtype=torch.float32, device=h0.device)
+    for t in range(T - 1, -1, -1):
+        d = dh + dhs[t].float()
+        r, z, n, gh_n = gates(t, hprev[t])
+        dgi[t], dghn[t], dgh = _bwd_step_bf16(d, hprev[t], r, z, n, gh_n)
+        dh = d * z + dgh @ whf_t
+    return dgi, dghn, dh.to(hs.dtype)
 
 
 def gru_seq_bwd_reference(wh, bh, gi_tm, h0, hs, dhs):

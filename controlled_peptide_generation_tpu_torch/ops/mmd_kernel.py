@@ -20,7 +20,9 @@ the arguments swapped. The Function saves z1 and z2 only and launches no
 backward unless the value is in the loss (the default ``mmdrf`` run only
 logs it).
 
-Scope: float32, N >= 1, D <= MAX_D (256; the latent width is 100). At
+Scope: float32 (as the JAX kernel's: on bf16 inputs its out_shape is
+bf16 and storing its f32 sum there raises), N >= 1, D <= MAX_D (256; the
+latent width is 100). At
 N 1 both divide 0 by N (N - 1) = 0 and give NaN, as the plain versions
 and the JAX package do, so a batch of one row logs a NaN ``L_wae_mmd``
 and does not stop a run that regularizes with kl or mmdrf.
@@ -103,7 +105,9 @@ def _validate(z1, z2):
         if a.dtype != torch.float32:
             raise NotImplementedError(
                 f"the CUDA MMD kernels take float32, got {a.dtype} for "
-                f"{name}")
+                f"{name}: the JAX kernel (ops/pallas_kernels.py:"
+                "mmd_full_pallas) takes float32 only, its f32 sum stored "
+                "into a bf16 output raises")
     if z2.device != z1.device:
         raise ValueError(f"z2 is on {z2.device}, expected {z1.device}")
     return N, D

@@ -27,6 +27,7 @@ bad = sorted(m for m in sys.modules
              if m == "controlled_peptide_generation_tpu"
              or m.startswith("controlled_peptide_generation_tpu."))
 print("IMPORTED", len(names))
+print("NAMES", sorted(names))
 print("BAD", bad)
 print("OPTIONAL", sorted(m for m in sys.modules
                          if m.split(".")[0] in ("sklearn", "matplotlib")))
@@ -39,8 +40,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         capture_output=True, text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.splitlines()
-                 if l.startswith(("IMPORTED", "BAD", "OPTIONAL")))
+                 if l.startswith(("IMPORTED", "NAMES", "BAD", "OPTIONAL")))
     assert int(lines["IMPORTED"]) >= 20
+    # the data path's modules are among those imported
+    for name in ("data.curation", "native"):
+        assert repr(f"{PKG}.{name}") in lines["NAMES"], name
     assert lines["BAD"] == "[]"
     assert lines["OPTIONAL"] == "[]"
 
