@@ -15,8 +15,9 @@ Phases, each raising on failure (the script then exits non-zero):
    the device's start-up run meanwhile; prints ptxas' registers and spills,
    and for the GRU scan's instantiations (forward-only and the training
    forward's with residual stores), the backward's at H 80, 102 and 128
-   and the weight-gradient kernel (from gru_kernel.build_log) fails on any
-   spill;
+   and the weight-gradient kernels, f32 and bf16 on the tensor cores (from
+   gru_kernel.build_log), fails on any spill; the MMD kernels' lines
+   (mmd_kernel.ptxas_report) fail on a spill of the gradient's;
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -301,10 +302,12 @@ Phases, each raising on failure (the script then exits non-zero):
    from the kernel's residuals and the recompute) at T 25, B in
    B2_BF16_BATCHES, H 80 and 102: each bf16 output bitwise equal on >=
    B2_BF16_SAME of its entries, every output within B2_BF16_ULPS bf16 ulps
-   of its largest entry; their times (CUDA events), bounds in bytes and
-   the library calls (torch.nn.GRU in bf16 on cuDNN, forward and data
-   backward; one bf16 torch.mm for dWh); (e) a bf16 gru_scan through
-   autograd, and one without, at B 32, both widths and directions,
+   of its largest entry, the weight gradient run twice, bitwise equal;
+   their times (CUDA events), bounds in bytes and the library calls
+   (torch.nn.GRU in bf16 on cuDNN, forward and data backward; one bf16
+   torch.mm for dWh); the weight gradient at its scope edges
+   B2_BF16_WGRAD_EDGES (an odd H, T*B not a multiple of its slice) under
+   the same gates, twice; (e) a bf16 gru_scan through autograd, and one without, at B 32, both widths and directions,
    against the same scans inside cuda_build.plain() under (d)'s gates:
    B2's bf16 entries launched (counts set to 0 just before), B4 and the
    f32 entries not; a bf16 scan at H 128 raises;
@@ -315,9 +318,10 @@ Phases, each raising on failure (the script then exits non-zero):
    backward (input and h0 only) and the cuBLAS product that the
    weight-gradient kernel computes, and B2's launches x (time - bound) a
    GRU step; B4, also at the dump's shape, B 512 at H 80, beside cuDNN's
-   forward; B5; train steps/s of both families at --hw.unroll 50 and 1,
-   the transformer
-   beam and round times, the bf16 kernels and rounds, phase-2 steps/s of
+   forward; B5, its gradient at B5_TIMED_NS; B2 in bf16; B2's bf16 weight
+   gradient and B5's gradient beside the recorded times of the kernels
+   they replaced (B2_BF16_WGRAD_BEFORE_MS, B5_BWD_BEFORE_MS); train steps/s
+   of both families at --hw.unroll 50 and 1, the transformer beam and round times, the bf16 kernels and rounds, phase-2 steps/s of
    both families and B2's launches a phase-2 step, seconds per phase),
    a `kernels` JSON line, and as the last line {"ok": true, "device":
    {...}}.
@@ -385,6 +389,9 @@ B4_BATCHES = (1, 5, 32, 37, 1024, 4096, 20000)
 B5_NS = (2, 5, 32, 37, 256, 1024, 4096)
 B5_EDGES = ((2, 1), (37, 1), (1024, 1), (2, 256), (37, 256), (1024, 256))
 B5_FORMS = ("gaussian", "laplace", "energy")
+# [7]: the gradient's times, D 100: the train step's N 32, the z gathered
+# over 2 and 4 DP ranks (N 64, 128), and N 4,096
+B5_TIMED_NS = (32, 64, 128, 4096)
 # the value's completion counter: calls interleaving one-block and many-
 # block N, each N's values bitwise equal call to call
 B5_LOOP_NS = (32, 37, 1024, 2)
@@ -716,6 +723,18 @@ B2_BF16_BATCHES = (32, 1024)
 # reaches the later steps through the carry
 B2_BF16_SAME = 0.99
 B2_BF16_ULPS = 2
+# (d)'s scope edges of the bf16 weight gradient (T, B, H): an odd H, 127,
+# which the tensor-core kernel reads by plain loads; T*B 63, not a multiple
+# of its 32-row slice
+B2_BF16_WGRAD_EDGES = ((6, 5, 127), (25, 33, 127), (7, 9, 102))
+# The times of the kernels that B2's bf16 weight gradient (f32 FMAs on the
+# CUDA cores; by (H, B) at T 25) and B5's gradient (one thread a feature;
+# by N at D 100) replaced, ms, as this script's [7] measured them on an
+# NVIDIA H100 80GB HBM3 at 700 W before the replacement (PERF.md's kernel
+# table): [7] prints them beside this run's, for reference only
+B2_BF16_WGRAD_BEFORE_MS = {(80, 32): 0.0131, (80, 1024): 0.1151,
+                           (102, 32): 0.0136, (102, 1024): 0.1928}
+B5_BWD_BEFORE_MS = {32: 0.0110, 4096: 2.4360}
 
 
 def b2_bf16_bound_ms(kind, T_, B, H):
@@ -919,8 +938,12 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
                                                           dhs)
             dgi, dghn, _ = chain
             wg = gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
+            wg2 = gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
             wg_p = gru_kernel._wgrad_reference(h0, hs, dgi, dghn)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(wg, wg2)):
+                raise AssertionError(f"[13d] B2 bf16 H {H_} B {B}: two "
+                                     f"weight-gradient runs differ")
             names = ("dgi", "dghn", "dh0")
             g = bf16_gate(
                 f"[13d] B2 bf16 H {H_} B {B}",
@@ -1013,6 +1036,36 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
                             for n, (s, d, _) in g.items()))
     out["bf16_gates"], out["bf16_times"] = gates, times
     out["bf16_proj"] = projs
+    # the bf16 weight gradient at its scope edges, on dgi and dghn from B2's
+    # own bf16 backward: (d)'s gates, two runs bitwise equal
+    edge_lines, edge_err = [], 0.0
+    for T_, B, H_ in B2_BF16_WGRAD_EDGES:
+        p32 = gru_ops.init_gru_params(gen, H_, H_, dev)
+        wh, bh = p32["wh"].to(bf), p32["bh"].to(bf)
+        gi = torch.randn((T_, B, 3 * H_), generator=gen, device=dev).to(bf)
+        h0 = (0.5 * torch.randn((B, H_), generator=gen, device=dev)).to(bf)
+        dhs = torch.randn((T_, B, H_), generator=gen, device=dev).to(bf)
+        hs, res = gru_kernel.gru_seq_fwd(wh, bh, gi, h0)
+        dgi, dghn, _ = gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+        runs = [gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
+                for _ in range(2)]
+        wg_p = gru_kernel._wgrad_reference(h0, hs, dgi, dghn)
+        torch.cuda.synchronize()
+        g = bf16_gate(f"[13d] B2 bf16 weight gradient T {T_} B {B} H {H_}",
+                      [("dwh", runs[0][0], wg_p[0]),
+                       ("dbh", runs[0][1], wg_p[1])], {"dwh", "dbh"})
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"[13d] B2 bf16 weight gradient T {T_} B "
+                                 f"{B} H {H_}: two runs differ")
+        edge_err = max(edge_err, g["dwh"][2], g["dbh"][2])
+        edge_lines.append(
+            f"T {T_} B {B} H {H_} (plan "
+            f"{gru_kernel.wgrad_plan(T_, B, H_, bf16=True)}): "
+            + ", ".join(f"{n} ({sh:.5f}, {d:.2e})"
+                        for n, (sh, d, _) in g.items()))
+    log(f"[13d] B2 bf16 weight gradient at its scope edges, two runs bitwise "
+        f"equal, (share bitwise, max |delta| / largest entry): "
+        + "; ".join(edge_lines))
 
     # (e) a bf16 gru_scan through autograd (and one without) against the
     # same scan inside cuda_build.plain(); B2's bf16 entries launched, B4
@@ -1093,6 +1146,7 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
                        for k, names_ in (("fwd", ("hs", "res")),
                                          ("bwd", ("dgi", "dghn", "dh0")),
                                          ("wgrad", ("dwh", "dbh")))}
+    out["bf16_err"]["wgrad"] = max(out["bf16_err"]["wgrad"], edge_err)
     return out
 
 
@@ -1311,12 +1365,24 @@ def main():
             log(f"[2] H {H_}: {name} (KS, S, R) {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
     for name, (regs, st, ld) in usage.items():
-        if name.startswith("gru_wgrad_kernel"):
-            log(f"[2] {name} (floats per copy) {regs} registers, spill "
+        if name.startswith("gru_wgrad"):
+            log(f"[2] {name} (values per copy) {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
-    if spilled or not any(k.startswith("gru_wgrad") for k in usage):
+    if spilled or not any(k.startswith("gru_wgrad_mma") for k in usage):
         raise AssertionError(f"csrc/gru_seq.cu: spills {spilled} or no "
                              f"ptxas report ({sorted(usage)})")
+    # B5: the value's instantiations (as built before the gradient's
+    # redesign) and the gradient's, which must not spill
+    mmd_usage = mmd_kernel.ptxas_report()
+    for name, (regs, st, ld) in sorted(mmd_usage.items()):
+        log(f"[2] csrc/mmd_full.cu {name}: {regs} registers, spill stores "
+            f"{st} B, spill loads {ld} B")
+    grad_spilled = {k: v for k, v in mmd_usage.items()
+                    if k.startswith("mmd_grad") and (v[1] or v[2])}
+    if grad_spilled or not any(k.startswith("mmd_grad") for k in mmd_usage):
+        raise AssertionError(f"csrc/mmd_full.cu: gradient spills "
+                             f"{grad_spilled} or no ptxas report "
+                             f"({sorted(mmd_usage)})")
     # the beams: each production instantiation beside its stamp one
     for kernel, src in ((beam_kernel, "beam_gru.cu"),
                         (tfm_beam_kernel, "tfm_beam.cu")):
@@ -4303,7 +4369,7 @@ def main():
                 "cudnn_delta": lib_delta, "I": I, "H": H_}
         del xs, gi, cudnn
     b5_times = {}
-    for N in (32, 4096):
+    for N in B5_TIMED_NS:
         z1 = 0.8 * torch.randn((N, 100), generator=gb, device=dev) + 0.1
         z2 = torch.randn((N, 100), generator=gb, device=dev)
         b5_times[N] = {
@@ -4316,7 +4382,8 @@ def main():
                                                             7.0), 50),
                     cuda_ms(lambda: mmd_kernel.mmd_full_bwd_reference(
                         z1, z2, 7.0), 5),
-                    b5_bound_ms("bwd", N, 100))}
+                    b5_bound_ms("bwd", N, 100)),
+            "plan": mmd_kernel.grad_plan(N, 100)}
         del z1, z2
     mark("7a B4 and B5 timings")
 
@@ -4415,7 +4482,13 @@ def main():
             k_ms, p_ms, (b_ms, b_by) = t[k]
             log(f"[7] B5 {k} (gaussian) at N {N}, D 100: kernel "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-                f"({b_by}); no single PyTorch call computes it ({card})")
+                f"({b_by}), {k_ms / b_ms:.1f}x its bound"
+                + (f"; plan {t['plan']}" if k == "bwd" else "")
+                + (f"; the earlier kernel (one thread a feature, fp64) "
+                   f"{B5_BWD_BEFORE_MS[N]:.4f} ms as recorded before its "
+                   f"replacement (NVIDIA H100 80GB HBM3, 700.00 W)"
+                   if k == "bwd" and N in B5_BWD_BEFORE_MS else "")
+                + f"; no single PyTorch call computes it ({card})")
     for tag, tcfg_, rows_ in (("GRU", tcfg, rows),
                               ("transformer", tcfg_t, rows_t)):
         fin = rows_[-1]
@@ -4592,7 +4665,11 @@ def main():
         proj = d13["bf16_proj"][H_, B]
         log(f"[7] B2 bf16 at H {H_}, T {T}, B {B}: " + "; ".join(
             f"{k} kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}), {k_ms / b_ms:.1f}x its bound, library "
+            f"{b_ms:.6f} ms ({b_by}), {k_ms / b_ms:.1f}x its bound, "
+            + (f"the earlier kernel (f32 FMAs) "
+               f"{B2_BF16_WGRAD_BEFORE_MS[H_, B]:.4f} ms as recorded before "
+               f"its replacement (NVIDIA H100 80GB HBM3, 700.00 W), "
+               if k == "wgrad" else "") + "library "
             + (f"torch.mm {l_ms:.6f} ms" if k == "wgrad" else
                f"cuDNN {l_ms:.6f} ms, its input projection alone "
                f"{proj[k]:.6f} ms")

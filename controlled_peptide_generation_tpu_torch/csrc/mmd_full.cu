@@ -12,7 +12,7 @@
 //   H = K11 + K22 - 2 K12,   Kab_ij = phi(|za_i - zb_j|^2),
 //
 // the JAX package's quirk of subtracting diag(H) broadcast over rows, kept
-// exactly; and the gradient (mmd_bwd_kernel)
+// exactly; and the gradient (mmd_grad_kernel)
 //
 //   dS/dz1_a = 4 / (N (N - 1)) [ sum_j phi'(d11_aj) (z1_a - z1_j)
 //                              - sum_j phi'(d12_aj) (z1_a - z2_j)
@@ -38,9 +38,16 @@
 // 4 a thread, in general; up to N 64, 16 x 16 pairs a block, one a thread,
 // so the train step's N 32 runs on four SMs, not one (a block's serial
 // pair work, not the launch, set the single 32 x 32 block's time). The
-// gradient kernel keeps BR rows of the differentiated argument and a
-// BJ-row tile of both arguments in shared memory, one thread per feature
-// column for the weighted sums.
+// gradient (mmd_grad_kernel) tiles the pairs: a block owns BA rows a (64
+// from N 1,024 at D <= 128, else 16) and walks tiles of BA rows j, the
+// next tile staged by cp.async (16 bytes where D % 4 == 0) while the
+// current one is summed. Phase 1, a 16 x 16 thread grid forms each pair's
+// two distances (T x T pairs a thread, a float4 of features a step);
+// phase 2, every lane sums the weighted differences of its rows and 4
+// features over the tile's j in f32, folded into fp64 once a tile. Small N
+// spreads over SMs by splitting j over the ranks of a cluster (up to 8),
+// whose fp64 partials are summed in rank order through distributed shared
+// memory: N 32 runs on 16 SMs, not 4.
 //
 // Cancellation and order: the sum over N^2 terms of H cancels (the value is
 // a small difference of O(1) sums), so each thread accumulates its pairs'
@@ -55,16 +62,21 @@
 // device and stream, so two launches in flight never share one. Which
 // block finishes last varies from run to run, not what it sums or in which
 // order: the value's bits depend on N alone (the tiling is a function of
-// N), not on the run, and no float is added atomically. The gradient's weighted sums run in fp64 FMAs,
-// sequential in j.
+// N), not on the run, and no float is added atomically. The gradient's
+// tiling and cluster split are functions of (N, D) alone and its sums of
+// fixed order, so its bits depend on (N, D) alone too; its one launch
+// needs no memset and no attribute call once set up.
 //
 // The earlier design summed the partials in a second launch; at the train
 // step's N 32 that was two launch latencies for one 32 x 32 tile.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "device_cache.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,10 +87,16 @@ constexpr int THREADS = 256;        // value: threads a block, either tiling
 constexpr int SMALL_N = 64;         // value: the largest N of the 16 x 16 tiles
 constexpr int DC = 32;              // value: feature columns per staged pass
 constexpr int FIN = THREADS;        // threads of the final reduction
-constexpr int BR = 8;               // gradient: rows a per block
-constexpr int BJ = 32;              // gradient: rows j per pass
-constexpr int BT = BR * BJ;         // gradient: threads (one pair each)
-constexpr int MAX_D = BT;           // gradient: one thread per feature column
+constexpr int MAX_D = 256;          // gradient: the scope, D <= 256
+// the tiled gradient (mmd_grad_kernel): BA rows a x BA rows j a tile
+constexpr int GT = 256;             // threads: a 16 x 16 grid in phase 1
+constexpr int G_BIG_N = 1024;       // from this N (and D <= 128) BA 64
+constexpr int G_BIG_D = 128;
+constexpr int G_MAX_CLUSTER = 8;    // ranks splitting j, the portable size
+// blocks a launch aims at (about one per SM of an H100). A constant, not
+// the card's SM count: the plan, and with it the bits, depend on (N, D)
+// alone
+constexpr int G_TARGET = 128;
 
 __device__ __forceinline__ float phi(float d, float s2, int form) {
   if (form == 0) return expf(-d / s2);
@@ -224,104 +242,282 @@ mmd_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
   }
 }
 
-__host__ __device__ inline int row_ld(int D) { return D | 1; }
+// ---- the tiled gradient --------------------------------------------------
 
-size_t bwd_smem_bytes(int D) {
-  const size_t ld = (size_t)row_ld(D);
-  return ((size_t)(2 * BR + 2 * BJ) * ld + BR) * sizeof(float)
-         + (size_t)2 * BR * BJ * sizeof(double);
+// features padded to a float4; the row pitch of the staged tiles, a
+// multiple of 4 floats that is 4 mod 32 words, so the float4 loads of 8
+// lanes on 8 consecutive rows fall in 8 distinct bank groups
+__host__ __device__ inline int feat_pad(int D) { return (D + 3) & ~3; }
+__host__ __device__ inline int tile_pitch(int D) {
+  const int p = feat_pad(D);
+  return p + (36 - p % 32) % 32;
 }
 
-// gx[a] = gout * dS/dx_a for the rows a of this block (x the argument
-// differentiated, y the other one). Phase 1: thread (r, c) computes the
-// weights phi'(|x_a - x_j|^2) and phi'(|x_a - y_j|^2) of row a = a0 + r
-// and j = j0 + c; phase 2: thread d sums w (x_a[d] - x_j[d]) - w' (x_a[d] -
-// y_j[d]) over the tile's j for every row of the block.
-__global__ void __launch_bounds__(BT)
-mmd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-               const float* __restrict__ gout, int N, int D, float s2,
-               int form, float* __restrict__ gx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* w11 = reinterpret_cast<double*>(smem_raw);        // [BR][BJ]
-  double* w12 = w11 + BR * BJ;                               // [BR][BJ]
-  float* xa = reinterpret_cast<float*>(w12 + BR * BJ);       // [BR][ld]
-  const int ld = row_ld(D);
-  float* ya = xa + BR * ld;                                  // [BR][ld]
-  float* xj = ya + BR * ld;                                  // [BJ][ld]
-  float* yj = xj + BJ * ld;                                  // [BJ][ld]
-  float* wdiag = yj + BJ * ld;                               // [BR]
+// dynamic shared bytes of mmd_grad_kernel<BA> at D: the block's rows a,
+// two stages of (x_j, y_j) tiles, the two weight tiles
+size_t grad_smem_bytes(int BA, int D) {
+  const size_t S = (size_t)tile_pitch(D);
+  return (5 * BA * S + 2 * (size_t)BA * (BA + 4)) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async_f(float* dst, const float* src,
+                                           bool vec, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0));
+}
+
+// gx[a] = gout * dS/dx_a for the BA rows a of tile blockIdx.y, the rows j
+// split over the ranks of the cluster (rank blockIdx.x takes j in [rank
+// j_per, (rank + 1) j_per)). Per j-tile of BA rows, staged by cp.async a
+// tile ahead (vec: 16-byte copies, D % 4 == 0 and 16-byte aligned
+// inputs; else 4-byte ones): phase 1, thread (ag, jg) of a 16 x 16 grid
+// forms the distances |x_a - x_j|^2 and |x_a - y_j|^2 of its T x T pairs
+// (rows a ag + 16 i, rows j jg + 16 k), in the difference form, a float4
+// of features a step, and stores their weights phi'; phase 2, item q (of
+// 8 x ceil(D / 4)) sums w11 (x_a - x_j) - w12 (x_a - y_j) over the tile's
+// j for its T2 rows and 4 features in f32, and folds the tile's sums into
+// its fp64 accumulators. The diagonal term N phi'(|x_a - y_a|^2) (x_a -
+// y_a) rides in the sums: the rank whose rows j hold j == a weighs that
+// cross pair by phi' (1 - N) in place of phi'. At the end the ranks' fp64
+// partials are summed in rank order through distributed shared memory and
+// scaled once (at N 1 that is 0 / 0 = NaN, as the plain expression
+// gives).
+template <int BA>
+__global__ void __launch_bounds__(GT, 1)
+mmd_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ gout, int N, int D, float s2,
+                int form, int j_per, int vec, float* __restrict__ gx) {
+  constexpr int BJ = BA;
+  constexpr int T = BA / 16;         // phase 1: rows a and rows j a thread
+  constexpr int T2 = BA / 8;         // phase 2: rows of an item
+  constexpr int MAXI = BA == 16 ? 2 : 1;   // items a thread: 8 x D/4
+  constexpr int WP = BA + 4;         // pitch of the weight tiles
+  extern __shared__ __align__(16) float gsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int S = tile_pitch(D), Dp = feat_pad(D), DG = Dp / 4;
+  float* const xa = gsm;                      // [BA][S]
+  float* const stg = xa + BA * S;             // [2][x_j, y_j][BJ][S]
+  float* const w11 = stg + 4 * BJ * S;        // [BJ][WP]
+  float* const w12 = w11 + BJ * WP;
   const int tid = threadIdx.x;
-  const int a0 = blockIdx.x * BR;
-  for (int e = tid; e < BR * D; e += BT) {
-    const int r = e / D, d = e - r * D;
-    const bool ok = a0 + r < N;
-    xa[r * ld + d] = ok ? x[(size_t)(a0 + r) * D + d] : 0.f;
-    ya[r * ld + d] = ok ? y[(size_t)(a0 + r) * D + d] : 0.f;
-  }
-  if (tid < BR) wdiag[tid] = 0.f;
-  double acc[BR];
-  float xr[BR];
-#pragma unroll
-  for (int r = 0; r < BR; ++r) acc[r] = 0.0;
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < BR; ++r) xr[r] = tid < D ? xa[r * ld + tid] : 0.f;
-  const int pr = tid / BJ, pc = tid - pr * BJ;   // this thread's pair
-  for (int j0 = 0; j0 < N; j0 += BJ) {
-    for (int e = tid; e < BJ * D; e += BT) {
-      const int r = e / D, d = e - r * D;
-      const bool ok = j0 + r < N;
-      xj[r * ld + d] = ok ? x[(size_t)(j0 + r) * D + d] : 0.f;
-      yj[r * ld + d] = ok ? y[(size_t)(j0 + r) * D + d] : 0.f;
-    }
-    __syncthreads();
-    {
-      const float* p = xa + pr * ld;
-      const float* q1 = xj + pc * ld;
-      const float* q2 = yj + pc * ld;
-      float d11 = 0.f, d12 = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float e = p[d] - q1[d];
-        d11 = fmaf(e, e, d11);
-        e = p[d] - q2[d];
-        d12 = fmaf(e, e, d12);
+  const int a0 = blockIdx.y * BA;
+  const int j_begin = min(N, rank * j_per);
+  const int j_end = min(N, j_begin + j_per);
+  const int ntiles = (j_end - j_begin + BJ - 1) / BJ;
+  // rows r0 .. r0+BA-1 of src [N, D] into dst [BA][S], rows from r_end on
+  // and features D .. Dp-1 zeros
+  auto copy_rows = [&](float* dst, const float* src, int r0, int r_end) {
+    const int V = vec ? 4 : 1, DV = Dp / V;
+#pragma unroll 1
+    for (int e = tid; e < BA * DV; e += GT) {
+      const int r = e / DV, c = V * (e - r * DV);
+      if (c < D) {
+        const bool ok = r0 + r < r_end;
+        cp_async_f(dst + r * S + c,
+                   ok ? src + (size_t)(r0 + r) * D + c : src, vec, ok);
+      } else {
+        dst[r * S + c] = 0.f;
       }
-      const bool ok = a0 + pr < N && j0 + pc < N;
-      const float v12 = dphi(d12, s2, form);
-      w11[pr * BJ + pc] = ok ? (double)dphi(d11, s2, form) : 0.0;
-      w12[pr * BJ + pc] = ok ? (double)v12 : 0.0;
-      if (ok && a0 + pr == j0 + pc) wdiag[pr] = v12;
     }
-    __syncthreads();
-    if (tid < D) {
-      const int nj = min(BJ, N - j0);
-      for (int c = 0; c < nj; ++c) {
-        const float vx = xj[c * ld + tid], vy = yj[c * ld + tid];
+  };
+  copy_rows(xa, x, a0, N);
+  if (ntiles > 0) {
+    copy_rows(stg, x, j_begin, j_end);
+    copy_rows(stg + BJ * S, y, j_begin, j_end);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  const int ag = tid / 16, jg = tid % 16;
+  double acc64[MAXI][T2][4];
 #pragma unroll
-        for (int r = 0; r < BR; ++r) {
-          acc[r] = fma(w11[r * BJ + c], (double)(xr[r] - vx), acc[r]);
-          acc[r] = fma(-w12[r * BJ + c], (double)(xr[r] - vy), acc[r]);
+  for (int u = 0; u < MAXI; ++u)
+#pragma unroll
+    for (int r = 0; r < T2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc64[u][r][c] = 0.0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int j0 = j_begin + t * BJ;
+    const int nj = min(BJ, j_end - j0);
+    const float* xj = stg + (t % 2) * 2 * BJ * S;
+    const float* yj = xj + BJ * S;
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();          // tile t in; tile t-1's phase 2 done
+    if (t + 1 < ntiles) {
+      float* nx = stg + ((t + 1) % 2) * 2 * BJ * S;
+      copy_rows(nx, x, j0 + BJ, j_end);
+      copy_rows(nx + BJ * S, y, j0 + BJ, j_end);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    // phase 1: the distances of T x T pairs, then their weights
+    {
+      float d11[T][T], d12[T][T];
+#pragma unroll
+      for (int i = 0; i < T; ++i)
+#pragma unroll
+        for (int k = 0; k < T; ++k) d11[i][k] = d12[i][k] = 0.f;
+      for (int c = 0; c < Dp; c += 4) {
+        float4 va[T], vx[T], vy[T];
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+          va[i] = *reinterpret_cast<const float4*>(xa + (ag + 16 * i) * S + c);
+#pragma unroll
+        for (int k = 0; k < T; ++k) {
+          vx[k] = *reinterpret_cast<const float4*>(xj + (jg + 16 * k) * S + c);
+          vy[k] = *reinterpret_cast<const float4*>(yj + (jg + 16 * k) * S + c);
+        }
+#pragma unroll
+        for (int i = 0; i < T; ++i)
+#pragma unroll
+          for (int k = 0; k < T; ++k) {
+            float e = va[i].x - vx[k].x;
+            d11[i][k] = fmaf(e, e, d11[i][k]);
+            e = va[i].y - vx[k].y;
+            d11[i][k] = fmaf(e, e, d11[i][k]);
+            e = va[i].z - vx[k].z;
+            d11[i][k] = fmaf(e, e, d11[i][k]);
+            e = va[i].w - vx[k].w;
+            d11[i][k] = fmaf(e, e, d11[i][k]);
+            e = va[i].x - vy[k].x;
+            d12[i][k] = fmaf(e, e, d12[i][k]);
+            e = va[i].y - vy[k].y;
+            d12[i][k] = fmaf(e, e, d12[i][k]);
+            e = va[i].z - vy[k].z;
+            d12[i][k] = fmaf(e, e, d12[i][k]);
+            e = va[i].w - vy[k].w;
+            d12[i][k] = fmaf(e, e, d12[i][k]);
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < T; ++k) {
+        const int jl = jg + 16 * k;
+        const bool ok = jl < nj;             // rows past j_end weigh 0
+#pragma unroll
+        for (int i = 0; i < T; ++i) {
+          const int al = ag + 16 * i;
+          const float v12 = dphi(d12[i][k], s2, form);
+          w11[jl * WP + al] = ok ? dphi(d11[i][k], s2, form) : 0.f;
+          w12[jl * WP + al] =
+              !ok ? 0.f : a0 + al == j0 + jl ? v12 * (float)(1 - N) : v12;
         }
       }
     }
-    __syncthreads();
-  }
-  if (tid < D) {
-    const double n = (double)N;
-    const double scale = 4.0 * (double)gout[0] / (n * (n - 1.0));
+    __syncthreads();          // the weights in shared memory
+    // phase 2: the weighted differences of each item, in f32 over the
+    // tile's j, folded into fp64 once a tile
 #pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      if (a0 + r < N) {
-        const double diag = n * (double)wdiag[r]
-                            * (double)(xr[r] - ya[r * ld + tid]);
-        gx[(size_t)(a0 + r) * D + tid] = (float)(scale * (acc[r] + diag));
+    for (int u = 0; u < MAXI; ++u) {
+      const int q = tid + GT * u;
+      if (q < 8 * DG) {
+        const int r0 = (q / DG) * T2, c0 = 4 * (q % DG);
+        float4 xv[T2];
+        float acc[T2][4];
+#pragma unroll
+        for (int r = 0; r < T2; ++r) {
+          xv[r] = *reinterpret_cast<const float4*>(xa + (r0 + r) * S + c0);
+          acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+        }
+        for (int j = 0; j < nj; ++j) {
+          float a11[T2], a12[T2];
+#pragma unroll
+          for (int r = 0; r < T2; r += 2) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                w11 + j * WP + r0 + r);
+            const float2 q2 = *reinterpret_cast<const float2*>(
+                w12 + j * WP + r0 + r);
+            a11[r] = p.x;
+            a11[r + 1] = p.y;
+            a12[r] = q2.x;
+            a12[r + 1] = q2.y;
+          }
+          const float4 vx = *reinterpret_cast<const float4*>(xj + j * S + c0);
+          const float4 vy = *reinterpret_cast<const float4*>(yj + j * S + c0);
+          const float cx[4] = {vx.x, vx.y, vx.z, vx.w};
+          const float cy[4] = {vy.x, vy.y, vy.z, vy.w};
+#pragma unroll
+          for (int r = 0; r < T2; ++r) {
+            const float xr[4] = {xv[r].x, xv[r].y, xv[r].z, xv[r].w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[r][c] = fmaf(a11[r], xr[c] - cx[c], acc[r][c]);
+              acc[r][c] = fmaf(-a12[r], xr[c] - cy[c], acc[r][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < T2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc64[u][r][c] += (double)acc[r][c];
       }
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();            // every tile read: the stages hold partials
+  double* const part = reinterpret_cast<double*>(stg);   // [BA][Dp]
+#pragma unroll
+  for (int u = 0; u < MAXI; ++u) {
+    const int q = tid + GT * u;
+    if (q < 8 * DG) {
+      const int r0 = (q / DG) * T2, c0 = 4 * (q % DG);
+#pragma unroll
+      for (int r = 0; r < T2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[(r0 + r) * Dp + c0 + c] = acc64[u][r][c];
+    }
+  }
+  cluster.sync();             // every rank's partial written
+  // this rank's share of the entries, summed over ranks 0..C-1 in order
+  // (all C loads issued first)
+  const double n = (double)N;
+  const double scale = 4.0 * (double)gout[0] / (n * (n - 1.0));
+  const int total = BA * Dp;
+  const int per = (total + C - 1) / C;
+  const int e_end = min(total, (rank + 1) * per);
+#pragma unroll 1
+  for (int e = rank * per + tid; e < e_end; e += GT) {
+    const int r = e / Dp, c = e - r * Dp;
+    const int a = a0 + r;
+    if (c >= D || a >= N) continue;
+    double v[G_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < G_MAX_CLUSTER; ++q)
+      if (q < C) v[q] = cluster.map_shared_rank(part, q)[e];
+    double sum = v[0];
+#pragma unroll
+    for (int q = 1; q < G_MAX_CLUSTER; ++q)
+      if (q < C) sum += v[q];
+    gx[(size_t)a * D + c] = (float)(scale * sum);
+  }
+  cluster.sync();             // partials read: blocks may exit
 }
 
-// The gradient kernel's shared-memory reservation, for the scope's largest
-// D, set once per device (an attribute of the kernel on the current
+struct GradPlan {
+  int ba;        // rows a (and j) of a tile: 16 or 64
+  int a_tiles;   // tiles of rows a, along y
+  int cluster;   // C: ranks splitting j, along x
+  int j_per;     // rows j of a rank
+};
+
+// By N and D alone: BA 64 from N 1,024 at D <= 128 (the shared tiles of
+// BA 64 hold D 128 at most), else 16; then as many ranks per tile of rows
+// a as bring the blocks to about G_TARGET, at most 8 and at most N.
+void make_grad_plan(int N, int D, GradPlan* p) {
+  p->ba = N >= G_BIG_N && D <= G_BIG_D ? 64 : 16;
+  p->a_tiles = (N + p->ba - 1) / p->ba;
+  int c = (G_TARGET + p->a_tiles - 1) / p->a_tiles;
+  c = c > G_MAX_CLUSTER ? G_MAX_CLUSTER : c;
+  c = c > N ? N : c;
+  p->j_per = (N + c - 1) / c;
+  p->cluster = (N + p->j_per - 1) / p->j_per;
+}
+
+// The gradient kernels' shared-memory reservations, for the largest D each
+// takes, set once per device (an attribute of the kernel on the current
 // device; a launch may use less).
 cudaError_t bwd_setup() {
   static bool done[MAX_DEVICES] = {};
@@ -329,9 +525,13 @@ cudaError_t bwd_setup() {
   const int de = current_device(&dev);
   if (de) return (cudaError_t)de;
   if (done[dev]) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      mmd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bwd_smem_bytes(MAX_D));
+  cudaError_t e = cudaFuncSetAttribute(
+      mmd_grad_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)grad_smem_bytes(16, MAX_D));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(mmd_grad_kernel<64>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)grad_smem_bytes(64, G_BIG_D));
   done[dev] = e == cudaSuccess;
   return e;
 }
@@ -381,7 +581,8 @@ int mmd_full_fwd_f32(const float* z1, const float* z2, double* part,
 }
 
 // gx [N, D] = gout[0] * dS/dx for x, y [N, D] (S symmetric: pass (z1, z2)
-// for z1's gradient and (z2, z1) for z2's); D <= mmd_full_max_d().
+// for z1's gradient and (z2, z1) for z2's); D <= mmd_full_max_d(). One
+// cluster launch of mmd_grad_kernel (mmd_full_grad_plan).
 int mmd_full_bwd_f32(const float* x, const float* y, const float* gout,
                      float* gx, int N, int D, float s2, int form,
                      void* stream) {
@@ -390,9 +591,43 @@ int mmd_full_bwd_f32(const float* x, const float* y, const float* gout,
   if (D > MAX_D || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
   cudaError_t ce = bwd_setup();
   if (ce != cudaSuccess) return (int)ce;
-  mmd_bwd_kernel<<<(N + BR - 1) / BR, BT, bwd_smem_bytes(D),
-                   (cudaStream_t)stream>>>(x, y, gout, N, D, s2, form, gx);
+  GradPlan p;
+  make_grad_plan(N, D, &p);
+  const int vec = D % 4 == 0 && ((reinterpret_cast<size_t>(x)
+                                  | reinterpret_cast<size_t>(y)) & 15) == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, p.a_tiles, 1);
+  cfg.blockDim = dim3(GT, 1, 1);
+  cfg.dynamicSmemBytes = grad_smem_bytes(p.ba, D);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  ce = p.ba == 64
+           ? cudaLaunchKernelEx(&cfg, mmd_grad_kernel<64>, x, y, gout, N, D,
+                                s2, form, p.j_per, vec, gx)
+           : cudaLaunchKernelEx(&cfg, mmd_grad_kernel<16>, x, y, gout, N, D,
+                                s2, form, p.j_per, vec, gx);
+  if (ce != cudaSuccess) return (int)ce;
   return (int)cudaGetLastError();
+}
+
+// The gradient's plan for N rows of D features. out4: rows a (and j) of a
+// tile, tiles of rows a, ranks splitting j (the cluster), rows j a rank.
+int mmd_full_grad_plan(int N, int D, int* out4) {
+  int e = check_shape(N, D);
+  if (e) return e;
+  GradPlan p;
+  make_grad_plan(N, D, &p);
+  out4[0] = p.ba;
+  out4[1] = p.a_tiles;
+  out4[2] = p.cluster;
+  out4[3] = p.j_per;
+  return 0;
 }
 
 const char* mmd_full_error_string(int code) {

@@ -13,7 +13,10 @@ also stores each step's gates r, z, n and gh_n to a residual tape
 in registers too: dgi, dh0 and the n-section of the recurrent gradient)
 and the recurrent-weight gradient (one launch: each output tile's rows
 split over a thread-block cluster, whose partials are summed in a fixed
-order, so two runs give the same bits).
+order, so two runs give the same bits; in bf16 on the tensor cores, its
+rows staged by bulk copies, its clusters' sums meeting in a scratch
+workspace of one scratch and one set of counters per stream,
+``_wgrad_workspace``).
 
 bf16 (the JAX kernel's dt, ``pallas_gru.applicable``): the same three
 kernels store gi, wh and bh, h0, hs, dhs, dgi, dghn and dh0 in bf16 and
@@ -65,6 +68,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
+# (device index, stream handle) -> the bf16 weight gradient's workspace
+_workspaces = {}
 
 
 def build():
@@ -82,7 +87,7 @@ def build():
                                for n in ("fwd", "bwd", "wgrad"))
             fwd.argtypes = [p] * 6 + [i] * 3 + [p]
             bwd.argtypes = [p] * 8 + [i] * 3 + [p]
-            wgrad.argtypes = [p] * 6 + [i] * 3 + [p]
+            wgrad.argtypes = [p] * (6 if t == "f32" else 8) + [i] * 3 + [p]
             entries += [fwd, bwd, wgrad]
         q = ctypes.c_longlong
         # B4's entry (ops/gru_fwd_kernel.py): strides are 64-bit
@@ -92,8 +97,10 @@ def build():
             fn.restype = i
         lib.gru_seq_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.gru_seq_plan.restype = i
-        lib.gru_seq_wgrad_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.gru_seq_wgrad_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         lib.gru_seq_wgrad_plan.restype = i
+        lib.gru_seq_wgrad_workspace.argtypes = [ctypes.POINTER(i)]
+        lib.gru_seq_wgrad_workspace.restype = None
         lib.gru_seq_error_string.argtypes = [i]
         lib.gru_seq_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -122,13 +129,37 @@ def launch_plan(B, H):
             "bwd": dict(plan, grid=out[7])}
 
 
-def wgrad_plan(T, B, H):
+def wgrad_plan(T, B, H, bf16=False):
     """The weight gradient's plan: output tile (k, m), number of tiles,
-    cluster size (blocks per tile) and T*B rows per block."""
+    cluster size, T*B rows per block and clusters per tile; with ``bf16``
+    the bf16 entry's (on the tensor cores: one tile over all of k, the
+    rows of a tile over ``groups`` clusters, whose sums meet in scratch)."""
     lib = build()
-    out = (ctypes.c_int * 5)()
-    _check(lib, lib.gru_seq_wgrad_plan(T, B, H, out), "gru_seq_wgrad_plan")
-    return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows"), out))
+    out = (ctypes.c_int * 6)()
+    _check(lib, lib.gru_seq_wgrad_plan(T, B, H, int(bf16), out),
+           "gru_seq_wgrad_plan")
+    return dict(zip(("tile_k", "tile_m", "tiles", "cluster", "rows",
+                     "groups"), out))
+
+
+def _wgrad_workspace(lib, dev, stream):
+    """(scratch, counters) of the bf16 weight gradient's launches on
+    ``stream`` of device ``dev``, one pair per device and stream, sized for
+    any shape in scope: the clusters of a tile meet in the f32 scratch,
+    which each launch writes before it reads; the counters are zeroed once
+    here and left zero by every launch (no memset a call)."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is not None:
+        return ws
+    with _lib_lock:
+        if key not in _workspaces:
+            sizes = (ctypes.c_int * 2)()
+            lib.gru_seq_wgrad_workspace(sizes)
+            _workspaces[key] = (
+                torch.empty((sizes[1],), dtype=torch.float32, device=dev),
+                torch.zeros((sizes[0],), dtype=torch.int32, device=dev))
+        return _workspaces[key]
 
 
 _BF16 = "(13__nv_bfloat16)?"
@@ -136,6 +167,7 @@ _SCAN = re.compile(
     r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?" + _BF16)
 _BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E" + _BF16)
 _WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E" + _BF16)
+_WGRAD_MMA = re.compile(r"gru_wgrad_mma_kernelILb([01])ELi(\d+)E")
 
 
 def _kernel_name(entry):
@@ -152,6 +184,11 @@ def _kernel_name(entry):
     if wgrad:
         v, bf = wgrad.groups()
         return f"gru_wgrad_kernel<{v}" + (", bf16>" if bf else ">")
+    mma = _WGRAD_MMA.search(entry)
+    if mma:
+        return ("gru_wgrad_mma_kernel<"
+                + ("bulk" if mma.group(1) == "1" else "plain")
+                + f", {mma.group(2)}, bf16>")
     return None
 
 
@@ -163,8 +200,10 @@ def ptxas_report(log=None):
     rows per block; ``gru_scan_kernel<KS, S, R, residuals>`` the training
     forward's), backward kernels ``gru_bwd_kernel<KS, S, R>`` (m values per
     lane, lanes per unit, rows per block), weight-gradient kernels
-    ``gru_wgrad_kernel<V>`` (values per copy); a bf16 instantiation ends
-    in ``, bf16>``."""
+    ``gru_wgrad_kernel<V>`` (values per copy) and the bf16 one on the
+    tensor cores ``gru_wgrad_mma_kernel<bulk | plain, TN, bf16>`` (its
+    rows staged by bulk copies, or by plain loads at an odd H; tiles TN
+    columns wide); a bf16 instantiation ends in ``, bf16>``."""
     return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 
@@ -296,8 +335,14 @@ def gru_seq_wgrad(h0, hs, dgi, dghn):
     lib = build()
     fn, counter = _entry(lib, "gru_seq_wgrad", dt)
     with torch.cuda.device(dev):
-        code = fn(*(a.data_ptr() for a in ins), dwh.data_ptr(),
-                  dbh.data_ptr(), T, B, H, _stream(dev))
+        if dt == torch.bfloat16:
+            scratch, counts = _wgrad_workspace(lib, dev, _stream(dev))
+            code = fn(*(a.data_ptr() for a in ins), dwh.data_ptr(),
+                      dbh.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
+                      T, B, H, _stream(dev))
+        else:
+            code = fn(*(a.data_ptr() for a in ins), dwh.data_ptr(),
+                      dbh.data_ptr(), T, B, H, _stream(dev))
     _check(lib, code, "gru_seq_wgrad launch")
     setattr(gru_seq_wgrad, counter, getattr(gru_seq_wgrad, counter) + 1)
     return dwh, dbh

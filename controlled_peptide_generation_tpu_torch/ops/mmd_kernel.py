@@ -38,13 +38,14 @@ per device and stream, allocated zeroed once by ``_counter``).
 """
 
 import ctypes
+import re
 import threading
 
 import torch
 
-from .cuda_build import compile_library
+from .cuda_build import compile_library, ptxas_usage
 
-MAX_D = 256           # the gradient kernel's scope: one thread per feature
+MAX_D = 256           # the gradient kernel's scope
 FORMS = {"gaussian": 0, "laplace": 1, "energy": 2}
 
 _lib = None
@@ -66,8 +67,10 @@ def build():
         lib.mmd_full_fwd_f32.argtypes = [p] * 5 + [i, i, f, i, p]
         lib.mmd_full_bwd_f32.argtypes = [p] * 4 + [i, i, f, i, p]
         lib.mmd_full_blocks.argtypes = [i]
+        lib.mmd_full_grad_plan.argtypes = [i, i, ctypes.POINTER(i)]
         for fn in (lib.mmd_full_fwd_f32, lib.mmd_full_bwd_f32,
-                   lib.mmd_full_blocks, lib.mmd_full_max_d):
+                   lib.mmd_full_blocks, lib.mmd_full_max_d,
+                   lib.mmd_full_grad_plan):
             fn.restype = i
         lib.mmd_full_error_string.argtypes = [i]
         lib.mmd_full_error_string.restype = ctypes.c_char_p
@@ -82,6 +85,36 @@ def _check(lib, code, what):
     if code != 0:
         msg = lib.mmd_full_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def grad_plan(N, D):
+    """The gradient's plan (by N and D alone): rows a (and j) of a tile,
+    tiles of rows a, ranks splitting j (the cluster) and rows j a rank."""
+    lib = build()
+    out = (ctypes.c_int * 4)()
+    _check(lib, lib.mmd_full_grad_plan(N, D, out), "mmd_full_grad_plan")
+    return dict(zip(("rows", "tiles", "cluster", "j_per"), out))
+
+
+_FWD = re.compile(r"mmd_fwd_kernelILi(\d+)ELi(\d+)E")
+_GRAD = re.compile(r"mmd_grad_kernelILi(\d+)E")
+
+
+def _kernel_name(entry):
+    fwd, grad = _FWD.search(entry), _GRAD.search(entry)
+    if fwd:
+        return f"mmd_fwd_kernel<{fwd.group(1)}, {fwd.group(2)}>"
+    if grad:
+        return f"mmd_grad_kernel<{grad.group(1)}>"
+    return None
+
+
+def ptxas_report(log=None):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    value's instantiations ``mmd_fwd_kernel<TL, TY>`` (pairs a side, thread
+    rows) and the gradient's ``mmd_grad_kernel<BA>`` (rows a tile), read
+    from ptxas' -v output in the build log (``build_log`` by default)."""
+    return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 
 def _form(kernel):

@@ -43,7 +43,9 @@ from controlled_peptide_generation_tpu_torch.ops import gru_fwd_kernel
 from controlled_peptide_generation_tpu_torch.ops import gru_kernel as t_gk
 
 BF = torch.bfloat16
-CASES = [(5, 4, 16), (12, 6, 40), (25, 8, 80)]
+# the last: an odd H at the scope's edge (127), where the CUDA weight
+# gradient reads rows by plain loads
+CASES = [(5, 4, 16), (12, 6, 40), (25, 8, 80), (6, 3, 127)]
 GRAD_BITWISE = 0.99
 GRAD_ULPS = 2
 BIAS_SUM_TOL = 2.0 ** -5
@@ -291,7 +293,9 @@ def test_jax_b4_and_b5_raise_on_bf16():
 
 def test_ptxas_report_names_the_bf16_instantiations():
     """The bf16 instantiations (the storage type last among the template
-    arguments) are reported apart from the float32 ones."""
+    arguments) are reported apart from the float32 ones, and the bf16
+    weight gradient on the tensor cores (bf16 alone: its argument is the
+    staging, bulk copies or plain loads) by its own name."""
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_15gru_"
         "scan_kernelILi13ELi8ELi1ELb1E13__nv_bfloat16EEvPKT3_' for 'sm_90a'",
@@ -306,9 +310,16 @@ def test_ptxas_report_names_the_bf16_instantiations():
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_16gru_"
         "wgrad_kernelILi2E13__nv_bfloat16EEvPKT0_' for 'sm_90a'",
         "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
-        "ptxas info    : Used 64 registers, used 2 barriers"])
+        "ptxas info    : Used 64 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_20gru_"
+        "wgrad_mma_kernelILb1ELi160EEEvPK13__nv_bfloat16S3_S3_S3_PS1_S4_"
+        "iiiiPfPj' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers"])
     assert t_gk.ptxas_report(log) == {
         "gru_scan_kernel<13, 8, 1, residuals, bf16>": (72, 0, 0),
         "gru_scan_kernel<13, 8, 1, residuals>": (70, 0, 0),
         "gru_bwd_kernel<32, 4, 1, bf16>": (126, 0, 0),
-        "gru_wgrad_kernel<2, bf16>": (64, 4, 8)}
+        "gru_wgrad_kernel<2, bf16>": (64, 4, 8),
+        "gru_wgrad_mma_kernel<bulk, 160, bf16>": (168, 0, 0)}

@@ -59,12 +59,16 @@ def test_plain_value_matches_jax(form, n, d):
         assert abs(got.item() - want) <= 1e-5
 
 
-@pytest.mark.parametrize("n,d", [(32, 10), (32, 100), (2, 100)])
+@pytest.mark.parametrize("n,d", [(32, 10), (32, 100), (2, 100), (33, 7),
+                                 (65, 100), (129, 256)])
 @pytest.mark.parametrize("form", FORMS)
 def test_plain_backward_matches_jax_grad(form, n, d):
     """dS/dz1 and dS/dz2 by the formula (z2's with the arguments swapped)
     against jax.grad of the JAX loss, and through the autograd Function
-    with an upstream gradient of 1.5."""
+    with an upstream gradient of 1.5. The last three shapes are the CUDA
+    gradient's tiling edges: N one past a 16- or 64-row tile (a ragged
+    last tile of rows a and of rows j), D not a multiple of 4 (4-byte
+    copies, padded features) and D 256, the scope's largest."""
     z1, z2 = _pair(3 * n + d, n, d)
     j1, j2 = jax.grad(lambda a, b: j_L.mmd_full_kernel(a, b, 7.0, form),
                       argnums=(0, 1))(jnp.asarray(z1), jnp.asarray(z2))
