@@ -14,10 +14,12 @@ Phases, each raising on failure (the script then exits non-zero):
    source, started together before torch is imported, so the imports and
    the device's start-up run meanwhile; prints ptxas' registers and spills,
    and for the GRU scan's instantiations (forward-only and the training
-   forward's with residual stores), the backward's at H 80, 102 and 128
-   and the weight-gradient kernels, f32 and bf16 on the tensor cores (from
-   gru_kernel.build_log), fails on any spill; the MMD kernels' lines
-   (mmd_kernel.ptxas_report) fail on a spill of the gradient's;
+   forward's with residual stores), the backward's at H 80, 102 and 128,
+   the bf16 scan's and backward's on the tensor cores (their plans at H
+   80, 102 and 127, B 32 and 1,024) and the weight-gradient kernels, f32
+   and bf16 on the tensor cores (from gru_kernel.build_log), fails on any
+   spill; the MMD kernels' lines (mmd_kernel.ptxas_report) too, the
+   value's and the gradient's (cuda_build.check_no_spills);
 3. beam kernel vs its plain torch version at the shipped width (V 24,
    H 102, T 25, K 5, n_best 1, fp32, seeded weights) for B in {1, 37,
    2500, 5000, 6144, 12288}: >= 99% of rows with identical token/pointer
@@ -302,11 +304,15 @@ Phases, each raising on failure (the script then exits non-zero):
    from the kernel's residuals and the recompute) at T 25, B in
    B2_BF16_BATCHES, H 80 and 102: each bf16 output bitwise equal on >=
    B2_BF16_SAME of its entries, every output within B2_BF16_ULPS bf16 ulps
-   of its largest entry, the weight gradient run twice, bitwise equal;
+   of its largest entry, each entry run twice, bitwise equal, the
+   tape-less forward's hs equal to the taped one's, and batch invariance
+   (the B 32 run is on the first 32 rows of the B 1,024 inputs and gives
+   those rows' bits);
    their times (CUDA events), bounds in bytes and the library calls
    (torch.nn.GRU in bf16 on cuDNN, forward and data backward; one bf16
-   torch.mm for dWh); the weight gradient at its scope edges
-   B2_BF16_WGRAD_EDGES (an odd H, T*B not a multiple of its slice) under
+   torch.mm for dWh); the three entries at the scope edges
+   B2_BF16_WGRAD_EDGES (an odd H, 127; B 5, 9, 33, no multiple of the
+   rows a block; T*B not a multiple of the weight gradient's slice) under
    the same gates, twice; (e) a bf16 gru_scan through autograd, and one without, at B 32, both widths and directions,
    against the same scans inside cuda_build.plain() under (d)'s gates:
    B2's bf16 entries launched (counts set to 0 just before), B4 and the
@@ -318,9 +324,9 @@ Phases, each raising on failure (the script then exits non-zero):
    backward (input and h0 only) and the cuBLAS product that the
    weight-gradient kernel computes, and B2's launches x (time - bound) a
    GRU step; B4, also at the dump's shape, B 512 at H 80, beside cuDNN's
-   forward; B5, its gradient at B5_TIMED_NS; B2 in bf16; B2's bf16 weight
-   gradient and B5's gradient beside the recorded times of the kernels
-   they replaced (B2_BF16_WGRAD_BEFORE_MS, B5_BWD_BEFORE_MS); train steps/s
+   forward; B5, its gradient at B5_TIMED_NS; B2 in bf16; B2's bf16
+   entries and B5's gradient beside the recorded times of the kernels
+   they replaced (B2_BF16_BEFORE_MS, B5_BWD_BEFORE_MS); train steps/s
    of both families at --hw.unroll 50 and 1, the transformer beam and round times, the bf16 kernels and rounds, phase-2 steps/s of
    both families and B2's launches a phase-2 step, seconds per phase),
    a `kernels` JSON line, and as the last line {"ok": true, "device":
@@ -723,17 +729,25 @@ B2_BF16_BATCHES = (32, 1024)
 # reaches the later steps through the carry
 B2_BF16_SAME = 0.99
 B2_BF16_ULPS = 2
-# (d)'s scope edges of the bf16 weight gradient (T, B, H): an odd H, 127,
-# which the tensor-core kernel reads by plain loads; T*B 63, not a multiple
-# of its 32-row slice
+# (d)'s scope edges of the bf16 entries (T, B, H): an odd H, 127, which
+# the tensor-core weight gradient reads by plain loads; B 5, 9 and 33, no
+# multiple of the scan's and backward's rows a block; T*B 63, not a
+# multiple of the weight gradient's 32-row slice
 B2_BF16_WGRAD_EDGES = ((6, 5, 127), (25, 33, 127), (7, 9, 102))
-# The times of the kernels that B2's bf16 weight gradient (f32 FMAs on the
-# CUDA cores; by (H, B) at T 25) and B5's gradient (one thread a feature;
-# by N at D 100) replaced, ms, as this script's [7] measured them on an
-# NVIDIA H100 80GB HBM3 at 700 W before the replacement (PERF.md's kernel
-# table): [7] prints them beside this run's, for reference only
-B2_BF16_WGRAD_BEFORE_MS = {(80, 32): 0.0131, (80, 1024): 0.1151,
-                           (102, 32): 0.0136, (102, 1024): 0.1928}
+# The times of the kernels that B2's bf16 entries (f32 FMAs on the CUDA
+# cores; by entry and (H, B) at T 25) and B5's gradient (one thread a
+# feature; by N at D 100) replaced, ms, as this script's [7] measured them
+# on an NVIDIA H100 80GB HBM3 at 700 W before the replacement (PERF.md's
+# kernel table): [7] prints them beside this run's, for reference only
+B2_BF16_BEFORE_MS = {
+    "fwd": {(80, 32): 0.0267, (80, 1024): 0.0988, (102, 32): 0.0330,
+            (102, 1024): 0.1281},
+    "fwd_nores": {(80, 32): 0.0263, (80, 1024): 0.0772, (102, 32): 0.0319,
+                  (102, 1024): 0.1018},
+    "bwd": {(80, 32): 0.0269, (80, 1024): 0.1156, (102, 32): 0.0359,
+            (102, 1024): 0.1624},
+    "wgrad": {(80, 32): 0.0131, (80, 1024): 0.1151, (102, 32): 0.0136,
+              (102, 1024): 0.1928}}
 B5_BWD_BEFORE_MS = {32: 0.0110, 4096: 2.4360}
 
 
@@ -923,16 +937,27 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
     for I, H_ in B2_WIDTHS_:
         p32 = gru_ops.init_gru_params(gen, I, H_, dev)
         wh, bh = p32["wh"].to(bf), p32["bh"].to(bf)
-        for B in B2_BF16_BATCHES:
-            xs = torch.randn((B, T, I), generator=gen, device=dev)
-            gi = ((xs @ p32["wi"] + p32["bi"]).transpose(0, 1).contiguous()
-                  .to(bf))
-            h0 = (0.5 * torch.randn((B, H_), generator=gen, device=dev)
+        # one set of inputs at the largest batch; each smaller batch runs
+        # on its first rows and must give their bits (batch invariance)
+        B_big = max(B2_BF16_BATCHES)
+        xs_big = torch.randn((B_big, T, I), generator=gen, device=dev)
+        gi_big = ((xs_big @ p32["wi"] + p32["bi"]).transpose(0, 1)
+                  .contiguous().to(bf))
+        h0_big = (0.5 * torch.randn((B_big, H_), generator=gen, device=dev)
                   ).to(bf)
-            dhs = torch.randn((T, B, H_), generator=gen, device=dev).to(bf)
-            hs, res = gru_kernel.gru_seq_fwd(wh, bh, gi, h0)
+        dhs_big = torch.randn((T, B_big, H_), generator=gen, device=dev
+                              ).to(bf)
+        big_out = None
+        for B in sorted(B2_BF16_BATCHES, reverse=True):
+            xs = xs_big[:B]
+            gi, dhs = gi_big[:, :B].contiguous(), dhs_big[:, :B].contiguous()
+            h0 = h0_big[:B].contiguous()
+            fwd2 = [gru_kernel.gru_seq_fwd(wh, bh, gi, h0) for _ in range(2)]
+            hs, res = fwd2[0]
             hs_p, res_p = gru_kernel.gru_seq_res_reference(wh, bh, gi, h0)
-            chain = gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+            bwd2 = [gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+                    for _ in range(2)]
+            chain = bwd2[0]
             chain_p = gru_kernel._bwd_chain_reference(wh, h0, hs, res, dhs)
             recomp = gru_kernel._bwd_recurrence_reference(wh, bh, gi, h0, hs,
                                                           dhs)
@@ -941,9 +966,20 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
             wg2 = gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
             wg_p = gru_kernel._wgrad_reference(h0, hs, dgi, dghn)
             torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(wg, wg2)):
-                raise AssertionError(f"[13d] B2 bf16 H {H_} B {B}: two "
-                                     f"weight-gradient runs differ")
+            for what, runs in (("forward", fwd2), ("backward", bwd2),
+                               ("weight-gradient", (wg, wg2))):
+                if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                    raise AssertionError(f"[13d] B2 bf16 H {H_} B {B}: two "
+                                         f"{what} runs differ")
+            outs = (hs, res, *chain)
+            if big_out is None:
+                big_out = outs
+            elif not all(torch.equal(a, b[:B] if b.dim() == 2 else b[:, :B])
+                         for a, b in zip(outs, big_out)):
+                raise AssertionError(
+                    f"[13d] B2 bf16 H {H_}: the B {B} run on the first {B} "
+                    f"rows of the B {B_big} inputs differs from those rows "
+                    f"(batch invariance)")
             names = ("dgi", "dghn", "dh0")
             g = bf16_gate(
                 f"[13d] B2 bf16 H {H_} B {B}",
@@ -1030,42 +1066,66 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
                        f"{l_ms:.6f} ms (cuDNN GRU), of which its input "
                        f"projection alone {proj[k]:.6f} ms")
                     + f" ({card})")
-            log(f"[13d] B2 bf16 H {H_} B {B} against the plain versions "
+            log(f"[13d] B2 bf16 H {H_} B {B} (plan "
+                f"{gru_kernel.bf16_plan(B, H_)}) against the plain versions "
                 f"(share bitwise, max |delta| / largest entry): "
                 + ", ".join(f"{n} ({s:.5f}, {d:.2e})"
-                            for n, (s, d, _) in g.items()))
+                            for n, (s, d, _) in g.items())
+                + "; each entry twice bitwise equal"
+                + (f"; its rows equal to the B {B_big} run's"
+                   if B < B_big else ""))
     out["bf16_gates"], out["bf16_times"] = gates, times
     out["bf16_proj"] = projs
-    # the bf16 weight gradient at its scope edges, on dgi and dghn from B2's
-    # own bf16 backward: (d)'s gates, two runs bitwise equal
-    edge_lines, edge_err = [], 0.0
+    # the three bf16 entries at their scope edges, the weight gradient on
+    # dgi and dghn from B2's own bf16 backward: (d)'s gates, each entry
+    # twice, bitwise equal
+    edge_lines = []
+    edge_err = {"fwd": 0.0, "bwd": 0.0, "wgrad": 0.0}
     for T_, B, H_ in B2_BF16_WGRAD_EDGES:
         p32 = gru_ops.init_gru_params(gen, H_, H_, dev)
         wh, bh = p32["wh"].to(bf), p32["bh"].to(bf)
         gi = torch.randn((T_, B, 3 * H_), generator=gen, device=dev).to(bf)
         h0 = (0.5 * torch.randn((B, H_), generator=gen, device=dev)).to(bf)
         dhs = torch.randn((T_, B, H_), generator=gen, device=dev).to(bf)
-        hs, res = gru_kernel.gru_seq_fwd(wh, bh, gi, h0)
-        dgi, dghn, _ = gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+        fwd2 = [gru_kernel.gru_seq_fwd(wh, bh, gi, h0) for _ in range(2)]
+        hs, res = fwd2[0]
+        bwd2 = [gru_kernel.gru_seq_bwd(wh, h0, hs, res, dhs)
+                for _ in range(2)]
+        dgi, dghn, _ = bwd2[0]
         runs = [gru_kernel.gru_seq_wgrad(h0, hs, dgi, dghn)
                 for _ in range(2)]
+        hs_p, res_p = gru_kernel.gru_seq_res_reference(wh, bh, gi, h0)
+        chain_p = gru_kernel._bwd_chain_reference(wh, h0, hs, res, dhs)
+        recomp = gru_kernel._bwd_recurrence_reference(wh, bh, gi, h0, hs,
+                                                      dhs)
         wg_p = gru_kernel._wgrad_reference(h0, hs, dgi, dghn)
         torch.cuda.synchronize()
-        g = bf16_gate(f"[13d] B2 bf16 weight gradient T {T_} B {B} H {H_}",
-                      [("dwh", runs[0][0], wg_p[0]),
-                       ("dbh", runs[0][1], wg_p[1])], {"dwh", "dbh"})
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"[13d] B2 bf16 weight gradient T {T_} B "
-                                 f"{B} H {H_}: two runs differ")
-        edge_err = max(edge_err, g["dwh"][2], g["dbh"][2])
+        names = ("dgi", "dghn", "dh0")
+        g = bf16_gate(
+            f"[13d] B2 bf16 at its scope edge T {T_} B {B} H {H_}",
+            [("hs", hs, hs_p), ("res", res, res_p)]
+            + [(n, a, b) for n, a, b in zip(names, bwd2[0], chain_p)]
+            + [(n + " (recompute)", a, b)
+               for n, a, b in zip(names, bwd2[0], recomp)]
+            + [("dwh", runs[0][0], wg_p[0]), ("dbh", runs[0][1], wg_p[1])],
+            {"hs", "dwh", "dbh", *names,
+             *(n + " (recompute)" for n in names)})
+        for what, pair in (("forward", fwd2), ("backward", bwd2),
+                           ("weight-gradient", runs)):
+            if not all(torch.equal(a, b) for a, b in zip(*pair)):
+                raise AssertionError(f"[13d] B2 bf16 T {T_} B {B} H {H_}: "
+                                     f"two {what} runs differ")
+        for k, names_ in (("fwd", ("hs", "res")), ("bwd", names),
+                          ("wgrad", ("dwh", "dbh"))):
+            edge_err[k] = max(edge_err[k], *(g[n][2] for n in names_))
         edge_lines.append(
-            f"T {T_} B {B} H {H_} (plan "
+            f"T {T_} B {B} H {H_} (plans {gru_kernel.bf16_plan(B, H_)}, "
             f"{gru_kernel.wgrad_plan(T_, B, H_, bf16=True)}): "
             + ", ".join(f"{n} ({sh:.5f}, {d:.2e})"
                         for n, (sh, d, _) in g.items()))
-    log(f"[13d] B2 bf16 weight gradient at its scope edges, two runs bitwise "
-        f"equal, (share bitwise, max |delta| / largest entry): "
-        + "; ".join(edge_lines))
+    log(f"[13d] B2 bf16 forward, backward and weight gradient at their scope "
+        f"edges, each twice bitwise equal, (share bitwise, max |delta| / "
+        f"largest entry): " + "; ".join(edge_lines))
 
     # (e) a bf16 gru_scan through autograd (and one without) against the
     # same scan inside cuda_build.plain(); B2's bf16 entries launched, B4
@@ -1146,7 +1206,8 @@ def data_bf16_phase(dev, card, cuda_ms, train_top):
                        for k, names_ in (("fwd", ("hs", "res")),
                                          ("bwd", ("dgi", "dghn", "dh0")),
                                          ("wgrad", ("dwh", "dbh")))}
-    out["bf16_err"]["wgrad"] = max(out["bf16_err"]["wgrad"], edge_err)
+    for k, e in edge_err.items():
+        out["bf16_err"][k] = max(out["bf16_err"][k], e)
     return out
 
 
@@ -1347,11 +1408,10 @@ def main():
                     "spill" in line):
                 log(f"    ptxas: {line.strip()}")
     # the GRU scan's instantiations at each plan width (forward-only and
-    # the training forward's, with residual stores), the backward's and the
-    # weight gradient's: the scan and the backward keep wh in registers, so
-    # no spill is allowed
+    # the training forward's, with residual stores), the backward's, the
+    # bf16 ones on the tensor cores and the weight gradient's: the scans and
+    # the backwards keep wh in registers, so no spill is allowed
     usage = gru_kernel.ptxas_report()
-    spilled = {k: v for k, v in usage.items() if v[1] or v[2]}
     for H_ in PTXAS_WIDTHS:
         sp = gru_kernel.launch_plan(1, H_)["scan"]
         prefix = f"{sp['KS']}, {sp['S']},"
@@ -1364,25 +1424,28 @@ def main():
             regs, st, ld = usage[name]
             log(f"[2] H {H_}: {name} (KS, S, R) {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
+    for name, (regs, st, ld) in sorted(usage.items()):
+        if name.startswith(("gru_scan_mma", "gru_bwd_mma")):
+            log(f"[2] {name} (k16 steps, rows a block) {regs} registers, "
+                f"spill stores {st} B, spill loads {ld} B")
+    log("[2] the bf16 scan's and backward's plans (KT, rows, threads, "
+        "tiles, grids): " + "; ".join(
+            f"H {H_} B {B}: {gru_kernel.bf16_plan(B, H_)}"
+            for H_ in (80, 102, 127) for B in B2_BF16_BATCHES))
     for name, (regs, st, ld) in usage.items():
         if name.startswith("gru_wgrad"):
             log(f"[2] {name} (values per copy) {regs} registers, spill "
                 f"stores {st} B, spill loads {ld} B")
-    if spilled or not any(k.startswith("gru_wgrad_mma") for k in usage):
-        raise AssertionError(f"csrc/gru_seq.cu: spills {spilled} or no "
-                             f"ptxas report ({sorted(usage)})")
-    # B5: the value's instantiations (as built before the gradient's
-    # redesign) and the gradient's, which must not spill
+    cuda_build.check_no_spills(usage, "gru_seq.cu", (
+        "gru_scan_kernel", "gru_bwd_kernel", "gru_scan_mma_kernel",
+        "gru_bwd_mma_kernel", "gru_wgrad_kernel", "gru_wgrad_mma_kernel"))
+    # B5: the value's instantiations and the gradient's, none may spill
     mmd_usage = mmd_kernel.ptxas_report()
     for name, (regs, st, ld) in sorted(mmd_usage.items()):
         log(f"[2] csrc/mmd_full.cu {name}: {regs} registers, spill stores "
             f"{st} B, spill loads {ld} B")
-    grad_spilled = {k: v for k, v in mmd_usage.items()
-                    if k.startswith("mmd_grad") and (v[1] or v[2])}
-    if grad_spilled or not any(k.startswith("mmd_grad") for k in mmd_usage):
-        raise AssertionError(f"csrc/mmd_full.cu: gradient spills "
-                             f"{grad_spilled} or no ptxas report "
-                             f"({sorted(mmd_usage)})")
+    cuda_build.check_no_spills(mmd_usage, "mmd_full.cu",
+                               ("mmd_fwd_kernel", "mmd_grad_kernel"))
     # the beams: each production instantiation beside its stamp one
     for kernel, src in ((beam_kernel, "beam_gru.cu"),
                         (tfm_beam_kernel, "tfm_beam.cu")):
@@ -4666,10 +4729,9 @@ def main():
         log(f"[7] B2 bf16 at H {H_}, T {T}, B {B}: " + "; ".join(
             f"{k} kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}), {k_ms / b_ms:.1f}x its bound, "
-            + (f"the earlier kernel (f32 FMAs) "
-               f"{B2_BF16_WGRAD_BEFORE_MS[H_, B]:.4f} ms as recorded before "
-               f"its replacement (NVIDIA H100 80GB HBM3, 700.00 W), "
-               if k == "wgrad" else "") + "library "
+            + f"the earlier kernel (f32 FMAs) "
+            f"{B2_BF16_BEFORE_MS[k][H_, B]:.4f} ms as recorded before its "
+            f"replacement (NVIDIA H100 80GB HBM3, 700.00 W), library "
             + (f"torch.mm {l_ms:.6f} ms" if k == "wgrad" else
                f"cuDNN {l_ms:.6f} ms, its input projection alone "
                f"{proj[k]:.6f} ms")

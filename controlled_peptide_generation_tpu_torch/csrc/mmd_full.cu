@@ -114,6 +114,19 @@ __device__ __forceinline__ float dphi(float d, float s2, int form) {
   return -0.25f * powf(d + s2, -1.25f);
 }
 
+// The thread's index in the block, read anew (volatile: never merged
+// with an earlier read). The last block's reduction tree takes it, so it
+// computes its own predicates: merged with the first tree's, one of them
+// (tid < 128) lived in local memory across the slow-path call of the
+// value's double division (ptxas: 4 bytes spill stores and loads in
+// mmd_fwd_kernel<16, 16>).
+__device__ __forceinline__ int fresh_tid(int TL) {
+  int x, y;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(x));
+  asm volatile("mov.u32 %0, %%tid.y;" : "=r"(y));
+  return y * TL + x;
+}
+
 __device__ __forceinline__ float mmd_value(double all, double diag, int N) {
   const double n = (double)N;
   return (float)((all - n * diag) / (n * (n - 1.0)));
@@ -221,22 +234,23 @@ mmd_fwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
   // the last block: every partial is written and fenced; read them past
   // this SM's L1 (__ldcg), in block-index order per thread, then the tree
   __threadfence();
+  const int ft = fresh_tid(TL);
   double a = 0.0, d = 0.0;
-  for (int b = tid; b < nblocks; b += FIN) {
+  for (int b = ft; b < nblocks; b += FIN) {
     a += __ldcg(part + 2 * b);
     d += __ldcg(part + 2 * b + 1);
   }
-  red[0][tid] = a;
-  red[1][tid] = d;
+  red[0][ft] = a;
+  red[1][ft] = d;
   __syncthreads();
   for (int s = FIN / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      red[0][tid] += red[0][tid + s];
-      red[1][tid] += red[1][tid + s];
+    if (ft < s) {
+      red[0][ft] += red[0][ft + s];
+      red[1][ft] += red[1][ft + s];
     }
     __syncthreads();
   }
-  if (tid == 0) {
+  if (ft == 0) {
     out[0] = mmd_value(red[0][0], red[1][0], N);
     *count = 0u;                        // ready for the next launch
   }

@@ -117,6 +117,19 @@ def ptxas_usage(log, name):
     return {k: tuple(v) for k, v in report.items()}
 
 
+def check_no_spills(report, source, want=()):
+    """Raise unless no kernel of ``report`` (a ``ptxas_report()`` of
+    ``source``: {name: (registers, spill store bytes, spill load bytes)})
+    spills and every prefix in ``want`` names at least one of its kernels.
+    A kernel whose weights or state live in registers reads a spilled
+    value from local memory on every step."""
+    spilled = {k: v for k, v in report.items() if v[1] or v[2]}
+    missing = [w for w in want if not any(k.startswith(w) for k in report)]
+    if spilled or missing:
+        raise AssertionError(f"csrc/{source}: spills {spilled}, no ptxas "
+                             f"report of {missing} ({sorted(report)})")
+
+
 def beam_kernel_name(entry):
     """``<kernel><type, production|stamp[, weights via L2 | tensor
     cores]>`` of a mangled beam-kernel name (csrc/beam_gru.cu,

@@ -18,19 +18,35 @@ rows staged by bulk copies, its clusters' sums meeting in a scratch
 workspace of one scratch and one set of counters per stream,
 ``_wgrad_workspace``).
 
-bf16 (the JAX kernel's dt, ``pallas_gru.applicable``): the same three
-kernels store gi, wh and bh, h0, hs, dhs, dgi, dghn and dh0 in bf16 and
-compute in f32, rounding where the JAX kernels round when XLA evaluates
-them (``_gates_bf16``, ``_bwd_step_bf16``): forward, gh = h @ wh + bh
-accumulated in f32 and rounded once, then r, z, n and the blend's ops;
-backward, dhs rounded once, the gates as the JAX backward recomputes them
-(r, z and n in f32, unrounded, n's argument with the rounded r), the four
-gate gradients rounded before their stores and products, dh carried in
-f32 and rounded once into dh0; dwh and dbh summed in f32 and rounded once.
-The residual tape stays f32 and holds what the JAX backward recomputes:
-the unrounded f32 r, z and n and the rounded gh_n. The scope in bf16 is
-the JAX kernel's, H <= 127 (``MAX_H_BF16``; one lane of its 128 is the
-bias lane).
+bf16 (the JAX kernel's dt, ``pallas_gru.applicable``): three kernels of
+their own, all on the tensor cores (``mma.sync`` m16n8k16, bf16 products
+summed in f32), store gi, wh and bh, h0, hs, dhs, dgi, dghn and dh0 in
+bf16 and compute in f32, rounding where the JAX kernels round when XLA
+evaluates them (``_gates_bf16``, ``_bwd_step_bf16``): forward, gh = h @
+wh + bh accumulated in f32 and rounded once (the bias added after the
+product's sum), then r, z, n and the blend's ops; backward, dhs rounded
+once, the gates as the JAX backward recomputes them (r, z and n in f32,
+unrounded, n's argument with the rounded r), the four gate gradients
+rounded before their stores and products, dh carried in f32 and rounded
+once into dh0; dwh and dbh summed in f32 and rounded once. The residual
+tape stays f32 and holds what the JAX backward recomputes: the unrounded
+f32 r, z and n and the rounded gh_n. The scope in bf16 is the JAX
+kernel's, H <= 127 (``MAX_H_BF16``; one lane of its 128 is the bias lane).
+The scan and the backward (``gru_scan_mma_kernel``,
+``gru_bwd_mma_kernel``): a warp holds wh's fragments of 16 hidden units
+(the three gate sections) in registers for the whole scan and computes
+their step product against the block's R batch rows (2, 4 or 8, by B:
+``bf16_plan``), the units as the 16 rows of a tile and the rows as its
+columns; the sums go through the warp's shared memory to one cell a lane
+(R / 2 at R 4 and 8), which keeps h (or the carry) in a register and
+writes the next step's operand tile: one barrier a step. What bounds them:
+the step's latency at B 32 (the chained products and the cell), the f32
+tape's bytes at B 1,024. A bf16 product is exact in f32, so they form the
+plain versions' products; only the order of the f32 sums differs (the
+tensor cores' within a k16 step, then k steps in order; the backward adds
+its three gate sections' sums last), which flips a bf16 rounding now and
+then: ``chip_smoke.py``'s ``B2_BF16_SAME`` / ``B2_BF16_ULPS`` gates bound
+that, as the CPU test against the JAX package does.
 
 Dispatch: CPU tensors run the plain versions (``gru_seq_res_reference``,
 the step loop that returns hs and the residual tape, and
@@ -97,6 +113,8 @@ def build():
             fn.restype = i
         lib.gru_seq_plan.argtypes = [i, i, ctypes.POINTER(i)]
         lib.gru_seq_plan.restype = i
+        lib.gru_seq_bf16_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.gru_seq_bf16_plan.restype = i
         lib.gru_seq_wgrad_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         lib.gru_seq_wgrad_plan.restype = i
         lib.gru_seq_wgrad_workspace.argtypes = [ctypes.POINTER(i)]
@@ -127,6 +145,18 @@ def launch_plan(B, H):
     return {"scan": dict(plan, grid=out[5]),
             "train_fwd": dict(plan, grid=out[6]),
             "bwd": dict(plan, grid=out[7])}
+
+
+def bf16_plan(B, H):
+    """The bf16 scan's and backward's plan at these shapes: k16 steps KT
+    (and warps, 16 hidden units each), batch rows a block R, threads, row
+    tiles, and the grids (resident blocks at most) of the training forward
+    and of the backward."""
+    lib = build()
+    out = (ctypes.c_int * 6)()
+    _check(lib, lib.gru_seq_bf16_plan(B, H, out), "gru_seq_bf16_plan")
+    return dict(zip(("KT", "rows", "threads", "tiles", "grid_fwd",
+                     "grid_bwd"), out))
 
 
 def wgrad_plan(T, B, H, bf16=False):
@@ -162,48 +192,56 @@ def _wgrad_workspace(lib, dev, stream):
         return _workspaces[key]
 
 
-_BF16 = "(13__nv_bfloat16)?"
-_SCAN = re.compile(
-    r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?" + _BF16)
-_BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E" + _BF16)
-_WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E" + _BF16)
+_SCAN = re.compile(r"gru_scan_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+_BWD = re.compile(r"gru_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+_WGRAD = re.compile(r"gru_wgrad_kernelILi(\d+)E")
 _WGRAD_MMA = re.compile(r"gru_wgrad_mma_kernelILb([01])ELi(\d+)E")
+_SCAN_MMA = re.compile(r"gru_scan_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
+_BWD_MMA = re.compile(r"gru_bwd_mma_kernelILi(\d+)ELi(\d+)E")
 
 
 def _kernel_name(entry):
     scan, bwd, wgrad = (_SCAN.search(entry), _BWD.search(entry),
                         _WGRAD.search(entry))
     if scan:
-        ks, s, r, res, bf = scan.groups()
+        ks, s, r, res = scan.groups()
         return (f"gru_scan_kernel<{ks}, {s}, {r}"
-                + (", residuals" if res == "1" else "")
-                + (", bf16>" if bf else ">"))
+                + (", residuals>" if res == "1" else ">"))
     if bwd:
-        ks, s, r, bf = bwd.groups()
-        return f"gru_bwd_kernel<{ks}, {s}, {r}" + (", bf16>" if bf else ">")
+        return "gru_bwd_kernel<{}, {}, {}>".format(*bwd.groups())
     if wgrad:
-        v, bf = wgrad.groups()
-        return f"gru_wgrad_kernel<{v}" + (", bf16>" if bf else ">")
+        return f"gru_wgrad_kernel<{wgrad.group(1)}>"
     mma = _WGRAD_MMA.search(entry)
     if mma:
         return ("gru_wgrad_mma_kernel<"
                 + ("bulk" if mma.group(1) == "1" else "plain")
                 + f", {mma.group(2)}, bf16>")
+    scan = _SCAN_MMA.search(entry)
+    if scan:
+        kt, r, res = scan.groups()
+        return (f"gru_scan_mma_kernel<{kt}, {r}"
+                + (", residuals" if res == "1" else "") + ", bf16>")
+    bwd = _BWD_MMA.search(entry)
+    if bwd:
+        return "gru_bwd_mma_kernel<{}, {}, bf16>".format(*bwd.groups())
     return None
 
 
 def ptxas_report(log=None):
     """{kernel: (registers, spill store bytes, spill load bytes)} of the
     scan, backward and weight-gradient instantiations, read from ptxas' -v
-    output in the build log (``build_log`` by default). Scan kernels are
-    named ``gru_scan_kernel<KS, S, R>`` (k values per lane, lanes per unit,
-    rows per block; ``gru_scan_kernel<KS, S, R, residuals>`` the training
-    forward's), backward kernels ``gru_bwd_kernel<KS, S, R>`` (m values per
-    lane, lanes per unit, rows per block), weight-gradient kernels
-    ``gru_wgrad_kernel<V>`` (values per copy) and the bf16 one on the
-    tensor cores ``gru_wgrad_mma_kernel<bulk | plain, TN, bf16>`` (its
-    rows staged by bulk copies, or by plain loads at an odd H; tiles TN
-    columns wide); a bf16 instantiation ends in ``, bf16>``."""
+    output in the build log (``build_log`` by default). The float32 scan
+    kernels are named ``gru_scan_kernel<KS, S, R>`` (k values per lane,
+    lanes per unit, rows per block; ``gru_scan_kernel<KS, S, R,
+    residuals>`` the training forward's), backward kernels
+    ``gru_bwd_kernel<KS, S, R>`` (m values per lane, lanes per unit, rows
+    per block), weight-gradient kernels ``gru_wgrad_kernel<V>`` (values
+    per copy). The bf16 kernels, on the tensor cores, end in ``, bf16>``:
+    the scan ``gru_scan_mma_kernel<KT, R[, residuals], bf16>`` and the
+    backward ``gru_bwd_mma_kernel<KT, R, bf16>`` (k16 steps, batch rows a
+    block), the weight gradient ``gru_wgrad_mma_kernel<bulk | plain, TN,
+    bf16>`` (its rows staged by bulk copies, or by plain loads at an odd
+    H; tiles TN columns wide)."""
     return ptxas_usage(build_log if log is None else log, _kernel_name)
 
 

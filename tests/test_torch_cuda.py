@@ -1,11 +1,14 @@
 """Tests of the port's CUDA kernels that need the card (marker ``cuda``;
-they skip without one). This file imports torch and the port only, so it
-runs on a machine without jax:
+they skip without one). This file imports torch and the port only (one
+test reads chip_smoke.py's bf16 gate), so it runs on a machine without
+jax:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
 
 import contextlib
+import os
+import runpy
 
 import pytest
 import torch
@@ -264,6 +267,64 @@ def test_backward_recurrence_matches_both_plain_versions_on_the_card():
             assert (got - want).abs().max() <= 1e-3 * want.abs().max()
         for got, want in zip((runs[0][0], runs[0][2]), (dgi_r, dh0_r)):
             assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_bf16_scan_and_backward_match_plain_versions_on_the_card():
+    """On the card: the bf16 scan (with its tape and without) and backward
+    on the tensor cores against their plain versions (the backward on the
+    kernel's own tape, and the recompute) under chip_smoke.py's [13d]
+    gates, at small shapes and the scope's edges (H 1, 16, 102, an odd H
+    127; batches that are no multiple of the rows a block, one batch over
+    many row tiles), two runs and the tape-less hs bitwise equal, the
+    first rows of the larger batch equal to a run on those rows alone,
+    one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels run only there)")
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    bf16_gate = runpy.run_path(
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"),
+        run_name="chip_smoke_gates")["bf16_gate"]
+    g = torch.Generator(device=dev).manual_seed(20)
+    for H, B, T_ in ((1, 3, 4), (16, 5, 7), (102, 37, 6), (127, 9, 5),
+                     (80, 2100, 3)):
+        p = t_gru.init_gru_params(g, H, H, dev)
+        wh, bh = p["wh"].to(bf), p["bh"].to(bf)
+        gi = torch.randn((T_, B, 3 * H), generator=g, device=dev).to(bf)
+        h0 = (0.5 * torch.randn((B, H), generator=g, device=dev)).to(bf)
+        dhs = torch.randn((T_, B, H), generator=g, device=dev).to(bf)
+        f0, b0 = t_gk.gru_seq_fwd.launches_bf16, t_gk.gru_seq_bwd.launches_bf16
+        fwd = [t_gk.gru_seq_fwd(wh, bh, gi, h0) for _ in range(2)]
+        hs, res = fwd[0]
+        bwd = [t_gk.gru_seq_bwd(wh, h0, hs, res, dhs) for _ in range(2)]
+        nores = t_gk.gru_seq_fwd(wh, bh, gi, h0, residuals=False)[0]
+        head = t_gk.gru_seq_fwd(wh, bh, gi[:, :2].contiguous(),
+                                h0[:2].contiguous())
+        head_b = t_gk.gru_seq_bwd(wh, h0[:2].contiguous(), head[0], head[1],
+                                  dhs[:, :2].contiguous())
+        hs_p, res_p = t_gk.gru_seq_res_reference(wh, bh, gi, h0)
+        chain = t_gk._bwd_chain_reference(wh, h0, hs, res, dhs)
+        recomp = t_gk._bwd_recurrence_reference(wh, bh, gi, h0, hs, dhs)
+        torch.cuda.synchronize()
+        assert t_gk.gru_seq_fwd.launches_bf16 == f0 + 4
+        assert t_gk.gru_seq_bwd.launches_bf16 == b0 + 3
+        names = ("dgi", "dghn", "dh0")
+        bf16_gate(
+            f"H {H} B {B} T {T_}",
+            [("hs", hs, hs_p), ("res", res, res_p)]
+            + [(n, a, b) for n, a, b in zip(names, bwd[0], chain)]
+            + [(n + " (recompute)", a, b)
+               for n, a, b in zip(names, bwd[0], recomp)],
+            {"hs", *names, *(n + " (recompute)" for n in names)})
+        assert all(torch.equal(a, b) for a, b in zip(*fwd))
+        assert all(torch.equal(a, b) for a, b in zip(*bwd))
+        assert torch.equal(nores, hs)
+        assert torch.equal(head[0], hs[:, :2])
+        assert torch.equal(head[1], res[:, :2])
+        assert all(torch.equal(a, b[:2] if b.dim() == 2 else b[:, :2])
+                   for a, b in zip(head_b, bwd[0]))
 
 
 @pytest.mark.cuda

@@ -292,24 +292,34 @@ def test_jax_b4_and_b5_raise_on_bf16():
 
 
 def test_ptxas_report_names_the_bf16_instantiations():
-    """The bf16 instantiations (the storage type last among the template
-    arguments) are reported apart from the float32 ones, and the bf16
-    weight gradient on the tensor cores (bf16 alone: its argument is the
-    staging, bulk copies or plain loads) by its own name."""
+    """The bf16 kernels, all on the tensor cores, are reported apart from
+    the float32 ones by their own names, ending in ``, bf16>``: the scan
+    (k16 steps, rows a block, the training forward's tape), the backward
+    and the weight gradient (its staging, bulk copies or plain loads, and
+    its tile width); spills are read where they occur."""
     log = "\n".join([
-        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_15gru_"
-        "scan_kernelILi13ELi8ELi1ELb1E13__nv_bfloat16EEvPKT3_' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_19gru_"
+        "scan_mma_kernelILi7ELi2ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PS1_Pfiii' "
+        "for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Used 72 registers, used 1 barriers",
+        "ptxas info    : Used 154 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_19gru_"
+        "scan_mma_kernelILi5ELi8ELb0EEEvPK13__nv_bfloat16S3_S3_S3_PS1_Pfiii' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_15gru_"
-        "scan_kernelILi13ELi8ELi1ELb1EfEEvPKT3_' for 'sm_90a'",
+        "scan_kernelILi13ELi8ELi1ELb1EEEvPKfxxS2_' for 'sm_90a'",
         "ptxas info    : Used 70 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_18gru_"
+        "bwd_mma_kernelILi8ELi4EEEvPK13__nv_bfloat16S3_S3_PKfS3_PS1_S6_S6_"
+        "iii' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_14gru_"
-        "bwd_kernelILi32ELi4ELi1E13__nv_bfloat16EEvPKT2_' for 'sm_90a'",
+        "bwd_kernelILi32ELi4ELi1EEEvPKfS2_' for 'sm_90a'",
         "ptxas info    : Used 126 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_16gru_"
-        "wgrad_kernelILi2E13__nv_bfloat16EEvPKT0_' for 'sm_90a'",
-        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "wgrad_kernelILi2EEEvPKfS2_S2_S2_PfS3_iiiii' for 'sm_90a'",
         "ptxas info    : Used 64 registers, used 2 barriers",
         "ptxas info    : Compiling entry function '_ZN37_INTERNAL_x_20gru_"
         "wgrad_mma_kernelILb1ELi160EEEvPK13__nv_bfloat16S3_S3_S3_PS1_S4_"
@@ -318,8 +328,10 @@ def test_ptxas_report_names_the_bf16_instantiations():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers"])
     assert t_gk.ptxas_report(log) == {
-        "gru_scan_kernel<13, 8, 1, residuals, bf16>": (72, 0, 0),
+        "gru_scan_mma_kernel<7, 2, residuals, bf16>": (154, 0, 0),
+        "gru_scan_mma_kernel<5, 8, bf16>": (128, 0, 0),
         "gru_scan_kernel<13, 8, 1, residuals>": (70, 0, 0),
-        "gru_bwd_kernel<32, 4, 1, bf16>": (126, 0, 0),
-        "gru_wgrad_kernel<2, bf16>": (64, 4, 8),
+        "gru_bwd_mma_kernel<8, 4, bf16>": (255, 4, 8),
+        "gru_bwd_kernel<32, 4, 1>": (126, 0, 0),
+        "gru_wgrad_kernel<2>": (64, 0, 0),
         "gru_wgrad_mma_kernel<bulk, 160, bf16>": (168, 0, 0)}

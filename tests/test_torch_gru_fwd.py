@@ -23,6 +23,17 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(8, 12, 10, 16), (4, 7, 6, 8)]          # B, T, in, H
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its tensors are small, and
+    a worker of a parallel test run does not fight the others for
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B, T, I, H):
     rng = np.random.default_rng(seed)
     b = H ** -0.5

@@ -25,6 +25,17 @@ GRAD = dict(rtol=1e-4, atol=1e-5)
 NAMES = ("wi", "bi", "wh", "bh")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its tensors are small, and
+    a worker of a parallel test run does not fight the others for
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B, T, I, H):
     rng = np.random.default_rng(seed)
     b = H ** -0.5

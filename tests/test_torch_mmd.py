@@ -27,6 +27,17 @@ FORMS = ("gaussian", "laplace", "energy")
 T = torch.from_numpy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its tensors are small, and
+    a worker of a parallel test run does not fight the others for
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(seed, n, d):
     """Latent-like z1 (shifted, narrower) and prior-like z2."""
     rng = np.random.default_rng(seed)
@@ -169,3 +180,48 @@ def test_value_counter_is_per_device_and_stream_and_never_on_cpu(
                     torch.device("cuda", 0)]
     assert all(c.dtype == torch.int32 and c.tolist() == [0]
                for c in (c0, c1, c2))
+
+
+def _ptxas_log(spills):
+    """A synthetic ptxas -v log of csrc/mmd_full.cu: the value's two
+    instantiations and the gradient's two, each with its spill bytes from
+    ``spills`` (name -> (stores, loads))."""
+    fwd, grad = "EEEvPKfS2_iifiPdPjPf", "EEEvPKfS2_S2_iifiiiPf"
+    mangled = {
+        "mmd_fwd_kernel<16, 16>": "14mmd_fwd_kernelILi16ELi16" + fwd,
+        "mmd_fwd_kernel<32, 8>": "14mmd_fwd_kernelILi32ELi8" + fwd,
+        "mmd_grad_kernel<16>": "15mmd_grad_kernelILi16" + grad,
+        "mmd_grad_kernel<64>": "15mmd_grad_kernelILi64" + grad}
+    lines = []
+    for name, m in mangled.items():
+        st, ld = spills.get(name, (0, 0))
+        lines += [f"ptxas info    : Compiling entry function "
+                  f"'_ZN37_INTERNAL_x_{m}' for 'sm_90a'",
+                  f"    0 bytes stack frame, {st} bytes spill stores, {ld} "
+                  f"bytes spill loads",
+                  "ptxas info    : Used 40 registers, used 1 barriers"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("spilled", [None, "mmd_fwd_kernel<16, 16>",
+                                     "mmd_grad_kernel<64>"])
+def test_spill_rule_fails_on_any_mmd_kernel(spilled):
+    """chip_smoke.py [2]'s rule (``cuda_build.check_no_spills``) on the
+    report of csrc/mmd_full.cu: a spill in any instantiation, the value's
+    as well as the gradient's, raises; a report without the value's or the
+    gradient's kernels raises; a clean one passes."""
+    want = ("mmd_fwd_kernel", "mmd_grad_kernel")
+    report = t_mk.ptxas_report(_ptxas_log(
+        {spilled: (4, 4)} if spilled else {}))
+    assert sorted(report) == ["mmd_fwd_kernel<16, 16>",
+                              "mmd_fwd_kernel<32, 8>",
+                              "mmd_grad_kernel<16>", "mmd_grad_kernel<64>"]
+    if spilled is None:
+        cuda_build.check_no_spills(report, "mmd_full.cu", want)
+        with pytest.raises(AssertionError, match="no ptxas report"):
+            cuda_build.check_no_spills(
+                {k: v for k, v in report.items()
+                 if not k.startswith("mmd_fwd")}, "mmd_full.cu", want)
+    else:
+        with pytest.raises(AssertionError, match="spills"):
+            cuda_build.check_no_spills(report, "mmd_full.cu", want)
