@@ -231,10 +231,11 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel nodes, capture and instantiate seconds; then both families'
    chunks at the default unroll 50 (cadences 50 / 50, one capture and one
    replay): nodes, capture and instantiate seconds, the graph pool's and
-   the executable's bytes; then 26 phase-1 GRU steps under
-   --hw.profile_dir (one replay of a 25-step graph): one trace file whose
-   kernel events hold B2's and B5's kernels beyond the eager steps' (the
-   replay's);
+   the executable's bytes; then 101 phase-1 GRU steps under
+   --hw.profile_dir (step 0, then four replays of a 25-step graph): one
+   trace file of the bounded window, boundaries 3-4 (the last two
+   replays) and no others, whose kernel events hold those replays' B2
+   and B5 kernels and no eager step's;
 10. the model's options at the shipped width: skip connections, a
    posterior alternating flow of 4 layers, deconv (100 filters, kernel
    4, 3 layers) and deconv with useRNN (its GRU at H 150, beyond the
@@ -3441,9 +3442,10 @@ def main():
         f"{stats_8['accepted']} accepted, {stats_8['duplicates']} "
         f"duplicates), B1 launches {serve_launches} (one a round, "
         f"{srv._round_ix - rounds_idle} for the request queued at stop), "
-        f"plain beam 0; stage_s dispatch_device "
-        f"{st_8['dispatch_device']:.4f}, d2h {st_8['d2h']:.4f}, "
-        f"host_postproc {st_8['host_postproc']:.4f}; the first round equal "
+        f"plain beam 0; device_s {stats_8['device_s']:.4f} (CUDA events), "
+        f"device_gap_s {stats_8['device_gap_s']:.4f}, stage_s d2h "
+        f"{st_8['d2h']:.4f}, host_postproc {st_8['host_postproc']:.4f}; "
+        f"the first round equal "
         f"to one launch_round outside the server ({len(peps_1)} rows, the "
         f"first {burst_n} in order, every score bit for bit); 400 and 404 "
         f"answered; the request queued at stop() raised; the worker ended "
@@ -3820,44 +3822,48 @@ def main():
             f"51 steps in {s_50:.2f} s in main.main ({card})")
         mark(f"9u {tag} unroll 50")
 
-    # a phase-1 run under --hw.profile_dir: the trace holds B2's and B5's
-    # kernels from inside the replays (26 steps at cadences 25 / 25: step 0
-    # alone, then one replay of a 25-step graph)
+    # a phase-1 run under --hw.profile_dir: the bounded window
+    # (utils/tracing.PROFILE_SCHEDULE) of 101 steps at cadences 25 / 25,
+    # step 0 alone, then four replays of a 25-step graph: boundaries 3-4,
+    # the last two replays, and nothing of the eager steps (step 0, the
+    # capture's two warm-up steps)
     trace_dir = os.path.join(train_top, "trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
     cfg_tr, l_tr, s_tr, ch_tr = train_run("GRU traced", train_flags(
-        "smoke_trace", 25, ["--vae.cheaplog_every", "25",
-                            "--vae.expsvlog_every", "25",
-                            "--hw.profile_dir", trace_dir]))
+        "smoke_trace", 100, ["--vae.cheaplog_every", "25",
+                             "--vae.expsvlog_every", "25",
+                             "--hw.profile_dir", trace_dir]))
     traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
               if f.endswith(".pt.trace.json")] if os.path.isdir(
                   trace_dir) else []
-    if len(traces) != 1 or ch_tr is None or ch_tr[:2] != (1, 25):
+    if len(traces) != 1 or ch_tr is None or ch_tr[:2] != (4, 25):
         raise AssertionError(f"the traced phase-1 run: trace files {traces}, "
                              f"chunks {ch_tr}")
     with open(traces[0]) as fh:
         trace_events = json.load(fh)["traceEvents"]
     k_events = [e for e in trace_events if e.get("cat") == "kernel"]
+    steps_tr = sorted({e.get("name") for e in trace_events
+                       if e.get("name", "").startswith("ProfilerStep#")})
     in_trace = {k: sum(name in e.get("name", "") for e in k_events)
                 for k, name in (("B2 fwd", "gru_scan_kernel"),
                                 ("B2 bwd", "gru_bwd_kernel"),
                                 ("B2 wgrad", "gru_wgrad_kernel"),
                                 ("B5 fwd", "mmd_fwd_kernel"))}
-    # step 0 and the warm-up's two steps run eagerly: 3 each of B2 a step,
-    # one B5; the replay 25 steps' worth
-    eager_tr = {"B2 fwd": 9, "B2 bwd": 9, "B2 wgrad": 9, "B5 fwd": 3}
-    short = {k: v for k, v in in_trace.items()
-             if v < eager_tr[k] + 25 * eager_tr[k] // 3}
-    if short:
+    # two replays of 25 steps: 3 of each B2 kernel a step, one B5; the
+    # boundaries' held-out evals add B4 launches (gru_scan_kernel) alone
+    want_tr = {"B2 fwd": 150, "B2 bwd": 150, "B2 wgrad": 150, "B5 fwd": 50}
+    off = {k: v for k, v in in_trace.items()
+           if v != want_tr[k] and not (k == "B2 fwd" and v > want_tr[k])}
+    if off or steps_tr != [f"ProfilerStep#{i}" for i in (3, 4)]:
         raise AssertionError(f"the trace under --hw.profile_dir holds "
-                             f"{in_trace} of B2's and B5's kernels: short "
-                             f"of the replay's {short}")
-    log(f"[9u] phase-1 training under --hw.profile_dir, 26 steps (one "
-        f"replay of a 25-step graph): {s_tr:.2f} s; trace "
-        f"{os.path.basename(traces[0])}, {os.path.getsize(traces[0])} "
-        f"bytes, {len(k_events)} kernel events; B2 / B5 kernels in it "
-        f"{in_trace} (eager {eager_tr}, the rest from the replay); launches "
-        f"{l_tr}")
+                             f"steps {steps_tr} and {in_trace} of B2's and "
+                             f"B5's kernels: not two replays' {off}")
+    log(f"[9u] phase-1 training under --hw.profile_dir, 101 steps (step 0, "
+        f"four replays of a 25-step graph): {s_tr:.2f} s; trace "
+        f"{os.path.basename(traces[0])} of {steps_tr}, "
+        f"{os.path.getsize(traces[0])} bytes, {len(k_events)} kernel "
+        f"events; B2 / B5 kernels in it {in_trace} (two replays "
+        f"{want_tr}); launches {l_tr}")
     mark("9u phase-1 trace under --hw.profile_dir")
 
     # ---- 10. the model's options: skip connections, a flow, deconv ------
@@ -4207,7 +4213,7 @@ def main():
         "GRU phase 1": train_flags("smoke_nccl", TRAIN_ITERS),
         "GRU phase 2": ["p2u50_GRU_nccl" if a == "p2u50_GRU" else a
                         for a in p2_50],
-        "GRU traced": train_flags("smoke_trace_nccl", 25, [
+        "GRU traced": train_flags("smoke_trace_nccl", 100, [
             "--vae.cheaplog_every", "25", "--vae.expsvlog_every", "25",
             "--hw.profile_dir", trace_nccl])}
     (nccl,), nccl_s = rank_results(1, "nccl", nccl_jobs)
@@ -4263,8 +4269,8 @@ def main():
     log(f"[11g] GRU phase 1 at --hw.unroll 50, cadences 100 / 150: "
         f"{rates_g['nccl']:.2f} steps/s (warm) through the DP path under "
         f"NCCL world 1 against {rates_g['none']:.2f} without a group "
-        f"(phase 6); the traced DP run (26 steps, one replay of a 25-step "
-        f"graph): {n_coll} NCCL kernels, {coll_us:.1f} us of {all_us:.1f} "
+        f"(phase 6); the traced DP run (101 steps, its bounded window the "
+        f"last two replays of a 25-step graph): {n_coll} NCCL kernels, {coll_us:.1f} us of {all_us:.1f} "
         f"us of kernel time ({100 * coll_us / max(all_us, 1e-9):.2f}%); "
         f"{nccl_s:.1f} s for the spawn and the rank's three runs ({card})")
     mark("11g checks")

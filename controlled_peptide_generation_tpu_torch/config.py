@@ -347,8 +347,12 @@ def default_config():
                                  # clamps rounds_per_dispatch
                                  # (pipeline.transformer_dispatch_budget)
         log_hbm_analysis=False,
-        profile_dir="",       # non-empty: a torch.profiler trace of the
-                              # phase-1 loop written there
+        profile_dir="",       # non-empty: a torch.profiler trace of a
+                              # window of the phase-1 loop written there:
+                              # its boundaries (a step or a chunk each) 3-4,
+                              # after step 0, the first chunk (its capture)
+                              # and one boundary that warms the profiler up
+                              # (utils/tracing.PROFILE_SCHEDULE)
         heldout_eval=True,
         log_flush_every=10,
     )

@@ -44,7 +44,7 @@ from .latent import class_sampler, density, fused, logreg
 from .ops import beam as beam_ops
 from .parallel import rounds as dp_rounds
 from .train import checkpoints
-from .utils import runtime
+from .utils import runtime, tracing
 from .vis import build_index
 
 LOG = logging.getLogger("GenerationAPI")
@@ -340,14 +340,19 @@ def launch_round(cfg, model, shards, Q, n_samples, gen):
     """Enqueue one round's device work and an asynchronous copy of its
     results to the host.
 
-    Returns (host, event): host = (z, scores, accept, tokens, valid) as CPU
-    tensors, readable once ``event`` (None on the CPU) has completed.
+    Returns (host, span): host = (z, scores, accept, tokens, valid) as CPU
+    tensors, readable once ``span`` (a ``tracing.DeviceSpan`` from before
+    the round's first device operation to after its host copies; None on
+    the CPU) has completed: ``span.synchronize()`` waits for it.
     Under hw.decode_mode="all" valid is None; under "accepted" z, scores
     and tokens hold the compacted slots and valid marks real ones. The
     round runs over the devices of ``shards`` (``parallel.rounds.Shards``,
     one entry for one device)."""
     capacity = round_capacity(cfg, n_samples, len(shards.devices))
-    draws = fused.round_draws(gen, Q._sampler()[1], n_samples)
+    q_params = Q._sampler()[1]
+    # the draws' device, on which the round's rows are joined
+    span = tracing.device_span(q_params.means.device)
+    draws = fused.round_draws(gen, q_params, n_samples)
     kwargs = dict(beam_size=DECODE_BEAM_SIZE,
                   decode_dtype=cfg.hw.get("gen_dtype", "float32"),
                   capacity=capacity)
@@ -358,15 +363,10 @@ def launch_round(cfg, model, shards, Q, n_samples, gen):
     z = z.to(torch.float16)
     if model.n_vocab < 256:
         tokens = tokens.to(torch.uint8)
-    dev = z.device
     cpu = lambda t: None if t is None else t.to("cpu", non_blocking=True)
     host = (cpu(z), {k: cpu(v) for k, v in scores.items()}, cpu(accept),
             cpu(tokens), cpu(valid))
-    event = None
-    if dev.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev))
-    return host, event
+    return host, None if span is None else span.end()
 
 
 def canonical_keys(tokens):
@@ -466,9 +466,9 @@ def _fused_sampling_loop(cfg, args, model, shards, vocab, Q, round_size,
     while True:
         while len(inflight) < depth:
             launch_one()
-        (z, scores, accept_full, tokens, valid), event = inflight.popleft()
-        if event is not None:
-            event.synchronize()
+        (z, scores, accept_full, tokens, valid), span = inflight.popleft()
+        if span is not None:
+            span.synchronize()
         rounds_consumed += 1
         z, tokens = z.numpy(), tokens.numpy()
         accept_full = accept_full.numpy()

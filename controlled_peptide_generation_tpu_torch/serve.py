@@ -15,9 +15,21 @@ many concurrent clients:
   waits behind more than one bounded round.
 * The device work is ``pipeline.launch_round``, the batch pipeline's
   fused round (draw, heads, accept, beam decode in B1 or B3) with its
-  asynchronous host copies and its event. A round's rows are read after
-  that round's event, so the rounds behind it stay queued on the card
-  meanwhile. Round r draws from ``pipeline.round_generator(seed, r)``.
+  asynchronous host copies and its device span (timing events before
+  its first and after its last device operation). A round's rows are
+  read after that round's end event, so the rounds behind it stay queued
+  on the card meanwhile. Round r draws from
+  ``pipeline.round_generator(seed, r)``.
+* Counters (``stats_snapshot()``, /stats): rounds, candidates, accepted,
+  served and duplicate rows; ``device_s``, the rounds' device time from
+  their events, and ``device_gap_s``, the card's idle time between one
+  round's end and the next one's start; ``stage_s`` (host clock: ``d2h``,
+  the host copies' reads, ``host_postproc``, dedup to physicochemistry);
+  ``queue_wait``, a histogram (``utils/tracing.Histogram``) of each
+  request's wait from ``generate()`` to its first row, a request that
+  fails before one in its overflow bucket. The worker's host spans:
+  ``serve.round.launch``, ``serve.round.wait``, ``serve.postproc`` and
+  ``serve.distribute``.
 * Dedup spans the server's lifetime (``pipeline.canonical_keys``): no
   client receives a peptide the server served before.
 * A round whose within-round uniqueness collapses on the card raises
@@ -48,7 +60,7 @@ from . import config as C
 from . import pipeline
 from .evals.peptide_evals import modlamp_from_tokens
 from .ops import beam as beam_ops
-from .utils import runtime
+from .utils import runtime, tracing
 
 LOG = logging.getLogger("GenerationServer")
 
@@ -57,15 +69,16 @@ class _Request:
     """One client's outstanding demand: filled by the worker, waited on by
     the client thread. ``failed`` marks a request cancelled by stop() or a
     fatal error, so generate() raises instead of returning a short row
-    list."""
+    list; ``t_enq`` is its enqueue time (host clock)."""
 
-    __slots__ = ("n", "rows", "event", "failed")
+    __slots__ = ("n", "rows", "event", "failed", "t_enq")
 
     def __init__(self, n):
         self.n = n
         self.rows = []
         self.event = threading.Event()
         self.failed = False
+        self.t_enq = time.perf_counter()
 
 
 def _host(a):
@@ -115,7 +128,9 @@ class GenerationServer:
         self._depth = max(int(cfg.hw.get("rounds_in_flight", 2)), 1) + 1
         self.stats = {"rounds": 0, "candidates": 0, "accepted": 0,
                       "served": 0, "duplicates": 0, "device_s": 0.0,
-                      "started_at": None}
+                      "device_gap_s": 0.0, "started_at": None}
+        self._queue_wait = tracing.Histogram()
+        self._device_times = tracing.DeviceTimes()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -140,9 +155,16 @@ class GenerationServer:
             self._worker = None
         with self._lock:
             while self._queue:
-                req = self._queue.popleft()
-                req.failed = True
-                req.event.set()
+                self._fail_locked(self._queue.popleft())
+
+    def _fail_locked(self, req):
+        """Fail one request taken off the queue (the caller holds the
+        lock); one that had no row yet counts in the queue wait's overflow
+        bucket."""
+        if not req.rows:
+            self._queue_wait.add_overflow()
+        req.failed = True
+        req.event.set()
 
     # -- client API ---------------------------------------------------------
 
@@ -165,6 +187,8 @@ class GenerationServer:
             with self._lock:
                 try:
                     self._queue.remove(req)
+                    if not req.rows:
+                        self._queue_wait.add_overflow()
                     self._spare.extend(req.rows)
                     req.rows = []
                 except ValueError:
@@ -187,12 +211,16 @@ class GenerationServer:
     def _distribute_locked(self, rows):
         """Hand rows to the queued requests FIFO (the caller holds the
         lock); rows left over go to the spare rows. 'served' counts the
-        rows of completed requests only."""
+        rows of completed requests only; a request's first row ends its
+        queue wait."""
+        now = time.perf_counter()
         for i, row in enumerate(rows):
             if not self._queue:
                 self._spare.extend(rows[i:])
                 return
             req = self._queue[0]
+            if not req.rows:
+                self._queue_wait.add(now - req.t_enq)
             req.rows.append(row)
             if len(req.rows) >= req.n:
                 self.stats["served"] += req.n
@@ -220,8 +248,8 @@ class GenerationServer:
                 rates = self._rates_locked()
             cur = None
             try:
-                expected = sum(self._expected_yield(n, rates)
-                               for (n, _, _) in inflight)
+                expected = sum(self._expected_yield(p[0], rates)
+                               for p in inflight)
                 while len(inflight) < self._depth and (
                         not inflight or expected < demand):
                     n = self._round_size_bounded()
@@ -233,6 +261,7 @@ class GenerationServer:
                 n_round = (cur[0] if cur is not None
                            else inflight[0][0] if inflight else None)
                 inflight.clear()
+                self._device_times.restart()
                 if pipeline.is_device_oom(e) and n_round is not None:
                     shrink = n_round // 2
                     shrink -= shrink % self.n_dev
@@ -246,7 +275,7 @@ class GenerationServer:
                               "queued requests", len(self._queue))
                 self._fail_all(e)
                 return
-            with self._wake:
+            with self._wake, tracing.span("serve.distribute"):
                 self._distribute_locked(rows)
 
     def _fail_all(self, exc):
@@ -256,9 +285,7 @@ class GenerationServer:
             self._running = False
             self.stats["fatal_error"] = f"{type(exc).__name__}: {exc}"
             while self._queue:
-                req = self._queue.popleft()
-                req.failed = True
-                req.event.set()
+                self._fail_locked(self._queue.popleft())
             self._wake.notify_all()
 
     def _rates_locked(self):
@@ -293,18 +320,19 @@ class GenerationServer:
         return n
 
     def _launch_guarded(self, n):
-        """Enqueue one round; returns (n, t_launch, (host, event)) for
-        _finish_round. An out-of-memory error halves the round and
-        retries, down to one candidate."""
+        """Enqueue one round; returns (n, t_launch, (host, span), round
+        index) for _finish_round. An out-of-memory error halves the round
+        and retries, down to one candidate."""
         self._round_ix += 1
         t0 = time.perf_counter()
         while True:
             try:
-                out = pipeline.launch_round(
-                    self.cfg, self.model, self.shards, self.Q, n,
-                    pipeline.round_generator(self.cfg.seed, self._round_ix,
-                                             self.device))
-                return n, t0, out
+                with tracing.span("serve.round.launch", round=self._round_ix):
+                    out = pipeline.launch_round(
+                        self.cfg, self.model, self.shards, self.Q, n,
+                        pipeline.round_generator(self.cfg.seed,
+                                                 self._round_ix, self.device))
+                return n, t0, out, self._round_ix
             except Exception as e:
                 shrink = n // 2
                 shrink -= shrink % self.n_dev
@@ -315,16 +343,17 @@ class GenerationServer:
                 self._max_candidates = n = shrink
 
     def _finish_round(self, pending):
-        """Wait for one round's event, read its host copies, then dedup,
-        detokenize and physchem on the host; returns the row dicts.
-        ``pending`` is (n, t_launch, (host, event)), host the raw tuple
-        (z, scores dict, accept, tokens, valid) of CPU tensors or arrays,
-        event None where there is none to wait on. The device stage
-        starts at launch, so it includes the time the worker spent on the
-        previous round meanwhile."""
-        n, t0, (host, event) = pending
-        if event is not None:
-            event.synchronize()
+        """Wait for one round's end event, read its host copies, then
+        dedup, detokenize and physchem on the host; returns the row dicts.
+        ``pending`` is (n, t_launch, (host, span), round index), host the
+        raw tuple (z, scores dict, accept, tokens, valid) of CPU tensors or
+        arrays, span the round's ``tracing.DeviceSpan`` (None where there
+        is none to wait on), whose device time it adds once waited on."""
+        n, t0, (host, span), ix = pending
+        if span is not None:
+            with tracing.span("serve.round.wait", round=ix):
+                span.synchronize()
+            self._device_times.add(span)
         t_dev = time.perf_counter()
         _, scores, accept, tokens, valid = host
         tokens_np, accept_np = _host(tokens), _host(accept).astype(bool)
@@ -336,53 +365,54 @@ class GenerationServer:
         tokens_np = tokens_np[keep_rows]
         scores_np = {k: s[keep_rows] for k, s in scores_np.items()}
         t_d2h = time.perf_counter()
-        row_keys = list(pipeline.canonical_keys(tokens_np))
-        pipeline.beam_canary_check(
-            self.cfg, self.device, len(row_keys), len(set(row_keys)),
-            context=f"serve round {self._round_ix}", model=self.model,
-            params=self.params)
-        keep = np.empty(tokens_np.shape[0], bool)
-        for i, rb in enumerate(row_keys):
-            keep[i] = rb not in self._seen
-            self._seen.add(rb)
-        dup = int(keep.size - keep.sum())
-        kept_tokens = tokens_np[keep].astype(np.int64)
-        peptides = self.vocab.to_sentences_batch(kept_tokens,
-                                                 print_special_tokens=False)
-        H, uH, charge = modlamp_from_tokens(kept_tokens, self.vocab.itos)
-        t1 = time.perf_counter()
-        s_dev, s_d2h, s_host = t_dev - t0, t_d2h - t_dev, t1 - t_d2h
-        with self._lock:
-            self.stats["rounds"] += 1
-            self.stats["candidates"] += n_candidates
-            self.stats["accepted"] += n_accepted
-            self.stats["duplicates"] += dup
-            self.stats["device_s"] += t1 - t0
-            st = self.stats.setdefault(
-                "stage_s", {"dispatch_device": 0.0, "d2h": 0.0,
-                            "host_postproc": 0.0})
-            st["dispatch_device"] += s_dev
-            st["d2h"] += s_d2h
-            st["host_postproc"] += s_host
-        LOG.info("round %d: %d candidates -> %d accepted, %d unique "
-                 "(%.3fs = %.3f dev + %.3f d2h + %.3f host)", self._round_ix,
-                 n_candidates, n_accepted, len(peptides), t1 - t0, s_dev,
-                 s_d2h, s_host)
-        score_cols = {k: s[keep] for k, s in scores_np.items()}
-        rows = []
-        for i, pep in enumerate(peptides):
-            row = {"peptide": pep, "H": float(H[i]), "uH": float(uH[i]),
-                   "charge": float(charge[i])}
-            for k, s in score_cols.items():
-                row[k] = float(s[i])
-            rows.append(row)
-        return rows
+        with tracing.span("serve.postproc", round=ix):
+            row_keys = list(pipeline.canonical_keys(tokens_np))
+            pipeline.beam_canary_check(
+                self.cfg, self.device, len(row_keys), len(set(row_keys)),
+                context=f"serve round {ix}", model=self.model,
+                params=self.params)
+            keep = np.empty(tokens_np.shape[0], bool)
+            for i, rb in enumerate(row_keys):
+                keep[i] = rb not in self._seen
+                self._seen.add(rb)
+            dup = int(keep.size - keep.sum())
+            kept_tokens = tokens_np[keep].astype(np.int64)
+            peptides = self.vocab.to_sentences_batch(
+                kept_tokens, print_special_tokens=False)
+            H, uH, charge = modlamp_from_tokens(kept_tokens, self.vocab.itos)
+            t1 = time.perf_counter()
+            s_d2h, s_host = t_d2h - t_dev, t1 - t_d2h
+            with self._lock:
+                self.stats["rounds"] += 1
+                self.stats["candidates"] += n_candidates
+                self.stats["accepted"] += n_accepted
+                self.stats["duplicates"] += dup
+                self.stats["device_s"] = self._device_times.device_s
+                self.stats["device_gap_s"] = self._device_times.gap_s
+                st = self.stats.setdefault("stage_s", {"d2h": 0.0,
+                                                       "host_postproc": 0.0})
+                st["d2h"] += s_d2h
+                st["host_postproc"] += s_host
+            LOG.info("round %d: %d candidates -> %d accepted, %d unique "
+                     "(%.3fs from launch: waited %.3f, then %.3f d2h + %.3f "
+                     "host)", ix, n_candidates, n_accepted, len(peptides),
+                     t1 - t0, t_dev - t0, s_d2h, s_host)
+            score_cols = {k: s[keep] for k, s in scores_np.items()}
+            rows = []
+            for i, pep in enumerate(peptides):
+                row = {"peptide": pep, "H": float(H[i]), "uH": float(uH[i]),
+                       "charge": float(charge[i])}
+                for k, s in score_cols.items():
+                    row[k] = float(s[i])
+                rows.append(row)
+            return rows
 
     # -- introspection -------------------------------------------------------
 
     def stats_snapshot(self):
         with self._lock:
             out = dict(self.stats)
+            out["queue_wait"] = self._queue_wait.snapshot()
             out["outstanding"] = self._outstanding()
             out["unique_seen"] = len(self._seen)
         up = time.time() - out["started_at"] if out["started_at"] else 0.0

@@ -60,7 +60,7 @@ from ..utils import runtime
 PARTS = {1: ("batch+draws", "forward", "backward", "optimizer"),
          2: ("batch+draws", "vae update", "attribute update",
              "classifier update", "optimizer")}
-CHUNK_PARTS = ("batches", "chunk stage", "chunk replay")
+CHUNK_PARTS = ("batches", "train.stage", "train.launch")
 
 
 def _union_us(intervals):

@@ -22,6 +22,12 @@ made. A capture that fails raises. On CPU tensors the steps run eagerly,
 and ``draws`` (one dict per step) may replace the generators' draws, as
 tests feed the JAX package's.
 
+Each replay after the capture is a device span (``utils/tracing.py``):
+a timing event before its staging's first copy and one after the
+replay, read once they have completed (no synchronisation), so that
+``stats()`` gives the device seconds of the replays and of the idle gaps
+between one replay's end and the next chunk's first copy.
+
 Under data parallelism the steps' collectives (the gradients' and the
 metrics' averages, the z gather, a deconv decoder's batch-norm sums) are
 nodes of the graph: under NCCL the warm-up steps run them first, which
@@ -35,9 +41,8 @@ chunk (``train_vae.check_chunk``) rather than run its steps eagerly.
 import time
 
 import torch
-from torch.profiler import record_function
 
-from ..utils import runtime
+from ..utils import runtime, tracing
 from . import checkpoints
 
 
@@ -76,6 +81,7 @@ class GraphChunk:
         self.collective_nodes = None
         self.captured = {}
         self.replays = 0
+        self.device_times = tracing.DeviceTimes()
         self.capture_s = self.instantiate_s = None
         self.pool_bytes = self.exec_bytes = None
 
@@ -109,27 +115,34 @@ class GraphChunk:
         """Fill the captured graph's inputs for steps it0 .. it0 + unroll
         - 1: one copy each from the pinned host buffers (once the last
         stage's copies are done), and every step's draws from the
-        per-step generators."""
-        with record_function("chunk stage"):
-            self._copied.synchronize()
+        per-step generators. Returns the device span started before the
+        first copy."""
+        with tracing.span("train.stage", it=it0):
+            with tracing.span("train.stage.wait", it=it0):
+                self._copied.synchronize()
             for k, x in inputs.items():
                 self._host[k].copy_(x)
+            span = tracing.device_span(self._device)
             for k, x in self._host.items():
                 self._dev[k].copy_(x, non_blocking=True)
             self._copied.record()
             self._draws(it0, self._dev, self._device,
                         out=self._static_draws)
+        return span
 
     def _replay(self, state, inputs, it0, dev):
+        span = None
         if self.graph is None:
             self._capture(state, inputs, it0, dev)
         elif self._ptrs != self._state_ptrs(state):
             raise ValueError("the chunk's graph was captured on other "
                              "params or optimizer state tensors")
         else:
-            self._stage(inputs, it0)
-        with record_function("chunk replay"):
+            span = self._stage(inputs, it0)
+        with tracing.span("train.launch", it=it0):
             self.graph.replay()
+        if span is not None:
+            self.device_times.add(span.end())
         self.replays += 1
         for fn, n in self.captured.items():
             fn.launches += n
@@ -206,7 +219,12 @@ class GraphChunk:
     def stats(self):
         """The captured graph's size and cost: nodes, kernel nodes, capture
         and instantiate seconds (host clock), the pool's and the
-        executable's bytes."""
+        executable's bytes; the replays, and of those after the capture's
+        whose events have completed the device seconds (``device_s`` over
+        ``timed``) and the idle seconds before each (``device_gap_s`` over
+        ``gaps``), on the device's clock."""
+        d = self.device_times
+        d.poll()
         return {"unroll": self.unroll, "nodes": len(self.node_kinds),
                 "kernel_nodes": self.node_kinds.count("kernel"),
                 "memcpy_nodes": self.node_kinds.count("memcpy"),
@@ -214,4 +232,6 @@ class GraphChunk:
                 "capture_s": self.capture_s,
                 "instantiate_s": self.instantiate_s,
                 "pool_bytes": self.pool_bytes,
-                "exec_bytes": self.exec_bytes}
+                "exec_bytes": self.exec_bytes, "replays": self.replays,
+                "device_s": d.device_s, "timed": d.spans,
+                "device_gap_s": d.gap_s, "gaps": d.gaps}

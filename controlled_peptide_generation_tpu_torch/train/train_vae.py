@@ -64,10 +64,9 @@ from ..ops import losses as L
 from ..ops import sampling
 from ..parallel import collectives, dist as pdist
 from ..parallel.zero import ZeroAdam
-from ..utils import runtime
+from ..utils import runtime, tracing
 from ..utils.annealing import anneal
 from ..utils.logging import DeferredFetch
-from ..utils.profiling import trace
 from ..vis.covar import cov_q, frobenius_to_identity
 from . import checkpoints
 from .chunk import GraphChunk
@@ -526,21 +525,24 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
         if save and cfg.hw.get("heldout_eval", True) and (
                 writer or mesh is not None):
             # on a mesh every rank runs its part of the heldout passes
-            hld = evaluate_heldout(
-                model, params, dataset,
-                runtime.generator(dev, cfg.seed, _HELDOUT_STREAM, it))
+            with tracing.span("train.heldout", it=it):
+                hld = evaluate_heldout(
+                    model, params, dataset,
+                    runtime.generator(dev, cfg.seed, _HELDOUT_STREAM, it))
         if not writer:
             return
         if cheap or expsv:
-            sent, _, _ = generate_sentences(
-                plain_model, full, 1,
-                gen=runtime.generator(dev, cfg.seed, _LOG_STREAM, it),
-                sample_mode="categorical", device=dev)
+            with tracing.span("train.sample", it=it):
+                sent, _, _ = generate_sentences(
+                    plain_model, full, 1,
+                    gen=runtime.generator(dev, cfg.seed, _LOG_STREAM, it),
+                    sample_mode="categorical", device=dev)
             fetch.add(it, metrics, sent, force=expsv)
         if save:
             path = cfgv.chkpt_path.format(it)
-            checkpoints.save(path, full, saved_opt, step=it,
-                             c_args=cfg.model.C_args)
+            with tracing.span("train.save", it=it):
+                checkpoints.save(path, full, saved_opt, step=it,
+                                 c_args=cfg.model.C_args)
             log.info("Saved model to %s", path)
             if hld is not None:
                 if logger is not None:
@@ -573,10 +575,13 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
     warm_it, t_warm = None, None
     t_start = time.perf_counter()
     B, T = cfgv.batch_size, cfg.max_seq_len
-    # a torch.profiler trace of the loop under hw.profile_dir (the JAX
-    # package's jax.profiler trace): the chunks' captures and replays too
-    profile_dir = cfg.hw.get("profile_dir", "")
-    with trace(profile_dir, enabled=bool(profile_dir)):
+    # the chunks' host work: the loader's batches and the boundary's
+    # (do_host), a count and seconds each
+    loader = tracing.counter("train.loader")
+    boundary = tracing.counter("train.boundary")
+    # a torch.profiler trace of a window of the loop's boundaries under
+    # hw.profile_dir (the JAX package's jax.profiler trace)
+    with tracing.trace(cfg.hw.get("profile_dir", "")) as profiler_step:
         while it <= end_it:
             if warm_it is None and it >= cfgv.s_iter + WARM_STEPS:
                 # the first step (or chunk boundary) at or after WARM_STEPS
@@ -587,20 +592,26 @@ def train_vae(cfg, model, dataset, params, logger=None, on_checkpoint=None):
             # way
             if chunk is not None and it + unroll - 1 <= end_it and not any(
                     needs_host(it + j) for j in range(unroll - 1)):
-                texts = np.stack([dataset.next_batch("train_vae").text
-                                  for _ in range(unroll)])
+                with tracing.span("train.loader", loader, it=it):
+                    texts = np.stack([dataset.next_batch("train_vae").text
+                                      for _ in range(unroll)])
                 metrics = chunk(params, opt_state, texts, it)
                 it += unroll
-                do_host(it - 1, metrics)
+                with tracing.span("train.boundary", boundary, it=it - 1):
+                    do_host(it - 1, metrics)
+                profiler_step()
                 continue
-            text = torch.from_numpy(
-                dataset.next_batch("train_vae").text).to(dev)
+            with tracing.span("train.loader", it=it):
+                text = torch.from_numpy(
+                    dataset.next_batch("train_vae").text).to(dev)
             draws = draw_step(model, runtime.generator(dev, cfg.seed, it), B,
                               T, dev, None if rf_basis is not None
                               else mmd_cfg.rf_dim)
             metrics = train_step(params, opt_state, text, it, draws)
-            do_host(it, metrics)
+            with tracing.span("train.boundary", it=it):
+                do_host(it, metrics)
             it += 1
+            profiler_step()
         fetch.flush()
         runtime.synchronize(dev)
     t_end = time.perf_counter()

@@ -8,7 +8,8 @@ installed.
 * ``export_to_json`` writes the ordered list of per-iteration dicts.
 
 ``DeferredFetch`` queues per-boundary metrics that still live on the
-device and copies them to the host in one transfer per flush.
+device and copies them to the host in one transfer per flush (the span
+``train.fetch``).
 """
 
 import json
@@ -16,6 +17,8 @@ import logging
 import os
 
 import torch
+
+from . import tracing
 
 LOG = logging.getLogger(__name__)
 
@@ -90,17 +93,18 @@ class DeferredFetch:
     def flush(self):
         if not self.pending:
             return
-        korder = sorted(self.pending[0][1])
-        rows = torch.stack([
-            torch.stack([torch.as_tensor(m[k]).float().reshape(())
-                         .to(self._device(m)) for k in korder])
-            for _, m, _ in self.pending]).cpu().numpy()
-        extras = [torch.stack([e[i] for _, _, e in self.pending]).cpu()
-                  .numpy() for i in range(len(self.pending[0][2]))]
-        for j, (meta, _, _) in enumerate(self.pending):
-            vals = dict(zip(korder, map(float, rows[j])))
-            self.sink(meta, vals, *(ex[j] for ex in extras))
-        self.pending.clear()
+        with tracing.span("train.fetch"):
+            korder = sorted(self.pending[0][1])
+            rows = torch.stack([
+                torch.stack([torch.as_tensor(m[k]).float().reshape(())
+                             .to(self._device(m)) for k in korder])
+                for _, m, _ in self.pending]).cpu().numpy()
+            extras = [torch.stack([e[i] for _, _, e in self.pending]).cpu()
+                      .numpy() for i in range(len(self.pending[0][2]))]
+            for j, (meta, _, _) in enumerate(self.pending):
+                vals = dict(zip(korder, map(float, rows[j])))
+                self.sink(meta, vals, *(ex[j] for ex in extras))
+            self.pending.clear()
 
     @staticmethod
     def _device(scalars):

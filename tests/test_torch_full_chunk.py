@@ -13,9 +13,10 @@ and ``--hw.profile_dir`` on the CPU, at the sizes of test_torch_phase2.py
   injected against JAX ``make_full_scan(unroll=3)``;
 * ``main --phase 2`` at ``--hw.unroll 5`` and 1: the same checkpoints bit
   for bit and the same result.json rows;
-* ``main --phase 1 --hw.profile_dir``: a torch.profiler trace holding the
-  loop's ranges; phase 2 accepts the flag and writes no trace;
-  ``utils/profiling``'s ``Throughput`` and ``annotate``.
+* ``main --phase 1 --hw.profile_dir``: a torch.profiler trace of the
+  loop's boundaries 3-4 (steps, or chunks at ``--hw.unroll 5``) and no
+  others, holding the step's ranges and the loop's spans; phase 2
+  accepts the flag and writes no trace.
 
 Tolerances against the JAX package, as test_torch_phase2.py holds a
 step: the last metrics rtol 1e-5, and each sub-loss of the last iteration
@@ -43,7 +44,7 @@ from controlled_peptide_generation_tpu_torch import main as t_main
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 from controlled_peptide_generation_tpu_torch.train import train_full as t_full
 from controlled_peptide_generation_tpu_torch.train import train_vae as t_tv
-from controlled_peptide_generation_tpu_torch.utils import profiling, runtime
+from controlled_peptide_generation_tpu_torch.utils import runtime
 
 from test_torch_phase2 import (B, LOSS_TOL, TLEN, _jax_parts, _models, _t,
                                _to_port, _tokens, jax_full_draws)
@@ -274,41 +275,41 @@ def test_tiny_cli_phase2_unroll_matches_per_step(tmp_path, one_thread):
     assert [r["it"] for r in rows[5] if "full_L_vae" in r] == [0, 5, 10]
 
 
-def test_phase1_profile_dir_writes_a_trace(tmp_path, one_thread):
-    """main --phase 1 --hw.profile_dir: one Chrome trace in the directory
-    holding the train step's ranges."""
-    trace_dir = tmp_path / "trace"
-    _cli(tmp_path, "prof", 1, ["--hw.profile_dir", str(trace_dir)])
+def _trace_names(trace_dir):
+    """The names of the events of the one Chrome trace in ``trace_dir``."""
     files = glob.glob(str(trace_dir / "*.pt.trace.json"))
     assert len(files) == 1, files
     with open(files[0]) as fh:
-        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert {"forward", "backward", "optimizer"} <= names
+        return [e.get("name", "") for e in json.load(fh)["traceEvents"]]
 
 
-def test_throughput_and_annotate(tmp_path):
-    """Throughput hands the window's rate to the logger every log_every
-    items and starts a new window; annotate's range lands in a trace; a
-    trace without a directory writes nothing."""
-    rows = []
+def test_phase1_profile_dir_writes_a_trace(tmp_path, one_thread):
+    """main --phase 1 --hw.profile_dir, every step eager (steps 0-7): one
+    Chrome trace in the directory holding steps 3-4 alone, with the train
+    step's ranges and the loop's spans."""
+    trace_dir = tmp_path / "trace"
+    _cli(tmp_path, "prof", 1, ["--hw.profile_dir", str(trace_dir),
+                               "--vae.n_iter", "7"])
+    names = _trace_names(trace_dir)
+    assert {n for n in names if n.startswith("ProfilerStep#")} == {
+        "ProfilerStep#3", "ProfilerStep#4"}
+    assert {"forward", "backward", "optimizer", "train.loader",
+            "train.boundary", "train.sample"} <= set(names)
+    assert names.count("forward") == 2
 
-    class Logger:
-        def log_value(self, name, value, step):
-            rows.append((name, value, step))
 
-    counter = profiling.Throughput("items", Logger(), log_every=4)
-    assert counter.add(3, step=1) is None
-    rate = counter.add(2, step=2)
-    assert rate > 0 and rows == [("items_per_sec", rate, 2)]
-    assert (counter.count, counter.total) == (0, 5)
-    with profiling.trace(str(tmp_path / "t")):
-        with profiling.annotate("a named range"):
-            torch.ones(3).sum()
-    with profiling.trace(""), profiling.trace(str(tmp_path / "off"),
-                                              enabled=False):
-        pass
-    files = glob.glob(str(tmp_path / "t" / "*.pt.trace.json"))
-    assert len(files) == 1 and not (tmp_path / "off").exists()
-    with open(files[0]) as fh:
-        assert "a named range" in {e.get("name") for e in
-                                   json.load(fh)["traceEvents"]}
+def test_profile_dir_window_of_chunks(tmp_path, one_thread):
+    """At --hw.unroll 5 the loop's boundaries are step 0 and 5-step
+    chunks: the trace holds boundaries 3-4, two chunks (steps 11-20),
+    and no others: 10 steps' ranges, two loader and boundary spans."""
+    trace_dir = tmp_path / "trace"
+    _cli(tmp_path, "profc", 1, ["--hw.profile_dir", str(trace_dir),
+                                "--vae.n_iter", "40", "--hw.unroll", "5",
+                                "--vae.cheaplog_every", "5",
+                                "--vae.expsvlog_every", "20"])
+    names = _trace_names(trace_dir)
+    assert {n for n in names if n.startswith("ProfilerStep#")} == {
+        "ProfilerStep#3", "ProfilerStep#4"}
+    assert names.count("forward") == names.count("optimizer") == 10
+    assert names.count("train.loader") == names.count("train.boundary") == 2
+    assert names.count("train.save") == 1     # the boundary at step 20

@@ -2,9 +2,10 @@
 the port's GenerationServer and HTTP front end on a tiny run dir (a
 JAX-saved checkpoint and states dumps), the first round held to one
 ``pipeline.launch_round`` outside the server, a cross-check against the
-JAX package's GenerationServer fed the same raw rounds, and a forced beam
-canary trip. Every generate() carries a timeout; every server is stopped
-in a finally."""
+JAX package's GenerationServer fed the same raw rounds, a forced beam
+canary trip, and the server's queue-wait histogram and spans (none
+recorded while nothing asks for them; the worker's own parents). Every
+generate() carries a timeout; every server is stopped in a finally."""
 
 import json
 import threading
@@ -25,6 +26,7 @@ from controlled_peptide_generation_tpu_torch import config as TC
 from controlled_peptide_generation_tpu_torch import pipeline
 from controlled_peptide_generation_tpu_torch import serve as S
 from controlled_peptide_generation_tpu_torch.api import load_vocab
+from controlled_peptide_generation_tpu_torch.utils import tracing
 
 from test_torch_pipeline import FLAGS, run_dir  # noqa: F401
 from test_torch_serial import VOCAB
@@ -255,6 +257,11 @@ def test_execution_oom_shrinks_round_and_recovers(monkeypatch):
         pass
 
     class Event:
+        # launch_round's device span: its timing events read as completed,
+        # 1 ms apart; the first wait on it raises
+        start = stop = types.SimpleNamespace(query=lambda: True,
+                                             elapsed_time=lambda _: 1.0)
+
         def synchronize(self):
             finishes["n"] += 1
             if finishes["n"] == 1:
@@ -475,3 +482,100 @@ def test_canary_trip_fails_queued_requests(monkeypatch):
         httpd.shutdown()
         httpd.server_close()
         srv.stop()
+
+
+def _waits(snap):
+    return sum(snap["queue_wait"]["counts"])
+
+
+def test_queue_wait_counts_every_request(server):
+    """Each request served adds one wait (generate() to its first row). No
+    span is recorded, and on the CPU no round has device time."""
+    tracing.clear()
+    before = server.stats_snapshot()
+    done = []
+
+    def ask():
+        done.append(len(server.generate(2, timeout=TIMEOUT)))
+
+    threads = [threading.Thread(target=ask) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TIMEOUT)
+    assert done == [2, 2, 2]
+    assert len(server.generate(1, timeout=TIMEOUT)) == 1
+    after = server.stats_snapshot()
+    assert _waits(after) - _waits(before) == 4
+    assert after["queue_wait"]["counts"][-1] == before["queue_wait"][
+        "counts"][-1]
+    assert tracing.spans() == []
+    assert after["device_s"] == after["device_gap_s"] == 0.0
+    assert set(after["stage_s"]) == {"d2h", "host_postproc"}
+    json.dumps(after)
+
+
+def test_queue_wait_overflow_counts_failed_requests():
+    """A request that times out, or that stop() fails, before its first
+    row counts in the overflow bucket, whose share reads as an infinite
+    percentile."""
+
+    class _EmptyRounds(S.GenerationServer):
+        def _launch_guarded(self, n):
+            return n, time.perf_counter(), None
+
+        def _finish_round(self, pending):
+            time.sleep(0.02)
+            return []
+
+    srv = _bare(8, cls=_EmptyRounds).start()
+    errs = []
+
+    def ask():
+        try:
+            srv.generate(3, timeout=30)
+        except RuntimeError as e:
+            errs.append(e)
+
+    t = threading.Thread(target=ask)
+    try:
+        with pytest.raises(TimeoutError):
+            srv.generate(2, timeout=0.05)
+        t.start()
+        time.sleep(0.2)
+    finally:
+        srv.stop()
+    t.join(10)
+    assert not t.is_alive() and len(errs) == 1
+    snap = srv.stats_snapshot()["queue_wait"]
+    assert sum(snap["counts"]) == snap["counts"][-1] == 2
+    assert tracing.Histogram.percentile(snap, 95) == float("inf")
+
+
+def test_worker_spans_have_the_workers_parents(server):
+    """Spans forced on around a client's request: the worker thread's
+    round spans (launch, postproc, distribute) carry its own parents,
+    never the client's span open on another thread."""
+    with server._lock:
+        server._spare.clear()
+    tracing.clear()
+    tracing.enable()
+    try:
+        with tracing.span("client") as client:
+            server.generate(3, timeout=TIMEOUT)
+            server.generate(3, timeout=TIMEOUT)
+    finally:
+        tracing.enable(False)
+    worker = server._worker.ident
+    spans = [s for s in tracing.spans() if s.name.startswith("serve.")]
+    names = {s.name for s in spans}
+    assert {"serve.round.launch", "serve.postproc",
+            "serve.distribute"} <= names
+    assert "serve.round.wait" not in names      # no device span on the CPU
+    for s in spans:
+        assert s.thread == worker and s.parent is None, s
+    assert tracing.spans("client")[0].thread != worker
+    launched = {s.ids["round"] for s in tracing.spans("serve.round.launch")}
+    assert launched & {s.ids["round"] for s in
+                       tracing.spans("serve.postproc")}
+    assert client.parent is None

@@ -5,7 +5,9 @@ test_torch_train_tfm.py: a chunk of 3 steps against JAX
 the JAX draws of ``fold_in(key, it)`` injected (GRU with either Adam, and
 the transformer with its blocks' dropout); ``aligned_unroll`` against
 JAX's; and tiny CLI runs at --hw.unroll 5 and 1 giving the same
-checkpoints bit for bit and the same result.json rows.
+checkpoints bit for bit and the same result.json rows, recording no span
+while the loop's counters count the chunks; with spans on, the loop's
+spans at their cadences, nested in its boundaries.
 
 Tolerances: the last step's metrics rtol 1e-5; params and Adam moments
 rtol 1e-5 / atol 1e-6, as test_torch_train.py holds the optimizer (fp32
@@ -30,6 +32,7 @@ from controlled_peptide_generation_tpu.train.train_vae import (
 from controlled_peptide_generation_tpu_torch import main as t_main
 from controlled_peptide_generation_tpu_torch.train import checkpoints as t_ck
 from controlled_peptide_generation_tpu_torch.train import train_vae as t_tv
+from controlled_peptide_generation_tpu_torch.utils import tracing
 
 import test_torch_train as gru_t
 import test_torch_train_tfm as tfm_t
@@ -175,8 +178,17 @@ def _tiny_run(tmp_path, name, unroll):
 def test_tiny_cli_unroll_matches_per_step(tmp_path, one_thread):
     """--hw.unroll 5 (chunks of 5 between the log boundaries every 10 and
     25 iterations) and --hw.unroll 1 give the same checkpoints bit for bit
-    and the same logged rows (the rates aside)."""
+    and the same logged rows (the rates aside). With no profiler and
+    spans not forced on, the loop records no span; its loader and
+    boundary counters count the 20 chunks of the --hw.unroll 5 run."""
+    tracing.clear()
+    before = tracing.snapshot()
     runs = {u: _tiny_run(tmp_path, f"u{u}", u) for u in (5, 1)}
+    after = tracing.snapshot()
+    assert tracing.spans() == []
+    for name in ("train.loader", "train.boundary"):
+        assert after[name]["count"] - before.get(
+            name, {"count": 0})["count"] == 20, name
     for it in (25, 50, 75, 100):
         with np.load(os.path.join(runs[5], f"model_{it}.npz")) as a, \
                 np.load(os.path.join(runs[1], f"model_{it}.npz")) as b:
@@ -191,3 +203,37 @@ def test_tiny_cli_unroll_matches_per_step(tmp_path, one_thread):
     assert rows[5] == rows[1]
     assert [r["it"] for r in rows[5] if "train_L_vae" in r] == sorted(
         set(range(0, 101, 10)) | {25, 75})
+
+
+def test_tiny_cli_spans_follow_the_loop(tmp_path, one_thread):
+    """With spans forced on, the tiny run at --hw.unroll 5 (step 0, then
+    20 chunks of 5 steps; a sample every 10 and at each checkpoint, every
+    25): a loader and a boundary span a chunk and step 0, each counted
+    chunk's in the counters; train.sample and train.save at their
+    cadences, each nested in the boundary of its step."""
+    tracing.clear()
+    before = tracing.snapshot()
+    tracing.enable()
+    try:
+        _tiny_run(tmp_path, "spans", 5)
+    finally:
+        tracing.enable(False)
+    after = tracing.snapshot()
+    chunk_its = list(range(1, 100, 5))
+    loader = [s.ids["it"] for s in tracing.spans("train.loader")]
+    assert loader == [0] + chunk_its
+    bounds = {s.ids["it"]: s for s in tracing.spans("train.boundary")}
+    assert sorted(bounds) == [0] + [i + 4 for i in chunk_its]
+    cheap = sorted(set(range(0, 101, 10)) | {25, 75})
+    samples = tracing.spans("train.sample")
+    assert [s.ids["it"] for s in samples] == cheap
+    saves = tracing.spans("train.save")
+    assert [s.ids["it"] for s in saves] == [25, 50, 75, 100]
+    for s in samples + saves:
+        b = bounds[s.ids["it"]]
+        assert s.parent == b.id and b.start_ns <= s.start_ns <= s.end_ns \
+            <= b.end_ns
+    assert tracing.spans("train.fetch")
+    for name in ("train.loader", "train.boundary"):
+        d = after[name]["count"] - before.get(name, {"count": 0})["count"]
+        assert d == len(chunk_its), name
